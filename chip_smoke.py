@@ -4,20 +4,38 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
   1. the card (nvidia-smi name and power limit), torch's CUDA and nvcc;
-  2. build the four CUDA kernels from csrc/ (timed);
-  3. hold each kernel against its plain PyTorch version at pipeflow30
-     shapes (a near-equilibrium fluid and the packed vertex set), and time
-     kernel, plain version and, where one exists, the single PyTorch call
-     computing the same function; print the ``kernels`` JSON line;
+  2. build the CUDA kernels from csrc/ (timed);
+  3. hold K1-K4 against their plain PyTorch versions at pipeflow30 shapes (a
+     near-equilibrium fluid and the packed vertex set; K2 with and without
+     its uncapped extra force), and time kernel, plain version and, where
+     one exists, the single PyTorch call computing the same function;
   4. pipeflow30 at full size (248x56x56, radius 25, 30% hematocrit, packed by
      tools/packcells): 1000 coupled iterations through K1-K4 with the launch
      counts read around the run, MLUPS, and the physical checks; then a
      torch.profiler window of 100 more iterations (device time by kernel and
      the device's idle share);
   5. a small walled pipe with 2 RBC + 1 PLT run on the card and with the
-     plain versions on the CPU from the same state, compared after 41 steps.
+     plain versions on the CPU from the same state, compared after 41 steps;
+  6. hold K5 (repulsion), K6 (CEPAC) and K7 (Lees-Edwards) against their
+     plain versions at the shapes of the 128^3 suspension (872 RBC, 559,824
+     vertices; one node overfull with vertices of several cells, 5% of the
+     cells dead), and K1, K2 (without and with its extra force) and K3 once
+     more at these shapes;
+  7. the suspension at full size: presets.rbc_suspension 128^3, 872 RBC (30%
+     hematocrit), repulsion every step, CEPAC with a Dirichlet slab, 500
+     iterations through K1, K2, K3, K5, K6, with launch counts, MLUPS, the
+     physical checks, the repulsion of one further step held against the
+     plain version on the evolved positions, and a profiler window;
+  8. the same box under Lees-Edwards shear of 100/s from the linear
+     profile, 500 iterations through K7, K2, K3, K5, the fitted shear slope
+     and the accumulated displacement; and the empty box, 200 iterations,
+     whose profile must stay put;
+  9. a 32^3 box with 8 RBC with repulsion, CEPAC and Lees-Edwards on in
+     turn, on the card and with the plain versions on the CPU from the same
+     state, compared after 41 steps.
 
-The last line is ``{"ok": true, "device": {...}}``.
+Then the ``kernels`` JSON line (all seven), the card, and as the last line
+``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (from the repository root, one GPU)
 """
@@ -40,18 +58,31 @@ SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock: longer than issuing a 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
+SUSP_ITERATIONS = 500
+SUSP_SHAPE = (128, 128, 128)
+SUSP_CELLS = 872
+LE_VELOCITY = 100.0 * 1e-7 * 128  # 100/s * dt * Z = 1.28e-3 lu/step
+
 REPLACES = {
     "stream_collide": "hemocell_tpu/fluid/pallas_lbm.py:488",
     "spread": "hemocell_tpu/ibm/pallas_ibm.py:757",
     "interp": "hemocell_tpu/ibm/pallas_ibm.py:877",
     "wall_hit_cells": "hemocell_tpu/ibm/pallas_ibm.py:987",
+    "repulsion": "hemocell_tpu/cells/pallas_repulsion.py:110",
+    "ad_stream_collide": "hemocell_tpu/fluid/advection_diffusion.py:129",
+    "le_stream_collide": "hemocell_tpu/fluid/lees_edwards.py:142",
 }
 SOURCES = {
     "stream_collide": "hemocell_tpu_torch/csrc/stream_collide.cu",
     "spread": "hemocell_tpu_torch/csrc/spread.cu",
     "interp": "hemocell_tpu_torch/csrc/interp.cu",
     "wall_hit_cells": "hemocell_tpu_torch/csrc/wall_hit.cu",
+    "repulsion": "hemocell_tpu_torch/csrc/repulsion.cu",
+    "ad_stream_collide": "hemocell_tpu_torch/csrc/ad_stream_collide.cu",
+    "le_stream_collide": "hemocell_tpu_torch/csrc/stream_collide.cu",
 }
+KERNEL_ORDER = ("stream_collide", "spread", "interp", "wall_hit_cells", "repulsion",
+                "ad_stream_collide", "le_stream_collide")
 
 
 def fail(msg: str) -> int:
@@ -140,20 +171,23 @@ def kernel_inputs(hc, seed=0):
     return f, pos.contiguous(), force, active, pos_adv.contiguous(), cell_id, len(nv)
 
 
-def phase_kernels(hc):
-    """Each kernel against its plain version on the same inputs."""
+def compare_fluid_ibm(tag, f, pos, force, active, flags, f_lim, omega, bf):
+    """K2 (without and with its uncapped extra force), K1 on the spread
+    field plus the body force, and K3 on the resulting velocity, each
+    against its plain version on the same inputs, timed.  Tolerances: K2
+    1e-5 of the largest field value (f32 atomics in run-dependent order),
+    K1 and K3 1e-6.  Returns the rows of K2, K1, K3 and the count of nodes
+    the stencils touch."""
     import torch
 
     from hemocell_tpu_torch.fluid import lbm
     from hemocell_tpu_torch.fluid.stream_collide import stream_collide
     from hemocell_tpu_torch.ibm import coupling, kernels
 
-    f, pos, force, active, pos_adv, cell_id, n_cells = kernel_inputs(hc)
-    flags, shape, f_lim = hc.flags, hc.shape, hc.params.f_limit
+    dev = f.device
+    shape = tuple(flags.shape)
     N = int(np.prod(shape))
     P = pos.shape[0]
-    omega = hc.omega
-    bf = torch.tensor(hc.body_force, device=hc.device)[:, None, None, None]
     rows = []
 
     # K2 spread: f32 atomics in run-dependent order vs index_add_
@@ -167,20 +201,40 @@ def phase_kernels(hc):
     touched = int(torch.unique(flat_all).numel())
     flat = flat_all.reshape(-1)
     contrib = (w[..., None] * coupling.cap_force(force, f_lim)[:, None, :]).reshape(-1, 3)
-    acc = torch.zeros((N, 3), device=hc.device)
+    acc = torch.zeros((N, 3), device=dev)
     lib = time_ms(lambda: acc.zero_().index_add_(0, flat, contrib), 50)
+    del acc, contrib, field_ref
     b, by = bound_ms(P * 28 + touched * 1 + 3 * N * 4, P * 120)
+    # again with the uncapped extra force (what repulsion adds after the cap):
+    # twice the cap, so a kernel capping the sum would disagree
+    g = torch.Generator(device="cpu").manual_seed(1)
+    extra = (2.0 * f_lim * torch.randn((P, 3), generator=g)).to(dev)
+    field_x = kernels.spread(pos, force, active, flags, f_lim, force_extra=extra)
+    ref_x = coupling.spread_forces(pos, force, active, flags, f_lim, extra)
+    err_x = float((field_x - ref_x).abs().max())
+    scale_x = float(ref_x.abs().max())
+    tol_x = 1e-5 * scale_x
+    del field_x, ref_x
+    print(f"{tag} spread with force_extra: max_abs_err {err_x:.3e} (tol {tol_x:.3e}); "
+          f"max|field| {scale_x:.3e} vs {scale:.3e} without", flush=True)
+    if not (err_x <= tol_x and scale_x > 1.5 * scale):
+        raise AssertionError("spread with force_extra disagrees with its plain version")
+    ms_x = time_ms(lambda: kernels.spread(pos, force, active, flags, f_lim,
+                                          force_extra=extra), 50)
+    print(f"{tag} spread with force_extra: kernel {ms_x:.4f} ms", flush=True)
     rows.append(dict(name="spread", tol=tol, max_abs_err=err,
                      ms=time_ms(lambda: kernels.spread(pos, force, active, flags, f_lim), 50),
                      plain_ms=time_ms(
                          lambda: coupling.spread_forces(pos, force, active, flags, f_lim), 10),
-                     bound_ms=b, bound_by=by, library_ms=lib))
+                     bound_ms=b, bound_by=by, library_ms=lib,
+                     with_force_extra=dict(max_abs_err=err_x, tol=tol_x, ms=ms_x)))
 
     # K1 stream-collide with the spread force field + body force
     force_field = field + bf
     out = stream_collide(f, force_field, omega, flags)
     ref = lbm.stream_collide(f, force_field, omega, flags)
     err, tol = float((out - ref).abs().max()), 1e-6
+    del ref
     b, by = bound_ms(N * (19 * 4 * 2 + 1 + 12), N * 600)
     rows.append(dict(name="stream_collide", tol=tol, max_abs_err=err,
                      ms=time_ms(lambda: stream_collide(f, force_field, omega, flags), 50),
@@ -195,7 +249,7 @@ def phase_kernels(hc):
     err, tol = float((v - v_ref).abs().max()), 1e-6
     nz = w.reshape(-1) != 0
     touched_u = int(torch.unique(flat[nz]).numel())
-    rows_idx = torch.arange(P, device=hc.device).repeat_interleave(8)
+    rows_idx = torch.arange(P, device=dev).repeat_interleave(8)
     W = torch.sparse_coo_tensor(torch.stack([rows_idx, flat]), w.reshape(-1),
                                 (P, N)).coalesce().to_sparse_csr()
     uT = u.reshape(3, N).T.contiguous()
@@ -206,6 +260,22 @@ def phase_kernels(hc):
                      plain_ms=time_ms(
                          lambda: coupling.interp_velocity(u, pos, active, flags), 10),
                      bound_ms=b, bound_by=by, library_ms=lib))
+    return rows
+
+
+def phase_kernels(hc):
+    """Each kernel against its plain version on the same inputs."""
+    import torch
+
+    from hemocell_tpu_torch.ibm import coupling, kernels
+
+    f, pos, force, active, pos_adv, cell_id, n_cells = kernel_inputs(hc)
+    flags, shape = hc.flags, hc.shape
+    N = int(np.prod(shape))
+    P = pos.shape[0]
+    bf = torch.tensor(hc.body_force, device=hc.device)[:, None, None, None]
+    rows = compare_fluid_ibm("[3]", f, pos, force, active, flags, hc.params.f_limit,
+                             hc.omega, bf)
 
     # K4 wall hits on displaced positions: exact integers
     hits = kernels.wall_hit_cells(pos_adv, cell_id, flags, n_cells)
@@ -225,24 +295,42 @@ def phase_kernels(hc):
                          pos_adv, cell_id, flags, n_cells), 10),
                      bound_ms=b, bound_by=by, library_ms=None))
 
-    for r in rows:
-        print(f"[3] {r['name']}: max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e}) "
-              f"| kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms "
-              f"| library {r['library_ms']} ms | bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bound_by']})", flush=True)
-        if not (r["max_abs_err"] <= r["tol"]):
-            raise AssertionError(f"{r['name']} disagrees with its plain version")
+    check_rows("[3]", rows)
     print(f"[3] shapes: lattice {shape} ({N} nodes), {P} vertices, {n_cells} cells",
           flush=True)
     return {r["name"]: r for r in rows}
 
 
+def check_rows(tag, rows):
+    """Print each comparison and fail on a kernel outside its tolerance."""
+    for r in rows:
+        print(f"{tag} {r['name']}: max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e}) "
+              f"| kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms "
+              f"| library {r['library_ms']} ms | bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']})", flush=True)
+        if not (r["max_abs_err"] <= r["tol"]):
+            raise AssertionError(f"{r['name']} disagrees with its plain version")
+
+
 def counters():
+    from hemocell_tpu_torch.cells.repulsion import repulsion
+    from hemocell_tpu_torch.fluid.advection_diffusion import ad_stream_collide
+    from hemocell_tpu_torch.fluid.lees_edwards import le_stream_collide
     from hemocell_tpu_torch.fluid.stream_collide import stream_collide
     from hemocell_tpu_torch.ibm import kernels
 
     return {"stream_collide": stream_collide, "spread": kernels.spread,
-            "interp": kernels.interp, "wall_hit_cells": kernels.wall_hit_cells}
+            "interp": kernels.interp, "wall_hit_cells": kernels.wall_hit_cells,
+            "repulsion": repulsion, "ad_stream_collide": ad_stream_collide,
+            "le_stream_collide": le_stream_collide}
+
+
+def reset_counters():
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+        fn.plain_calls = 0
+    return fns
 
 
 def phase_pipeflow(hc, smi):
@@ -252,10 +340,7 @@ def phase_pipeflow(hc, smi):
     n0 = [hc.alive_count(0), hc.alive_count(1)]
     mass0 = float(hc.state.f.double().sum())
     N = int(np.prod(hc.shape))
-    fns = counters()
-    for fn in fns.values():
-        fn.launches = 0
-        fn.plain_calls = 0
+    fns = reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hc.iterate(ITERATIONS)
@@ -278,8 +363,10 @@ def phase_pipeflow(hc, smi):
     print(f"[4] cells {n0} -> {n1} | max|u| {umax:.4e} | mass drift per node {dmass:.3e} "
           f"| mean RBC force {force_pn:.4f} pN | launches {launches} | plain calls {plain}",
           flush=True)
-    expected = {"stream_collide": ITERATIONS, "spread": ITERATIONS,
-                "interp": ITERATIONS // hc.particle_every, "wall_hit_cells": ITERATIONS}
+    expected = dict.fromkeys(KERNEL_ORDER, 0)
+    expected.update({"stream_collide": ITERATIONS, "spread": ITERATIONS,
+                     "interp": ITERATIONS // hc.particle_every,
+                     "wall_hit_cells": ITERATIONS})
     checks = {
         "finite state": finite,
         "max|u| < 0.1": umax < 0.1,
@@ -296,31 +383,33 @@ def phase_pipeflow(hc, smi):
     return launches, dt * 1e6 / ITERATIONS
 
 
-def phase_profile(hc, wall_us_per_it, n=100):
-    """Device time by kernel over n more pipeflow30 iterations
+def phase_profile(tag, advance, wall_us_per_it, n=100):
+    """Device time by kernel over n more iterations of ``advance(k)``
     (torch.profiler), and the device's idle share of the unprofiled wall
-    time per iteration measured by phase_pipeflow."""
+    time per iteration measured by the run before."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    hc.iterate(5)
-    hc.block()
+    advance(5)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        hc.iterate(n)
-        hc.block()
+        advance(n)
+        torch.cuda.synchronize()
         prof_wall_us = (time.perf_counter() - t0) * 1e6 / n
     rows = [(e.key, e.self_device_time_total / n, e.count / n) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows)
     if busy == 0:
-        print("[4] profile: the profiler recorded no device time (not measured)", flush=True)
+        print(f"{tag} profile: the profiler recorded no device time (not measured)",
+              flush=True)
         return
-    print(f"[4] profile over {n} iterations: device busy {busy:.1f} us/it; wall "
+    print(f"{tag} profile over {n} iterations: device busy {busy:.1f} us/it; wall "
           f"{wall_us_per_it:.1f} us/it unprofiled ({prof_wall_us:.1f} profiled); idle share "
           f"{1 - busy / wall_us_per_it:.3f} of the unprofiled wall", flush=True)
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:15]:
-        print(f"[4]   {us:8.2f} us/it {100 * us / busy:5.1f}%  x{count:.2f}/it  {key[:90]}",
+        print(f"{tag}   {us:8.2f} us/it {100 * us / busy:5.1f}%  x{count:.2f}/it  {key[:90]}",
               flush=True)
 
 
@@ -385,6 +474,422 @@ def phase_small_reference():
         shutil.rmtree(d, ignore_errors=True)
 
 
+def build_suspension():
+    """The 128^3 suspension of presets.rbc_suspension: 872 RBC on the
+    preset's grid (30% hematocrit), body force, repulsion at the preset's
+    constants every step; CEPAC (D = 1/6) fed by a Dirichlet slab of value
+    0.05 on the planes x = 0, 1."""
+    import dataclasses
+
+    import torch
+
+    from hemocell_tpu_torch.fluid.advection_diffusion import tau_from_diffusivity
+    from hemocell_tpu_torch.presets import rbc_suspension
+
+    t0 = time.time()
+    cfg, state, meta = rbc_suspension(
+        shape=SUSP_SHAPE, n_cells=SUSP_CELLS, body_force=(5e-7, 0.0, 0.0),
+        particle_every=5, material_every=20, repulsion=True, device="cuda")
+    mask = torch.zeros(SUSP_SHAPE, dtype=torch.uint8, device="cuda")
+    mask[0:2] = 1
+    value = torch.full(SUSP_SHAPE, 0.05, device="cuda")
+    cepac_cfg = dataclasses.replace(cfg, cepac_tau=tau_from_diffusivity(1.0 / 6.0),
+                                    cepac_dirichlet_mask=mask, cepac_dirichlet_value=value)
+    le_cfg = dataclasses.replace(cfg, body_force=None, lees_edwards_velocity=LE_VELOCITY)
+    print(f"[6] suspension {SUSP_SHAPE}: {meta['n_cells']} RBC, {meta['n_vertices']} "
+          f"vertices, hematocrit {meta['hematocrit']:.4f}, repulsion constant "
+          f"{cfg.repulsion_constant:.3e} lu cutoff {cfg.repulsion_cutoff} lu, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    return dict(cfg=cfg, cepac_cfg=cepac_cfg, le_cfg=le_cfg, cells=state.cells, meta=meta,
+                mask=mask, value=value)
+
+
+def phase_suspension_kernels(susp):
+    """K5, K6, K7 against their plain versions at the suspension's shapes,
+    and K1, K2, K3 again at these shapes (phase 3 holds them at pipeflow30's).
+    Returns the rows of K5-K7 and the 128^3 rows of K1-K3."""
+    import torch
+
+    from hemocell_tpu_torch.cases.leesedwards import shear_velocity
+    from hemocell_tpu_torch.cells import repulsion as rep
+    from hemocell_tpu_torch.fluid import advection_diffusion as ad
+    from hemocell_tpu_torch.fluid import lbm
+    from hemocell_tpu_torch.fluid import lees_edwards as le
+    from hemocell_tpu_torch.fluid.stream_collide import launch as launch_k1
+
+    cfg = susp["cfg"]
+    dev = torch.device("cuda")
+    shape = cfg.shape
+    X, Y, Z = shape
+    N = X * Y * Z
+    g = torch.Generator(device="cpu").manual_seed(2)
+    rows = []
+
+    # ---- K5: the suspension's own vertex set (neighbouring discs of the grid
+    # start overlap, so there are pairs), displaced by 0.3 lu of noise, with
+    # 3 vertices of each of 6 cells moved onto one node (18 > BIN_CAPACITY,
+    # several cells) and 5% of the cells dead
+    cs = susp["cells"][0]
+    nc, nv = cs.pos.shape[:2]
+    P = nc * nv
+    pos = cs.pos + (0.3 * torch.randn(cs.pos.shape, generator=g)).to(dev)
+    node = torch.tensor([40.0, 41.0, 42.0], device=dev)
+    crowd = (0.3 * (torch.rand((6, 3, 3), generator=g) - 0.5)).to(dev)
+    pos[100:106, :3] = node + crowd
+    pos = pos.reshape(P, 3).contiguous()
+    alive = torch.rand(nc, generator=g) > 0.05
+    alive[100:106] = True
+    active = alive.float().repeat_interleave(nv).to(dev)
+    gid = torch.arange(nc, dtype=torch.int32).repeat_interleave(nv).to(dev)
+    k_rep, cutoff = cfg.repulsion_constant, cfg.repulsion_cutoff
+    out = rep.repulsion(pos, gid, active, shape, k_rep, cutoff)
+    torch.cuda.synchronize()
+    ref = rep.repulsion_forces(pos, gid, active, shape, k_rep, cutoff)
+    scale = float(ref.abs().max())
+    # relative tolerance: f32 sums of up to 270 terms in another order
+    err, tol = float((out - ref).abs().max()), 1e-5 * scale
+    pushed = int((ref.abs().sum(dim=1) > 0).sum())
+    # candidates this input makes each live vertex look at: the occupancy of
+    # its 27 bins, each cut at BIN_CAPACITY
+    _, nodes, bin_id, _ = rep._bin_vertices(pos, active, shape)
+    occ = torch.bincount(bin_id, minlength=N + 1)[:N].reshape(shape)
+    crowd_occ = int(occ[40, 41, 42])
+    capped = torch.clamp(occ, max=rep.BIN_CAPACITY)
+    seen = torch.zeros_like(capped)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                seen += torch.roll(capped, (dx, dy, dz), dims=(0, 1, 2))
+    live = active > 0
+    candidates = int(seen[nodes[live, 0], nodes[live, 1], nodes[live, 2]].sum())
+    print(f"[6] repulsion input: {P} vertices, {int((~alive).sum())} dead cells, "
+          f"{pushed} vertices with a partner, {candidates} candidate pairs, node "
+          f"(40,41,42) holds {crowd_occ} vertices (cap {rep.BIN_CAPACITY}), "
+          f"max|F| {scale:.3e}", flush=True)
+    if crowd_occ <= rep.BIN_CAPACITY or pushed < 500 or int((~alive).sum()) == 0:
+        raise AssertionError("repulsion comparison input does not exercise the kernel")
+    b, by = bound_ms(P * (12 + 4 + 4 + 12), candidates * 25)
+    plain_ms = time_ms(lambda: rep.repulsion_forces(pos, gid, active, shape, k_rep, cutoff),
+                       2, warmup=0)
+    del ref
+    torch.cuda.empty_cache()
+    rows.append(dict(name="repulsion", tol=tol, max_abs_err=err,
+                     ms=time_ms(lambda: rep.repulsion(pos, gid, active, shape, k_rep,
+                                                      cutoff), 20),
+                     plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None))
+
+    # ---- K6: a CEPAC field around concentration 0.02 advected by a sheared,
+    # noisy velocity, with the Dirichlet slab
+    u = shear_velocity(shape, 1e-4, device=dev) + (0.01 * torch.randn((3,) + shape,
+                                                               generator=g)).to(dev)
+    gpop = ad.ad_initial_state(shape, 0.02, device=dev)
+    gpop = gpop + (1e-4 * torch.randn(gpop.shape, generator=g)).to(dev)
+    tau = susp["cepac_cfg"].cepac_tau
+    mask, value = susp["mask"], susp["value"]
+    worst = 0.0
+    for m, v in ((None, None), (mask, value)):
+        worst = max(worst, float((ad.ad_stream_collide(gpop, u, tau, m, v)
+                                  - ad.ad_stream_collide_plain(gpop, u, tau, m, v)
+                                  ).abs().max()))
+    b, by = bound_ms(N * (19 * 4 * 2 + 12 + 1 + 4), N * 150)
+    rows.append(dict(name="ad_stream_collide", tol=1e-6, max_abs_err=worst,
+                     ms=time_ms(lambda: ad.ad_stream_collide(gpop, u, tau, mask, value), 50),
+                     plain_ms=time_ms(lambda: ad.ad_stream_collide_plain(
+                         gpop, u, tau, mask, value), 5),
+                     bound_ms=b, bound_by=by, library_ms=None))
+    del gpop
+
+    # ---- K7: populations around the shear profile, a force field of the
+    # spread's magnitude, a displacement with integer and fractional part
+    gamma = LE_VELOCITY / Z
+    rho = 1.0 + (1e-3 * torch.randn(shape, generator=g)).to(dev)
+    f = lbm.equilibrium_dev(rho, shear_velocity(shape, gamma, device=dev) + 0.1 * u)
+    f = f + (1e-5 * torch.randn(f.shape, generator=g)).to(dev)
+    force = (1e-5 * torch.randn((3,) + shape, generator=g)).to(dev)
+    disp = torch.tensor(37.3)
+    out = le.le_stream_collide(f, force, cfg.omega, disp, LE_VELOCITY)
+    ref = le.le_stream_collide_plain(f, force, cfg.omega, disp, LE_VELOCITY)
+    err = float((out - ref).abs().max())
+    # the planes changed something: without them the step differs on the faces
+    periodic = launch_k1(f, force, cfg.omega, None)
+    face_diff = float((out - periodic).abs().max())
+    inner_diff = float((out - periodic)[:, :, :, 2:Z - 2].abs().max())
+    print(f"[6] le_stream_collide vs the periodic step: max diff {face_diff:.3e} on the "
+          f"z faces, {inner_diff:.3e} inside", flush=True)
+    if not (face_diff > 1e-5 and inner_diff == 0.0):
+        raise AssertionError("the Lees-Edwards planes did not act on the z faces only")
+    planes = le._corrected_planes(f, force, cfg.omega, disp, LE_VELOCITY)
+    launch_ms = time_ms(lambda: launch_k1(f, force, cfg.omega, None, le_planes=planes), 50)
+    b, by = bound_ms(N * (19 * 4 * 2 + 12), N * 600)
+
+    # The wrapper issues ~140 PyTorch launches for the two planes: few enough
+    # repetitions that the host has queued them all before the sleep kernel
+    # ends, so the reading is device time.  Two depths, which must agree if
+    # neither outran the sleep.
+    def k7():
+        return le.le_stream_collide(f, force, cfg.omega, disp, LE_VELOCITY)
+
+    ms5, ms3 = time_ms(k7, 5), time_ms(k7, 3)
+    rows.append(dict(name="le_stream_collide", tol=1e-6, max_abs_err=err, ms=ms5,
+                     plain_ms=time_ms(lambda: le.le_stream_collide_plain(
+                         f, force, cfg.omega, disp, LE_VELOCITY), 5),
+                     bound_ms=b, bound_by=by, library_ms=None, launch_alone_ms=launch_ms))
+    print(f"[6] le_stream_collide: wrapper {ms5:.4f} ms over 5 queued calls, {ms3:.4f} ms "
+          f"over 3; the kernel launch alone {launch_ms:.4f} ms; the rest is the two "
+          f"corrected planes in PyTorch", flush=True)
+    del planes, periodic, out, ref
+
+    # ---- K1, K2 (without and with force_extra), K3 at this box's shapes:
+    # all-fluid flags, the vertex set and the populations from above, vertex
+    # forces of the cap's magnitude, the suspension's body force
+    f_lim = cfg.f_limit
+    vforce = (0.6 * f_lim * torch.randn((P, 3), generator=g)).to(dev)
+    flags = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    bf = torch.tensor(cfg.body_force, device=dev)[:, None, None, None]
+    rows128 = compare_fluid_ibm("[6]", f, pos, vforce, active, flags, f_lim, cfg.omega, bf)
+    check_rows("[6]", rows)
+    check_rows("[6] at 128^3:", rows128)
+    torch.cuda.empty_cache()
+    return {r["name"]: r for r in rows}, {r["name"]: r for r in rows128}
+
+
+def run_gated(tag, name, cfg, state, n, expected, smi, extra_checks=None):
+    """n iterations of build_runner(cfg) from ``state`` with the counts read
+    around the run; the gates shared by the suspension runs.  Returns (final
+    state, launches, runner, wall us per iteration)."""
+    import torch
+
+    from hemocell_tpu_torch.cells import repulsion as rep
+    from hemocell_tpu_torch.dynamics import build_runner
+    from hemocell_tpu_torch.fluid import lbm
+
+    run = build_runner(cfg)
+    N = int(np.prod(cfg.shape))
+    mass0 = float(state.f.double().sum())
+    n_cells = sum(int(cs.alive.sum()) for cs in state.cells)
+    fns = reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = run(state, n)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    plain = {k: fn.plain_calls for k, fn in fns.items()}
+    print(f"{tag} {name} {cfg.shape}: {n} iterations in {dt:.3f} s = "
+          f"{N * n / dt / 1e6:.1f} MLUPS on {smi}", flush=True)
+    finite = bool(torch.isfinite(state.f).all()) and all(
+        bool(torch.isfinite(cs.pos).all() & torch.isfinite(cs.vel).all()
+             & torch.isfinite(cs.force).all() & torch.isfinite(cs.force_repulsion).all())
+        for cs in state.cells)
+    _, u = lbm.macroscopic(state.f)
+    umax = float(u.abs().max())
+    dmass = abs(float(state.f.double().sum()) - mass0) / N
+    alive = sum(int(cs.alive.sum()) for cs in state.cells)
+    frep = max(float(cs.force_repulsion.abs().max()) for cs in state.cells)
+    print(f"{tag} cells alive {alive}/{n_cells} | max|u| {umax:.4e} | mass drift per node "
+          f"{dmass:.3e} | max|F_rep| {frep:.3e} | launches {launches} | plain calls "
+          f"{plain}", flush=True)
+    full = dict.fromkeys(KERNEL_ORDER, 0)
+    full.update(expected)
+    checks = {
+        "finite state": finite,
+        "max|u| < 0.1": umax < 0.1,
+        "mass conserved (drift per node < 1e-6)": dmass < 1e-6,
+        "all cells alive": alive == n_cells,
+        "repulsion acted": frep > 0.0,
+        "launch counts": launches == full,
+        "no plain version on the main path": not any(plain.values()),
+    }
+    checks.update(extra_checks(state) if extra_checks else {})
+    # the run's own repulsion at full size: one more step (after the counts
+    # were read) recomputes force_repulsion on the evolved positions; the
+    # plain version on the same positions must agree (relative 1e-5, as in
+    # phase 6)
+    cs0 = state.cells[0]
+    nc, nv = cs0.pos.shape[:2]
+    ref = rep.repulsion_forces(
+        cs0.pos.reshape(-1, 3), torch.arange(nc, dtype=torch.int32,
+                                             device=cs0.pos.device).repeat_interleave(nv),
+        cs0.alive.float().repeat_interleave(nv), cfg.shape, cfg.repulsion_constant,
+        cfg.repulsion_cutoff).reshape(nc, nv, 3)
+    state = run(state, 1)
+    scale = float(ref.abs().max())
+    err = float((state.cells[0].force_repulsion - ref).abs().max())
+    pairs = int((ref.abs().sum(dim=2) > 0).sum())
+    print(f"{tag} repulsion of step {n + 1} against the plain version on the evolved "
+          f"positions: max_abs_err {err:.3e} (tol {1e-5 * scale:.3e}), {pairs} vertices "
+          f"with a partner", flush=True)
+    checks["the run's repulsion equals the plain version"] = (
+        scale > 0.0 and pairs > 0 and err <= 1e-5 * scale)
+    del ref
+    for check, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"{name} check failed: {check} (expected launches {full})")
+    return state, launches, run, dt * 1e6 / n
+
+
+def phase_suspension(susp, smi):
+    """The suspension main path: 500 coupled iterations with repulsion and
+    CEPAC through K1, K2, K3, K5, K6."""
+    import torch
+
+    from hemocell_tpu_torch.dynamics import build_step, initial_sim_state
+    from hemocell_tpu_torch.fluid.advection_diffusion import concentration
+
+    cfg = susp["cepac_cfg"]
+    state = initial_sim_state(cfg, list(susp["cells"]))
+    # one step outside the count sets the Dirichlet slab: CEPAC must grow from it
+    state = build_step(cfg)(state)
+    total1 = float(concentration(state.cepac).double().sum())
+    n = SUSP_ITERATIONS
+
+    def cepac_checks(st):
+        conc = concentration(st.cepac)
+        total = float(conc.double().sum())
+        print(f"[7] CEPAC total {total1:.3f} after the first step -> {total:.3f} | "
+              f"min {float(conc.min()):.3e} max {float(conc.max()):.4f}", flush=True)
+        return {"CEPAC finite": bool(torch.isfinite(st.cepac).all()),
+                "CEPAC total non-negative": total >= 0.0,
+                "CEPAC grows from the patch": total > total1 > 0.0}
+
+    # the counted run covers it = 1 .. n; n is a multiple of both periods
+    expected = {"stream_collide": n, "spread": n, "interp": n // cfg.particle_every,
+                "repulsion": n // cfg.repulsion_every, "ad_stream_collide": n}
+    state, launches, run, wall_us = run_gated("[7]", "suspension128", cfg, state, n,
+                                              expected, smi, cepac_checks)
+    box = [state]
+
+    def advance(k):
+        box[0] = run(box[0], k)
+
+    phase_profile("[7]", advance, wall_us)
+    return launches
+
+
+def phase_lees_edwards(susp, smi):
+    """The same box under Lees-Edwards shear from the linear profile: 500
+    iterations through K7, K2, K3, K5; then the empty box."""
+    import torch
+
+    from hemocell_tpu_torch.cases.leesedwards import shear_profile_state, shear_slope
+    from hemocell_tpu_torch.dynamics import build_runner
+    from hemocell_tpu_torch.fluid import lbm
+
+    cfg = susp["le_cfg"]
+    Z = cfg.shape[2]
+    gamma = LE_VELOCITY / Z
+    n = SUSP_ITERATIONS
+    state = shear_profile_state(cfg, list(susp["cells"]), gamma)
+    want_disp = (n * LE_VELOCITY) % cfg.shape[0]
+
+    def le_checks(st):
+        slope = shear_slope(st)
+        disp = float(st.le_displacement)
+        print(f"[8] fitted du_x/dz {slope:.6e} (imposed {gamma:.6e}, ratio "
+              f"{slope / gamma:.4f}) | le_displacement {disp:.6f} lu (expected "
+              f"{want_disp:.6f})", flush=True)
+        return {"shear slope within 10% of the imposed": abs(slope - gamma) <= 0.1 * gamma,
+                "le_displacement to f32 rounding": abs(disp - want_disp) <= 1e-4}
+
+    expected = {"le_stream_collide": n, "spread": n, "interp": n // cfg.particle_every,
+                "repulsion": n // cfg.repulsion_every}
+    state, launches, run, wall_us = run_gated("[8]", "leesedwards128", cfg, state, n,
+                                              expected, smi, le_checks)
+    box = [state]
+
+    def advance(k):
+        box[0] = run(box[0], k)
+
+    phase_profile("[8]", advance, wall_us)
+    del box, state
+    torch.cuda.empty_cache()
+
+    # the empty box: the uniform shear profile is a steady state
+    empty = shear_profile_state(cfg, [], gamma)
+    empty = build_runner(cfg)(empty, 200)
+    _, u = lbm.macroscopic(empty.f)
+    prof = u[0].mean(dim=(0, 1))
+    want = gamma * (torch.arange(Z, device=prof.device) - (Z - 1) / 2.0)
+    dev = float((prof - want).abs().max())
+    print(f"[8] empty box, 200 iterations: max deviation of the plane-mean u_x from the "
+          f"imposed profile {dev:.3e} (tol 0.2 gamma = {0.2 * gamma:.3e})", flush=True)
+    if not dev <= 0.2 * gamma:
+        raise AssertionError("Lees-Edwards: the uniform shear profile is not steady")
+    return launches
+
+
+def phase_small_box():
+    """A 32^3 box with 8 RBC, with repulsion, CEPAC and Lees-Edwards on in
+    turn: 41 steps on the card and with the plain versions on the CPU from
+    the same state.  Repulsion runs at 2e-4 lu (of the size of the membrane
+    forces) so that a wrong pair sum would show.  Tolerances as in phase 5
+    (two f32 implementations): populations and CEPAC 1e-6, positions 1e-4
+    lu, repulsion force 1% of its largest value."""
+    import dataclasses
+
+    import torch
+
+    from hemocell_tpu_torch.cases.leesedwards import shear_profile_state
+    from hemocell_tpu_torch.dynamics import build_runner, initial_sim_state
+    from hemocell_tpu_torch.fluid.advection_diffusion import tau_from_diffusivity
+    from hemocell_tpu_torch.presets import rbc_suspension
+
+    shape = (32, 32, 32)
+    U = 0.02
+    rep_opts = dict(repulsion_constant=2e-4, repulsion_cutoff=1.0, repulsion_every=2)
+
+    def variant(name, device):
+        cfg, state, _ = rbc_suspension(shape=shape, n_cells=8, body_force=(2e-6, 0.0, 0.0),
+                                       particle_every=5, material_every=20, device=device)
+        if name == "repulsion":
+            cfg = dataclasses.replace(cfg, **rep_opts)
+        elif name == "cepac":
+            mask = torch.zeros(shape, dtype=torch.uint8)
+            mask[0:2] = 1
+            cfg = dataclasses.replace(
+                cfg, cepac_tau=tau_from_diffusivity(1.0 / 6.0), cepac_dirichlet_mask=mask,
+                cepac_dirichlet_value=torch.full(shape, 0.05))
+            state = initial_sim_state(cfg, list(state.cells), cepac0=0.01)
+        else:
+            cfg = dataclasses.replace(cfg, body_force=None, lees_edwards_velocity=U,
+                                      **rep_opts)
+            # one layer of cells straddles the z face
+            cells = [cs._replace(pos=cs.pos + torch.tensor([0.0, 0.0, 6.0], device=device))
+                     for cs in state.cells]
+            state = shear_profile_state(cfg, cells, U / shape[2])
+        return cfg, state
+
+    for name in ("repulsion", "cepac", "lees_edwards"):
+        runs = []
+        for device in ("cuda", "cpu"):
+            cfg, state = variant(name, device)
+            runs.append(build_runner(cfg)(state, 41))
+        gpu, cpu = runs
+        torch.cuda.synchronize()
+        err_f = float((gpu.f.cpu() - cpu.f).abs().max())
+        err_pos = float((gpu.cells[0].pos.cpu() - cpu.cells[0].pos).abs().max())
+        msg = f"[9] 32^3 box with {name}, 41 steps, card vs plain CPU: max|df| {err_f:.3e} " \
+              f"(tol 1e-6) | max|dpos| {err_pos:.3e} lu (tol 1e-4)"
+        ok = err_f <= 1e-6 and err_pos <= 1e-4
+        if name != "cepac":
+            ref = cpu.cells[0].force_repulsion
+            err_r = float((gpu.cells[0].force_repulsion.cpu() - ref).abs().max())
+            scale = float(ref.abs().max())
+            msg += f" | max|dF_rep| {err_r:.3e} (tol {1e-2 * scale:.3e})"
+            ok = ok and scale > 0.0 and err_r <= 1e-2 * scale
+        if name == "cepac":
+            err_c = float((gpu.cepac.cpu() - cpu.cepac).abs().max())
+            msg += f" | max|dcepac| {err_c:.3e} (tol 1e-6)"
+            ok = ok and err_c <= 1e-6
+        if name == "lees_edwards":
+            same = float(gpu.le_displacement) == float(cpu.le_displacement)
+            msg += f" | displacement equal {same}"
+            ok = ok and same
+        print(msg, flush=True)
+        if not ok:
+            raise AssertionError(f"small box with {name} disagrees with the plain CPU path")
+
+
 def main() -> int:
     try:
         import torch
@@ -412,17 +917,38 @@ def main() -> int:
           flush=True)
 
     rows = phase_kernels(hc)
-    launches, wall_us_per_it = phase_pipeflow(hc, smi)
-    phase_profile(hc, wall_us_per_it)
+    by_path = {}
+    by_path["pipeflow30"], wall_us_per_it = phase_pipeflow(hc, smi)
+    phase_profile("[4]", hc.iterate, wall_us_per_it)
     phase_small_reference()
+    del hc
+    torch.cuda.empty_cache()
 
-    kernels_line = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
-         "tol": rows[name]["tol"], "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
-         "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
-         "library_ms": rows[name]["library_ms"]}
-        for name in ("stream_collide", "spread", "interp", "wall_hit_cells")]}
+    susp = build_suspension()
+    rows_k567, rows128 = phase_suspension_kernels(susp)
+    rows.update(rows_k567)
+    by_path["suspension128"] = phase_suspension(susp, smi)
+    by_path["leesedwards128"] = phase_lees_edwards(susp, smi)
+    del susp
+    torch.cuda.empty_cache()
+    phase_small_box()
+
+    # ``launches`` is the count of the first full-size path that runs the
+    # kernel; ``launches_by_path`` has every path's; K1-K3 carry their
+    # comparison at the suspension's shapes under ``at_128``
+    keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    more = ("with_force_extra", "launch_alone_ms")
+    kernels_line = {"kernels": []}
+    for name in KERNEL_ORDER:
+        per_path = {path: counts[name] for path, counts in by_path.items()}
+        entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": REPLACES[name],
+                 "launches": next(c for c in per_path.values() if c > 0),
+                 "launches_by_path": per_path}
+        entry.update({k: v for k, v in rows[name].items() if k in keys + more})
+        if name in rows128:
+            entry["at_128"] = {k: v for k, v in rows128[name].items() if k in keys + more}
+        kernels_line["kernels"].append(entry)
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

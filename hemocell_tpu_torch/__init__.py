@@ -3,7 +3,7 @@
 A second package beside the JAX reference ``hemocell_tpu``; it imports
 ``torch`` and nothing of JAX or of the reference package (the jax-free
 config, mesh, lattice-constant and material modules are its own copies).
-Plain tensor code is PyTorch; the hot path runs four hand-written CUDA
+Plain tensor code is PyTorch; the hot path runs seven hand-written CUDA
 kernels for Hopper (``csrc/``), built with ``nvcc`` at first use
 (``_build.py``):
 
@@ -11,6 +11,9 @@ kernels for Hopper (``csrc/``), built with ``nvcc`` at first use
   K2  ibm/kernels.spread        boundary-aware trilinear force spread
   K3  ibm/kernels.interp        boundary-aware trilinear interpolation
   K4  ibm/kernels.wall_hit_cells  per-cell wall-contact counts
+  K5  cells/repulsion.repulsion  inter-cell repulsion (binned pair search)
+  K6  fluid/advection_diffusion.ad_stream_collide  CEPAC scalar lattice
+  K7  fluid/lees_edwards.le_stream_collide  K1 with the Lees-Edwards planes
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its kernel on CUDA tensors.  Entry points run on ``device="cuda"`` unless

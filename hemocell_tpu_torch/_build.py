@@ -29,10 +29,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (see csrc/*.cu)
 SIGNATURES = {
     "hc_stream_collide": [_P, _P, _P, _I, _F, _F, _F, _P, _F, _P, _P, _I, _F,
-                          _I, _I, _I, _P],
-    "hc_spread": [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P],
+                          _P, _I, _I, _I, _P],
+    "hc_spread": [_P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P],
     "hc_interp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_wall_hit_cells": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hc_repulsion": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P],
+    "hc_ad_stream_collide": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

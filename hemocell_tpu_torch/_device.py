@@ -3,6 +3,8 @@ CPU, and never a silent fall-back to the CPU."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -20,3 +22,12 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values, dtype, device) -> torch.Tensor:
+    """A small constant tensor (``values``: a nested tuple), made and copied
+    to ``device`` once per (values, dtype, device): a fresh host-to-device
+    copy on every use would make the host wait for the card each time.
+    Callers must not modify the result."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -1,4 +1,4 @@
-"""Cell state and placement."""
+"""Cell state, placement and repulsion (``repulsion``)."""
 
 from .state import (
     CellTypeState,

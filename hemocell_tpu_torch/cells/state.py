@@ -7,8 +7,12 @@ unwrapped and only wrapped modulo the domain when they touch the lattice.
 Per cell type:
   pos, vel   [NC, NV, 3]   lattice units; pos unwrapped
   force      [NC, NV, 3]   constitutive forces
+  force_repulsion [NC, NV, 3]  inter-cell + boundary repulsion, carried
+                           between recomputes and spread every step
   alive      [NC] bool     False once any vertex's nearest node is a wall
   restime    [NC] int32    iterations alive (residence time)
+  vel_prev   [NC, NV, 3]   previous velocity for Adams-Bashforth
+                           integration; None under the default Euler scheme
 
 ``place_cells``, ``filter_wall_overlaps`` and ``load_pos_file`` are numpy
 copies of the reference package's placement functions.
@@ -16,7 +20,7 @@ copies of the reference package's placement functions.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -26,20 +30,27 @@ class CellTypeState(NamedTuple):
     pos: torch.Tensor
     vel: torch.Tensor
     force: torch.Tensor
+    force_repulsion: torch.Tensor
     alive: torch.Tensor
     restime: torch.Tensor
+    vel_prev: Optional[torch.Tensor] = None
 
 
-def make_cell_state(positions, dtype=torch.float32, device="cpu") -> CellTypeState:
-    """positions: [NC, NV, 3] initial vertex positions (lattice units)."""
+def make_cell_state(positions, dtype=torch.float32, device="cpu",
+                    adams_bashforth: bool = False) -> CellTypeState:
+    """positions: [NC, NV, 3] initial vertex positions (lattice units).
+    ``adams_bashforth`` allocates the previous-velocity buffer for
+    ``StepConfig.material_integration == 2``."""
     pos = torch.as_tensor(np.asarray(positions), dtype=dtype, device=device)
     nc = pos.shape[0]
     return CellTypeState(
         pos=pos,
         vel=torch.zeros_like(pos),
         force=torch.zeros_like(pos),
+        force_repulsion=torch.zeros_like(pos),
         alive=torch.ones(nc, dtype=torch.bool, device=device),
         restime=torch.zeros(nc, dtype=torch.int32, device=device),
+        vel_prev=torch.zeros_like(pos) if adams_bashforth else None,
     )
 
 

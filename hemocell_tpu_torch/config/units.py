@@ -39,6 +39,7 @@ class Parameters:
     # Optional flow-setup values
     re: float = 0.0
     u_lbm_max: float = 0.0
+    shearrate_lbm: float = 0.0
     pipe_radius: float = 0.0
 
     def __post_init__(self):
@@ -87,4 +88,19 @@ class Parameters:
         self.re = self._read_re(cfg)
         self.pipe_radius = float(radius_lu)
         self.u_lbm_max = self.re * self.nu_lbm / (self.pipe_radius * 2)
+        return self
+
+    def shear_flow(self, cfg, nx: float) -> "Parameters":
+        shearrate_p = cfg["domain"]["shearrate"].read(float)
+        self.re = (nx * (shearrate_p * (nx * 0.5))) / self.nu_p
+        self.shearrate_lbm = shearrate_p * self.dt
+        self.u_lbm_max = self.shearrate_lbm
+        return self
+
+    def lees_edwards_flow(self, cfg, nz: float) -> "Parameters":
+        shearrate_p = cfg["domain"]["shearrate"].read(float)
+        self.re = (nz * (shearrate_p * (nz * 0.5))) / self.nu_p
+        self.shearrate_lbm = shearrate_p * self.dt
+        vmax = self.shearrate_lbm * nz * 0.5
+        self.le_force = 8 * self.nu_lbm * vmax * 0.5 / (nz / 4) ** 2
         return self

@@ -14,10 +14,13 @@ from .mechanics import MODEL_REGISTRY, topology_from_arrays
 
 
 def state_from_numpy(f, it, cells: Sequence[Mapping], dtype=torch.float64,
-                     device="cpu") -> SimState:
+                     device="cpu", cepac=None, le_displacement=None) -> SimState:
     """SimState from numpy arrays: ``f [19,X,Y,Z]``, the iteration count and
     per cell type a mapping with ``pos``, ``vel``, ``force`` [NC,NV,3],
-    ``alive`` [NC] and optionally ``restime`` [NC]."""
+    ``alive`` [NC] and optionally ``force_repulsion``, ``vel_prev``
+    [NC,NV,3] and ``restime`` [NC]; optionally the CEPAC populations
+    ``cepac [19,X,Y,Z]`` and the Lees-Edwards displacement (a scalar, kept
+    on the host)."""
 
     def fl(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
@@ -29,9 +32,19 @@ def state_from_numpy(f, it, cells: Sequence[Mapping], dtype=torch.float64,
         restime = (torch.zeros(alive.shape, dtype=torch.int32, device=device)
                    if restime is None else
                    torch.tensor(np.asarray(restime, dtype=np.int32), device=device))
-        states.append(CellTypeState(pos=fl(c["pos"]), vel=fl(c["vel"]),
-                                    force=fl(c["force"]), alive=alive, restime=restime))
-    return SimState(f=fl(f), it=int(it), cells=tuple(states))
+        pos = fl(c["pos"])
+        frep = c.get("force_repulsion")
+        vel_prev = c.get("vel_prev")
+        states.append(CellTypeState(
+            pos=pos, vel=fl(c["vel"]), force=fl(c["force"]),
+            force_repulsion=torch.zeros_like(pos) if frep is None else fl(frep),
+            alive=alive, restime=restime,
+            vel_prev=None if vel_prev is None else fl(vel_prev)))
+    return SimState(
+        f=fl(f), it=int(it), cells=tuple(states),
+        cepac=None if cepac is None else fl(cepac),
+        le_displacement=(None if le_displacement is None else
+                         torch.tensor(float(le_displacement), dtype=dtype)))
 
 
 def type_from_numpy(name: str, model: str, topo_arrays: Mapping, material: Mapping,
@@ -49,12 +62,18 @@ def type_from_numpy(name: str, model: str, topo_arrays: Mapping, material: Mappi
 
 
 def state_to_numpy(state: SimState) -> dict:
-    """The state's tensors as numpy arrays (for comparisons)."""
+    """The state's tensors as numpy arrays (for comparisons); absent
+    optional fields come out as None."""
+
+    def to_np(t):
+        return None if t is None else t.detach().cpu().numpy()
+
     return {
-        "f": state.f.detach().cpu().numpy(),
+        "f": to_np(state.f),
         "it": int(state.it),
-        "cells": [
-            {k: getattr(cs, k).detach().cpu().numpy() for k in CellTypeState._fields}
-            for cs in state.cells
-        ],
+        "cells": [{k: to_np(getattr(cs, k)) for k in CellTypeState._fields}
+                  for cs in state.cells],
+        "cepac": to_np(state.cepac),
+        "le_displacement": (None if state.le_displacement is None
+                            else float(state.le_displacement)),
     }

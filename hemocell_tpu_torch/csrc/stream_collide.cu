@@ -18,6 +18,19 @@
 //   halo: every byte is read and written exactly once.  The TPU kernel's
 //   slab windows, lane folding and VMEM sizing have no analog here.
 //   Faster variants (pull stream, shared-memory tiles, TMA) are later work.
+//
+// K7, the Lees-Edwards step, is this kernel with the `le_planes` operand.
+//   Replaces: hemocell_tpu/fluid/lees_edwards.py::le_stream_collide_pallas
+//   (through stream_collide_pallas(le_planes=), kernel body _kernel le_sub).
+//   Computes lees_edwards.stream_with_planes(lbm.collide(f, ...), planes) of
+//   hemocell_tpu_torch/fluid/lees_edwards.py, the plain version: a node on
+//   the top plane z = Z-1 pushes planes[q] instead of its own post-collision
+//   value for every q with c_z = +1, a node on the bottom plane z = 0 pushes
+//   planes[19 + q] for c_z = -1 (the substitution is at the source plane,
+//   before the stream).  The two corrected planes [38, X, Y] (displaced
+//   x-sample and Galilean equilibrium shift) are computed outside, as the
+//   TPU path computes them outside its kernel.  Same bound as K1 plus the
+//   planes: 38 f32 per (x, y) column, 2/Z of the population traffic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,7 +57,8 @@ __global__ void stream_collide_kernel(
     const float* __restrict__ force, int force_mode, float fux, float fuy, float fuz,
     const float* __restrict__ omega_field, float omega,
     const uint8_t* __restrict__ flags, const float* __restrict__ bc_vel,
-    int has_rho0, float rho0, int X, int Y, int Z) {
+    int has_rho0, float rho0, const float* __restrict__ le_planes,
+    int X, int Y, int Z) {
   const long long N = (long long)X * Y * Z;
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
@@ -76,14 +90,17 @@ __global__ void stream_collide_kernel(
     } else if (force_mode == 2) {
       Fx = force[n]; Fy = force[N + n]; Fz = force[2 * N + n];
     }
-    float rho = 1.0f, mx = 0.f, my = 0.f, mz = 0.f;
+    // drho = sum h is kept beside rho = 1 + drho: (rho - 1) would lose up
+    // to 6e-8 of it in f32, which the collision turns into lost mass
+    float drho = 0.f, mx = 0.f, my = 0.f, mz = 0.f;
 #pragma unroll
     for (int i = 0; i < 19; ++i) {
-      rho += h[i];
+      drho += h[i];
       mx += kCX[i] * h[i];
       my += kCY[i] * h[i];
       mz += kCZ[i] * h[i];
     }
+    const float rho = 1.0f + drho;
     const float ux = (mx + 0.5f * Fx) / rho;
     const float uy = (my + 0.5f * Fy) / rho;
     const float uz = (mz + 0.5f * Fz) / rho;
@@ -97,7 +114,7 @@ __global__ void stream_collide_kernel(
       const float cu = kCX[i] * ux + kCY[i] * uy + kCZ[i] * uz;
       const float cF = kCX[i] * Fx + kCY[i] * Fy + kCZ[i] * Fz;
       const float poly = 3.0f * cu + 4.5f * cu * cu - 1.5f * usq;
-      const float feq = kW[i] * ((rho - 1.0f) + rho * poly);
+      const float feq = kW[i] * (drho + rho * poly);
       const float S = kW[i] * (3.0f * (cF - uF) + 9.0f * cu * cF);
       float v = h[i] - om * (h[i] - feq) + src * S;
       if (pressure) v += kW[i] * (rho0 - rho) * (1.0f + poly);
@@ -111,7 +128,14 @@ __global__ void stream_collide_kernel(
     dx = dx < 0 ? dx + X : (dx >= X ? dx - X : dx);
     dy = dy < 0 ? dy + Y : (dy >= Y ? dy - Y : dy);
     dz = dz < 0 ? dz + Z : (dz >= Z ? dz - Z : dz);
-    out[i * N + ((long long)dx * Y + dy) * Z + dz] = res[i];
+    float v = res[i];
+    if (le_planes != nullptr) {
+      // Lees-Edwards: populations leaving through a z face come from the
+      // pre-corrected planes [38, X, Y] (top 0:19, bottom 19:38)
+      if (kCZ[i] == 1 && z == Z - 1) v = le_planes[((long long)i * X + x) * Y + y];
+      if (kCZ[i] == -1 && z == 0) v = le_planes[((long long)(19 + i) * X + x) * Y + y];
+    }
+    out[i * N + ((long long)dx * Y + dy) * Z + dz] = v;
   }
 }
 
@@ -121,13 +145,13 @@ extern "C" int hc_stream_collide(
     const void* f, void* out, const void* force, int force_mode,
     float fux, float fuy, float fuz, const void* omega_field, float omega,
     const void* flags, const void* bc_vel, int has_rho0, float rho0,
-    int X, int Y, int Z, void* stream) {
+    const void* le_planes, int X, int Y, int Z, void* stream) {
   const long long N = (long long)X * Y * Z;
   const int threads = 256;
   const unsigned blocks = (unsigned)((N + threads - 1) / threads);
   stream_collide_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)f, (float*)out, (const float*)force, force_mode, fux, fuy, fuz,
       (const float*)omega_field, omega, (const uint8_t*)flags, (const float*)bc_vel,
-      has_rho0, rho0, X, Y, Z);
+      has_rho0, rho0, (const float*)le_planes, X, Y, Z);
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@
 
 On CPU tensors it runs the plain version, ``lbm.stream_collide``.  On CUDA
 tensors it launches the kernel, or raises for what the kernel does not take
-(any dtype but float32).
+(any dtype but float32).  ``launch`` is the uncounted launch itself, shared
+with the Lees-Edwards wrapper (``fluid/lees_edwards.py``), which passes the
+kernel its ``le_planes`` operand and keeps its own count.
 """
 
 from __future__ import annotations
@@ -31,9 +33,21 @@ def stream_collide(f, force, omega, flags, bc_velocity=None, bc_density=None):
         stream_collide.plain_calls += 1
         return lbm.stream_collide(f, force, omega, flags, bc_velocity, bc_density)
 
+    out = launch(f, force, omega, flags, bc_velocity, bc_density)
+    stream_collide.launches += 1
+    return out
+
+
+def launch(f, force, omega, flags, bc_velocity=None, bc_density=None, le_planes=None):
+    """Check the CUDA operands and launch the kernel once (no counting).
+    ``flags`` may be None on an all-fluid box; ``le_planes [38,X,Y]`` are
+    the pre-corrected Lees-Edwards wrap planes or None."""
     X, Y, Z = f.shape[1:]
     f = _f32(f, "f", (19, X, Y, Z))
-    flags = _build.cuda_arg(flags, "stream_collide: flags", torch.uint8, (X, Y, Z))
+    flags_ptr = None
+    if flags is not None:
+        flags = _build.cuda_arg(flags, "stream_collide: flags", torch.uint8, (X, Y, Z))
+        flags_ptr = flags.data_ptr()
     fu = (0.0, 0.0, 0.0)
     force_ptr = None
     if force is None:
@@ -55,16 +69,19 @@ def stream_collide(f, force, omega, flags, bc_velocity=None, bc_density=None):
     if bc_velocity is not None:
         bc_velocity = _f32(bc_velocity, "bc_velocity", (3, X, Y, Z))
         bc_ptr = bc_velocity.data_ptr()
+    planes_ptr = None
+    if le_planes is not None:
+        le_planes = _f32(le_planes, "le_planes", (38, X, Y))
+        planes_ptr = le_planes.data_ptr()
 
     out = torch.empty_like(f)
     err = _build.lib().hc_stream_collide(
         f.data_ptr(), out.data_ptr(), force_ptr, force_mode, *fu,
-        omega_ptr, omega_val, flags.data_ptr(), bc_ptr,
-        int(bc_density is not None), float(bc_density or 0.0),
+        omega_ptr, omega_val, flags_ptr, bc_ptr,
+        int(bc_density is not None), float(bc_density or 0.0), planes_ptr,
         X, Y, Z, torch.cuda.current_stream(f.device).cuda_stream,
     )
     _build.check(err, "hc_stream_collide")
-    stream_collide.launches += 1
     return out
 
 

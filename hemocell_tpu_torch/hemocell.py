@@ -1,8 +1,9 @@
-"""The HemoCell facade in PyTorch: the main-path subset of
+"""The HemoCell facade in PyTorch: the ported subset of
 ``hemocell_tpu/hemocell.py``.
 
 Construct from an XML config, initialise the lattice, add cell types, load
-or set cells, set the body force, iterate, and read observables.  The
+or set cells, set the body force, enable repulsion, boundary repulsion or
+the CEPAC field, iterate, and read observables.  The
 facade runs on ``device="cuda"`` unless the caller passes ``device="cpu"``,
 and raises when CUDA is asked for and absent.
 """
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .cells.repulsion import boundary_neighbor_mask
 from .cells.state import (
     CellTypeState,
     filter_wall_overlaps,
@@ -28,6 +30,7 @@ from .config import Config, Parameters
 from .config.defaults import FLAG_FLUID
 from .dynamics import SimState, StepConfig, TypeConfig, build_runner, initial_sim_state
 from .fluid import lbm
+from .fluid.advection_diffusion import tau_from_diffusivity
 from .mechanics import (
     MODEL_REGISTRY,
     convert_material,
@@ -68,11 +71,23 @@ class HemoCell:
         self.cell_states: list[CellTypeState] = []
         self.shape = None
         self.flags = None
+        self.bc_velocity = None  # [3,X,Y,Z] array-like, used at velocity nodes
         self.body_force = None
         self.omega = 1.0 / self.params.tau
         ibm = self.cfg["ibm"] if "ibm" in self.cfg else None
         self.particle_every = ibm.get("stepParticleEvery", int, 1) if ibm else 1
         self._default_material_every = ibm.get("stepMaterialEvery", int, 1) if ibm else 1
+        # repulsion and CEPAC are off until enabled
+        self.repulsion_constant = 0.0
+        self.repulsion_cutoff = 0.0
+        self.repulsion_every = 1
+        self.boundary_repulsion_constant = 0.0
+        self.boundary_repulsion_cutoff = 0.0
+        self.boundary_repulsion_every = 1
+        self.cepac_tau = None
+        self._cepac0 = None
+        self._cepac_mask = None
+        self._cepac_value = None
         self._state: Optional[SimState] = None
         self._runner = None
         self._dirty = True
@@ -154,10 +169,42 @@ class HemoCell:
         self.body_force = tuple(float(v) for v in force)
         self._dirty = True
 
+    def enable_repulsion(self, constant=None, cutoff=None, every=1):
+        """Inter-cell repulsion; constant (lattice units) and cutoff (lu)
+        default to kRep / RepCutoff of the config's <domain>."""
+        if constant is None:
+            constant = self.cfg["domain"]["kRep"].read(float) / self.params.df
+        if cutoff is None:
+            cutoff = self.cfg["domain"]["RepCutoff"].read(float)
+        self.repulsion_constant = float(constant)
+        self.repulsion_cutoff = float(cutoff)
+        self.repulsion_every = int(every)
+        self._dirty = True
+
+    def enable_boundary_repulsion(self, constant, cutoff, every=1):
+        self.boundary_repulsion_constant = float(constant)
+        self.boundary_repulsion_cutoff = float(cutoff)
+        self.boundary_repulsion_every = int(every)
+        self._dirty = True
+
+    def enable_cepac(self, diffusivity_lbm: float = 1.0 / 6.0,
+                     dirichlet_mask=None, dirichlet_value=None, init: float = 0.0):
+        """CEPAC scalar advection-diffusion field; ``init`` is the initial
+        uniform concentration."""
+        self.cepac_tau = tau_from_diffusivity(diffusivity_lbm)
+        self._cepac0 = float(init)
+        self._cepac_mask = (None if dirichlet_mask is None else
+                            np.asarray(dirichlet_mask, dtype=np.uint8))
+        self._cepac_value = None if dirichlet_value is None else np.asarray(dirichlet_value)
+        self._dirty = True
+
     # ------------------------------------------------------------------
     # running
 
     def _build(self):
+        bmask = None
+        if self.boundary_repulsion_constant > 0.0:
+            bmask = boundary_neighbor_mask(self._flags_np)
         cfg = StepConfig(
             shape=self.shape,
             flags=self.flags,
@@ -168,16 +215,27 @@ class HemoCell:
                            material_every=ct.timescale)
                 for ct in self.cell_types
             ],
+            bc_velocity=self.bc_velocity,
             body_force=self.body_force,
             particle_every=self.particle_every,
             f_limit=self.params.f_limit,
+            repulsion_constant=self.repulsion_constant,
+            repulsion_cutoff=self.repulsion_cutoff,
+            repulsion_every=self.repulsion_every,
+            boundary_repulsion_constant=self.boundary_repulsion_constant,
+            boundary_repulsion_cutoff=self.boundary_repulsion_cutoff,
+            boundary_repulsion_every=self.boundary_repulsion_every,
+            boundary_mask=bmask,
+            cepac_tau=self.cepac_tau,
+            cepac_dirichlet_mask=self._cepac_mask,
+            cepac_dirichlet_value=self._cepac_value,
             dtype=self.dtype,
             device=self.device,
         )
         self._runner = build_runner(cfg)
         if self._state is None:
             self._state = initial_sim_state(cfg, self.cell_states, rho0=self._rho0,
-                                            u0=self._u0)
+                                            u0=self._u0, cepac0=self._cepac0)
         else:
             # keep fluid + iteration, adopt (possibly new) cell states
             self._state = self._state._replace(cells=tuple(self.cell_states))
@@ -218,4 +276,18 @@ class HemoCell:
         """Mean vertex force magnitude of live cells in pN (pipeflow
         oracle)."""
         cs = self.state.cells[type_index]
-        return float(mean_force_magnitude(cs.force, cs.alive)) * self.params.df * 1e12
+        f_lu = mean_force_magnitude(cs.force + cs.force_repulsion, cs.alive)
+        return float(f_lu) * self.params.df * 1e12
+
+    # ------------------------------------------------------------------
+    # reference-style camelCase aliases
+
+    def setRepulsion(self, k_rep_si: float, cutoff_lu: float):
+        self.enable_repulsion(k_rep_si / self.params.df, cutoff_lu)
+
+    def setRepulsionTimeScaleSeperation(self, every: int):  # sic (reference)
+        self.repulsion_every = int(every)
+        self._dirty = True
+
+    def enableBoundaryParticles(self, k_rep_si: float, cutoff_lu: float, every: int = 1):
+        self.enable_boundary_repulsion(k_rep_si / self.params.df, cutoff_lu, every)

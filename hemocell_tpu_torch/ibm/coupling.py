@@ -90,11 +90,15 @@ def on_boundary(pos, flags):
 # plain versions of the kernels, on unwrapped positions
 
 
-def spread_forces(pos, force, active, flags, f_limit):
+def spread_forces(pos, force, active, flags, f_limit, force_extra=None):
     """Plain K2: capped, activity-masked, renormalised spread of vertex
-    forces [P,3] at unwrapped positions [P,3] -> [3,X,Y,Z]."""
+    forces [P,3] at unwrapped positions [P,3] -> [3,X,Y,Z].  ``force_extra``
+    [P,3] is added after the cap, uncapped."""
     idx, w = stencil(wrap_positions(pos, flags.shape), flags, weight_mask=active)
-    return spread(cap_force(force, f_limit), idx, w, tuple(flags.shape))
+    total = cap_force(force, f_limit)
+    if force_extra is not None:
+        total = total + force_extra
+    return spread(total, idx, w, tuple(flags.shape))
 
 
 def interp_velocity(u, pos, active, flags):

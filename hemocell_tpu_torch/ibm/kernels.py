@@ -19,22 +19,28 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def spread(pos, force, active, flags, f_limit):
+def spread(pos, force, active, flags, f_limit, force_extra=None):
     """Spread vertex forces [P,3] (capped at ``f_limit``, scaled by the
     activity ``active [P]``) at unwrapped positions [P,3] onto a zeroed
-    [3,X,Y,Z] field with boundary-aware trilinear weights."""
+    [3,X,Y,Z] field with boundary-aware trilinear weights.  ``force_extra``
+    [P,3] (the repulsion force) is added uncapped, after the cap."""
     if not pos.is_cuda:
         spread.plain_calls += 1
-        return coupling.spread_forces(pos, force, active, flags, f_limit)
+        return coupling.spread_forces(pos, force, active, flags, f_limit, force_extra)
     P = pos.shape[0]
     X, Y, Z = flags.shape
     pos = _build.cuda_arg(pos, "spread: pos", torch.float32, (P, 3))
     force = _build.cuda_arg(force, "spread: force", torch.float32, (P, 3))
     active = _build.cuda_arg(active, "spread: active", torch.float32, (P,))
     flags = _build.cuda_arg(flags, "spread: flags", torch.uint8, (X, Y, Z))
+    extra_ptr = None
+    if force_extra is not None:
+        force_extra = _build.cuda_arg(force_extra, "spread: force_extra",
+                                      torch.float32, (P, 3))
+        extra_ptr = force_extra.data_ptr()
     out = torch.zeros((3, X, Y, Z), dtype=torch.float32, device=pos.device)
     err = _build.lib().hc_spread(
-        pos.data_ptr(), force.data_ptr(), active.data_ptr(), flags.data_ptr(),
+        pos.data_ptr(), force.data_ptr(), extra_ptr, active.data_ptr(), flags.data_ptr(),
         float(f_limit), out.data_ptr(), P, X, Y, Z, _stream(pos))
     _build.check(err, "hc_spread")
     spread.launches += 1
