@@ -34,7 +34,29 @@ Phases, in order; any failure exits non-zero and prints no result:
      turn, on the card and with the plain versions on the CPU from the same
      state, compared after 41 steps.
 
-Then the ``kernels`` JSON line (all seven), the card, and as the last line
+Then the cell-free (pure-fluid) runner and its three kernels:
+
+ 10. hold K8 (two fused steps) and K9 (k = 3, 4, 5 fused steps) against k
+     launches of K1 bit for bit, and against their plain versions at k x
+     1e-6, on the periodic 128^3 box, the 248x56x56 pipe with pipeflow30's
+     wall flags, an unforced box and a walled 50x30x34 box their tiles do not
+     divide; times per launch and per step beside K1's;
+ 11. hold K10 (the (x,y)-tiled one-step kernel) against K1 and against the
+     plain version at 256^3 with a uniform force, and with a force field,
+     walls, velocity and pressure nodes; timed beside both;
+ 12. path fluid256: cases/fluid_only at 256^3, 50 iterations of the one-step
+     loop with stream_collide's dispatch of large cross-sections turned on,
+     which sends them to K10;
+ 13. path fluid128: cases/fluid_only at 128^3, fused at the default fluid_k =
+     4: 500 + 7 + 1 iterations (K9 at k = 4 and k = 3, then K1 through
+     step), equal to 508 K1 launches bit for bit; the same 500 iterations
+     through the default one-step loop for the second rate;
+ 14. path fluidpipe: the same in the 248x56x56 pipe, 1000 iterations at
+     fluid_k = 4 and at fluid_k = 2 (K8);
+ 15. a walled 24x20x16 box, 9 iterations at fluid_k = 4, on the card and with
+     the plain versions on the CPU.
+
+Then the ``kernels`` JSON line (all ten), the card, and as the last line
 ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (from the repository root, one GPU)
@@ -71,6 +93,9 @@ REPLACES = {
     "repulsion": "hemocell_tpu/cells/pallas_repulsion.py:110",
     "ad_stream_collide": "hemocell_tpu/fluid/advection_diffusion.py:129",
     "le_stream_collide": "hemocell_tpu/fluid/lees_edwards.py:142",
+    "stream_collide_2x": "hemocell_tpu/fluid/pallas_lbm_2x.py:139",
+    "stream_collide_kx": "hemocell_tpu/fluid/pallas_lbm_kx.py:134",
+    "stream_collide_2d": "hemocell_tpu/fluid/pallas_lbm_2d.py:201",
 }
 SOURCES = {
     "stream_collide": "hemocell_tpu_torch/csrc/stream_collide.cu",
@@ -80,9 +105,13 @@ SOURCES = {
     "repulsion": "hemocell_tpu_torch/csrc/repulsion.cu",
     "ad_stream_collide": "hemocell_tpu_torch/csrc/ad_stream_collide.cu",
     "le_stream_collide": "hemocell_tpu_torch/csrc/stream_collide.cu",
+    "stream_collide_2x": "hemocell_tpu_torch/csrc/stream_collide_kx.cu",
+    "stream_collide_kx": "hemocell_tpu_torch/csrc/stream_collide_kx.cu",
+    "stream_collide_2d": "hemocell_tpu_torch/csrc/stream_collide_2d.cu",
 }
 KERNEL_ORDER = ("stream_collide", "spread", "interp", "wall_hit_cells", "repulsion",
-                "ad_stream_collide", "le_stream_collide")
+                "ad_stream_collide", "le_stream_collide", "stream_collide_2x",
+                "stream_collide_kx", "stream_collide_2d")
 
 
 def fail(msg: str) -> int:
@@ -317,12 +346,18 @@ def counters():
     from hemocell_tpu_torch.fluid.advection_diffusion import ad_stream_collide
     from hemocell_tpu_torch.fluid.lees_edwards import le_stream_collide
     from hemocell_tpu_torch.fluid.stream_collide import stream_collide
+    from hemocell_tpu_torch.fluid.stream_collide_2d import stream_collide_2d
+    from hemocell_tpu_torch.fluid.stream_collide_2x import stream_collide_2x
+    from hemocell_tpu_torch.fluid.stream_collide_kx import stream_collide_kx
     from hemocell_tpu_torch.ibm import kernels
 
     return {"stream_collide": stream_collide, "spread": kernels.spread,
             "interp": kernels.interp, "wall_hit_cells": kernels.wall_hit_cells,
             "repulsion": repulsion, "ad_stream_collide": ad_stream_collide,
-            "le_stream_collide": le_stream_collide}
+            "le_stream_collide": le_stream_collide,
+            "stream_collide_2x": stream_collide_2x,
+            "stream_collide_kx": stream_collide_kx,
+            "stream_collide_2d": stream_collide_2d}
 
 
 def reset_counters():
@@ -890,6 +925,428 @@ def phase_small_box():
             raise AssertionError(f"small box with {name} disagrees with the plain CPU path")
 
 
+FLUID_SHAPE = (128, 128, 128)
+PIPE_SHAPE = (248, 56, 56)
+BIG_SHAPE = (256, 256, 256)
+
+
+def near_equilibrium(shape, flags, seed, device):
+    """Deviation populations around a noisy slow flow, zero on non-fluid
+    nodes where ``flags`` is given."""
+    import torch
+
+    from hemocell_tpu_torch.fluid import lbm
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rho = 1.0 + 1e-3 * torch.randn(shape, generator=g)
+    u = 0.002 * torch.randn((3,) + tuple(shape), generator=g)
+    u[0] += 0.01
+    f = lbm.equilibrium_dev(rho, u) + 1e-5 * torch.randn((19,) + tuple(shape), generator=g)
+    f = f.to(device)
+    if flags is not None:
+        f = f * (flags == 0).float()
+    return f
+
+
+def fused(f, force, omega, flags, k):
+    """K8 for two steps, K9 for more."""
+    from hemocell_tpu_torch.fluid.stream_collide_2x import stream_collide_2x
+    from hemocell_tpu_torch.fluid.stream_collide_kx import stream_collide_kx
+
+    if k == 2:
+        return stream_collide_2x(f, force, omega, flags)
+    return stream_collide_kx(f, force, omega, flags, k=k)
+
+
+def k1_steps(f, force, omega, flags, n):
+    """n launches of K1 (uncounted)."""
+    from hemocell_tpu_torch.fluid.stream_collide import launch as launch_k1
+
+    for _ in range(n):
+        f = launch_k1(f, force, omega, flags)
+    return f
+
+
+def k1_contracted(f, force, omega):
+    """K1 built once more with nvcc's default FMA contraction (the library
+    is built with -fmad=false), timed beside the library's K1 on the same
+    input: what the flag costs.  Returns (ms with FMA, ms of the library's,
+    max abs difference of the two results)."""
+    import ctypes
+
+    import torch
+
+    from hemocell_tpu_torch import _build
+    from hemocell_tpu_torch.fluid.stream_collide import launch as launch_k1
+
+    d = tempfile.mkdtemp(prefix="k1_fmad_")
+    try:
+        lib_path = os.path.join(d, "k1_fmad.so")
+        flags = [a for a in _build.NVCC_FLAGS if a != "-fmad=false"]
+        subprocess.run([_build.nvcc_path(), *flags, "-shared",
+                        os.path.join(_build.CSRC, "stream_collide.cu"), "-o", lib_path],
+                       check=True, capture_output=True)
+        fn = ctypes.CDLL(lib_path).hc_stream_collide
+        fn.argtypes = _build.SIGNATURES["hc_stream_collide"]
+        fn.restype = ctypes.c_int
+        X, Y, Z = f.shape[1:]
+        out = torch.empty_like(f)
+        fu = tuple(force.tolist())
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def contracted():
+            _build.check(fn(f.data_ptr(), out.data_ptr(), None, 1, *fu, None, float(omega),
+                            None, None, 0, 0.0, None, X, Y, Z, stream), "K1 with FMA")
+
+        ms_fma = time_ms(contracted, 50)
+        ms_lib = time_ms(lambda: launch_k1(f, force, omega, None), 50)
+        diff = float((out - launch_k1(f, force, omega, None)).abs().max())
+        return ms_fma, ms_lib, diff
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_fused_kernels(smi):
+    """K8 and K9 against k launches of K1 (bitwise) and against their plain
+    versions (k x 1e-6).  Returns the rows of K8 and K9 (K9's at k = 4, the
+    runner's default, with the other depths under ``by_k``)."""
+    import torch
+
+    from hemocell_tpu_torch.cases.pipeflow30 import pipe_flags
+    from hemocell_tpu_torch.fluid.stream_collide_kx import plain_steps, stream_collide_kx
+
+    dev = torch.device("cuda")
+    omega = 1.0 / 1.16
+    force = torch.tensor([5e-7, 2e-7, -1e-7])
+    pipe = torch.as_tensor(pipe_flags(PIPE_SHAPE, 25.0), device=dev)
+    odd_shape = (50, 30, 34)
+    odd = torch.zeros(odd_shape, dtype=torch.uint8)
+    odd[:, 0, :] = 1
+    odd[:, -1, :] = 1
+    odd[:, 7:11, 5:9] = 1  # a wall bar inside the box
+    cases = [("box128", FLUID_SHAPE, None, force, True),
+             ("pipe", PIPE_SHAPE, pipe, force, True),
+             ("unforced 64x48x40", (64, 48, 40), None, None, False),
+             ("walled 50x30x34", odd_shape, odd.to(dev), force, False)]
+    rows = {}
+    for name, shape, flags, frc, timed in cases:
+        N = int(np.prod(shape))
+        f = near_equilibrium(shape, flags, 3, dev)
+        k1_ms = time_ms(lambda: k1_steps(f, frc, omega, flags, 1), 50) if timed else None
+        if name == "box128":
+            ms_fma, ms_lib, diff = k1_contracted(f, frc, omega)
+            print(f"[10] K1 at {shape}, uniform force: {ms_lib:.4f} ms as built (-fmad=false), "
+                  f"{ms_fma:.4f} ms built with FMA contraction; the two results differ by "
+                  f"at most {diff:.3e}", flush=True)
+        for k in (2, 3, 4, 5):
+            ref = k1_steps(f, frc, omega, flags, k)
+            out = fused(f, frc, omega, flags, k)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(out, ref)
+            diff_k1 = float((out - ref).abs().max())
+            if k == 2:
+                # K9's own k = 2 instantiation beside K8's entry
+                bitwise = bitwise and torch.equal(
+                    stream_collide_kx(f, frc, omega, flags, k=2), ref)
+            plain = plain_steps(f, frc, omega, flags, k)
+            err, tol = float((out - plain).abs().max()), k * 1e-6
+            moved = float((out - f).abs().max())
+            del ref, plain
+            line = (f"[10] {name} {shape} k={k}: bitwise equal to {k} K1 launches {bitwise} "
+                    f"(max diff {diff_k1:.3e}) | vs plain max_abs_err {err:.3e} (tol "
+                    f"{tol:.1e}) | max|out - in| {moved:.3e}")
+            if timed:
+                ms = time_ms(lambda: fused(f, frc, omega, flags, k), 20)
+                plain_ms = time_ms(lambda: plain_steps(f, frc, omega, flags, k), 3, warmup=1)
+                b, by = bound_ms(N * (38 * 4 + (1 if flags is not None else 0)), 350 * k * N)
+                rows[(name, k)] = dict(
+                    k=k, tol=tol, max_abs_err=err, bitwise=bitwise, ms=ms,
+                    ms_per_step=ms / k, k1_ms_per_step=k1_ms, plain_ms=plain_ms,
+                    bound_ms=b, bound_by=by, library_ms=None)
+                line += (f" | kernel {ms:.4f} ms per launch = {ms / k:.4f} per step (K1 "
+                         f"{k1_ms:.4f} per step) | plain {plain_ms:.3f} ms | bound "
+                         f"{b:.4f} ms ({by})")
+            print(line, flush=True)
+            if not (bitwise and err <= tol and moved > 1e-6):
+                raise AssertionError(f"fused kernel k={k} on {name} disagrees with K1 or "
+                                     "its plain version")
+            del out
+        del f
+        torch.cuda.empty_cache()
+    print(f"[10] times on {smi}", flush=True)
+    k8 = dict(rows[("box128", 2)], at_pipe=rows[("pipe", 2)])
+    k9 = dict(rows[("box128", 4)], at_pipe=rows[("pipe", 4)],
+              by_k={str(k): rows[("box128", k)] for k in (3, 4, 5)})
+    return {"stream_collide_2x": k8, "stream_collide_kx": k9}
+
+
+def phase_tiled_kernel(smi):
+    """K10 against K1 and against the plain version at 256^3, the shape the
+    path fluid256 gives it."""
+    import torch
+
+    from hemocell_tpu_torch.fluid import lbm
+    from hemocell_tpu_torch.fluid.stream_collide import launch as launch_k1
+    from hemocell_tpu_torch.fluid.stream_collide_2d import stream_collide_2d
+
+    dev = torch.device("cuda")
+    shape = BIG_SHAPE
+    X, Y, Z = shape
+    N = X * Y * Z
+    omega = 1.0 / 1.16
+    g = torch.Generator(device="cpu").manual_seed(4)
+    force_u = torch.tensor([5e-7, 2e-7, -1e-7])
+    # walls on the y faces and a bar inside, velocity nodes on the z faces,
+    # pressure nodes on the plane x = 0
+    flags = torch.zeros(shape, dtype=torch.uint8)
+    flags[:, :, 0] = 2
+    flags[:, :, -1] = 2
+    flags[0, :, 1:-1] = 3
+    flags[:, 0, :] = 1
+    flags[:, -1, :] = 1
+    flags[40:60, 100:120, 30:50] = 1
+    flags = flags.to(dev)
+    bc = torch.zeros((3,) + shape)
+    bc[0, :, :, -1] = 0.01
+    bc[0, :, :, 0] = -0.01
+    bc[1, :, :, -1] = 0.002
+    bc = bc.to(dev)
+    rho0 = 1.002
+    f = near_equilibrium(shape, None, 5, dev)
+    force_field = (1e-5 * torch.randn((3,) + shape, generator=g)).to(dev)
+
+    worst = 0.0
+    sets = [("uniform force, all fluid", (force_u, None, None, None)),
+            ("no force, all fluid", (None, None, None, None)),
+            ("force field + walls + velocity and pressure nodes",
+             (force_field, flags, bc, rho0))]
+    all_fluid = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    for name, (frc, fl, bcv, bcd) in sets:
+        out = stream_collide_2d(f, frc, omega, fl, bcv, bcd)
+        ref = launch_k1(f, frc, omega, fl, bcv, bcd)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        same = torch.equal(out, ref)
+        del ref
+        plain = lbm.stream_collide(f, frc, omega, all_fluid if fl is None else fl, bcv, bcd)
+        err_plain = float((out - plain).abs().max())
+        del plain
+        moved = float((out - f).abs().max())
+        print(f"[11] stream_collide_2d {shape}, {name}: vs K1 max_abs_err {err:.3e}, bitwise "
+              f"{same} | vs plain max_abs_err {err_plain:.3e} (tol 1e-6 both) | max|out - in| "
+              f"{moved:.3e}", flush=True)
+        if not (err <= 1e-6 and err_plain <= 1e-6 and moved > 1e-6):
+            raise AssertionError(f"stream_collide_2d disagrees with K1 or its plain "
+                                 f"version: {name}")
+        worst = max(worst, err, err_plain)
+        del out
+        torch.cuda.empty_cache()
+    # the boundary nodes changed something: with bc the step differs from
+    # the one without
+    with_bc = stream_collide_2d(f, force_field, omega, flags, bc, rho0)
+    without = stream_collide_2d(f, force_field, omega, flags)
+    bc_diff = float((with_bc - without).abs().max())
+    del with_bc, without
+    print(f"[11] velocity and pressure nodes moved the result by {bc_diff:.3e}", flush=True)
+    if not bc_diff > 1e-5:
+        raise AssertionError("stream_collide_2d: velocity and pressure nodes did not act")
+
+    ms_u = time_ms(lambda: stream_collide_2d(f, force_u, omega, None), 20)
+    k1_u = time_ms(lambda: launch_k1(f, force_u, omega, None), 20)
+    ms_f = time_ms(lambda: stream_collide_2d(f, force_field, omega, flags, bc, rho0), 20)
+    k1_f = time_ms(lambda: launch_k1(f, force_field, omega, flags, bc, rho0), 20)
+    plain_u = time_ms(lambda: lbm.stream_collide(f, force_u, omega, all_fluid), 3, warmup=1)
+    plain_f = time_ms(lambda: lbm.stream_collide(f, force_field, omega, flags, bc, rho0), 3,
+                      warmup=1)
+    b_u, by_u = bound_ms(N * 38 * 4, 350 * N)
+    # force field, flag byte; bc velocity only where a velocity node reads it
+    n_vel = int((flags == 2).sum())
+    b_f, by_f = bound_ms(N * (38 * 4 + 12 + 1) + n_vel * 12, 350 * N)
+    print(f"[11] {shape} on {smi}: uniform force K10 {ms_u:.4f} ms, K1 {k1_u:.4f} ms, plain "
+          f"{plain_u:.3f} ms, bound {b_u:.4f} ms ({by_u}) | force field + flags + bc K10 "
+          f"{ms_f:.4f} ms, K1 {k1_f:.4f} ms, plain {plain_f:.3f} ms, bound {b_f:.4f} ms "
+          f"({by_f})", flush=True)
+    del f, force_field, bc, flags, all_fluid
+    torch.cuda.empty_cache()
+    return {"stream_collide_2d": dict(
+        tol=1e-6, max_abs_err=worst, ms=ms_u, k1_ms=k1_u, plain_ms=plain_u,
+        bound_ms=b_u, bound_by=by_u, library_ms=None,
+        with_force_field=dict(ms=ms_f, k1_ms=k1_f, plain_ms=plain_f, bound_ms=b_f,
+                              bound_by=by_f))}
+
+
+def run_fluid_path(tag, name, cfg, state, pieces, smi, reference=True):
+    """Drive ``build_runner(cfg)`` through ``pieces``, a list of (iterations,
+    launch counts expected after the piece, cumulative), with the counts set
+    to 0 just before and read after each piece.  Gates: exact counts, no
+    plain call, finite, max|u| < 0.1, mass drift per node < 1e-6 and, with
+    ``reference``, bitwise equality with as many K1 launches from the same
+    start.  Returns (final state, launches, runner, wall us per iteration of
+    the first piece)."""
+    import torch
+
+    from hemocell_tpu_torch.dynamics import build_runner
+    from hemocell_tpu_torch.fluid import lbm
+
+    run = build_runner(cfg)
+    N = int(np.prod(cfg.shape))
+    f0 = state.f
+    mass0 = float(f0.double().sum())
+    fns = reset_counters()
+    total, wall_us = 0, None
+    for n, expected in pieces:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = run(state, n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        total += n
+        launches = {k: fn.launches for k, fn in fns.items()}
+        plain = {k: fn.plain_calls for k, fn in fns.items()}
+        full = dict.fromkeys(KERNEL_ORDER, 0)
+        full.update(expected)
+        used = {k: v for k, v in launches.items() if v}
+        print(f"{tag} {name} {cfg.shape}: {n} iterations in {dt:.4f} s = "
+              f"{N * n / dt / 1e6:.1f} MLUPS on {smi} | launches so far {used}", flush=True)
+        if wall_us is None:
+            wall_us = dt * 1e6 / n
+        if launches != full or any(plain.values()) or state.it != total:
+            raise AssertionError(f"{name}: launches {launches} (expected {full}), plain "
+                                 f"calls {plain}, it {state.it} (expected {total})")
+    _, u = lbm.macroscopic(state.f)
+    umax = float(u.abs().max())
+    dmass = abs(float(state.f.double().sum()) - mass0) / N
+    checks = {"finite state": bool(torch.isfinite(state.f).all()),
+              "max|u| < 0.1": umax < 0.1,
+              "the flow moved": umax > 0.0,
+              "mass conserved (drift per node < 1e-6)": dmass < 1e-6}
+    msg = f"{tag} {name}: max|u| {umax:.4e} | mass drift per node {dmass:.3e}"
+    del u
+    if reference:
+        bf = None if cfg.body_force is None else torch.tensor(cfg.body_force)
+        flags = cfg.flags if bool(cfg.flags.any()) else None
+        ref = k1_steps(f0, bf, float(cfg.omega), flags, total)
+        same = torch.equal(state.f, ref)
+        msg += (f" | after {total} iterations bitwise equal to {total} K1 launches: {same} "
+                f"(max diff {float((state.f - ref).abs().max()):.3e})")
+        checks[f"bitwise equal to {total} K1 launches"] = same
+        del ref
+    print(msg, flush=True)
+    for check, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"{name} check failed: {check}")
+    return state, launches, run, wall_us
+
+
+def perturbed(cfg, state, seed):
+    """The case's rest state plus seeded noise of 1e-5 on the fluid nodes."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    noise = (1e-5 * torch.randn(state.f.shape, generator=g)).to(state.f.device)
+    return state._replace(f=state.f + noise * (cfg.flags == 0).to(state.f.dtype))
+
+
+def profile_runner(tag, run, state, wall_us):
+    """phase_profile over 100 more iterations of ``run`` from ``state``."""
+    box = [state]
+
+    def advance(k):
+        box[0] = run(box[0], k)
+
+    phase_profile(tag, advance, wall_us)
+
+
+def phase_fluid_paths(smi):
+    """The cell-free paths: fluid256 (K10), fluid128 (K9, K1), fluidpipe (K9,
+    K8), each with its one-step loop beside it where a rate is compared."""
+    import torch
+
+    import importlib
+
+    from hemocell_tpu_torch.cases import fluid_only
+
+    # the module, not the wrapper of the same name that the package exports
+    sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
+    by_path = {}
+
+    # ---- fluid256: the one-step loop with the dispatch of large
+    # cross-sections turned on, which sends 256 x 256 to K10
+    cfg, state = fluid_only.build(BIG_SHAPE)
+    state = perturbed(cfg, state, 6)
+    sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM
+    try:
+        state, by_path["fluid256"], run, wall_us = run_fluid_path(
+            "[12]", "fluid256", cfg, state, [(50, {"stream_collide_2d": 50})], smi,
+            reference=False)
+        profile_runner("[12]", run, state, wall_us)
+    finally:
+        sc_module.LARGE_CROSS_SECTION = None
+    del state, run
+    torch.cuda.empty_cache()
+
+    # ---- fluid128: fused at the default k = 4
+    cfg, state0 = fluid_only.build(FLUID_SHAPE, fluid_2x=True)
+    state0 = perturbed(cfg, state0, 7)
+    pieces = [(500, {"stream_collide_kx": 125}),
+              (7, {"stream_collide_kx": 127}),
+              (1, {"stream_collide_kx": 127, "stream_collide": 1})]
+    state, by_path["fluid128"], run, wall_us = run_fluid_path(
+        "[13]", "fluid128 fused k=4", cfg, state0, pieces, smi)
+    profile_runner("[13] fused k=4:", run, state, wall_us)
+    cfg1, _ = fluid_only.build(FLUID_SHAPE)  # the default: the one-step loop
+    state, _, run, wall_us = run_fluid_path(
+        "[13]", "fluid128 one-step loop", cfg1, state0, [(500, {"stream_collide": 500})],
+        smi, reference=False)
+    profile_runner("[13] one-step loop:", run, state, wall_us)
+    del state, state0, run
+    torch.cuda.empty_cache()
+
+    # ---- fluidpipe: pipeflow30's pipe with no cells, k = 4 and k = 2
+    cfg, state0 = fluid_only.build(walls="pipe", fluid_k=4, fluid_2x=True)
+    state0 = perturbed(cfg, state0, 8)
+    _, by_path["fluidpipe"], _, _ = run_fluid_path(
+        "[14]", "fluidpipe fused k=4", cfg, state0, [(1000, {"stream_collide_kx": 250})], smi)
+    cfg2, _ = fluid_only.build(walls="pipe", fluid_k=2, fluid_2x=True)
+    _, by_path["fluidpipe k=2"], _, _ = run_fluid_path(
+        "[14]", "fluidpipe fused k=2", cfg2, state0, [(1000, {"stream_collide_2x": 500})],
+        smi)
+    cfg1, _ = fluid_only.build(walls="pipe")
+    run_fluid_path("[14]", "fluidpipe one-step loop", cfg1, state0,
+                   [(1000, {"stream_collide": 1000})], smi, reference=False)
+    del state0
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_small_fluid():
+    """A walled 24x20x16 box, 9 cell-free iterations at fluid_k = 4 (two
+    fused launches and one step), on the card and with the plain versions on
+    the CPU from the same state."""
+    import torch
+
+    from hemocell_tpu_torch.cases import fluid_only
+    from hemocell_tpu_torch.dynamics import build_runner
+
+    runs = []
+    noise = None
+    for device in ("cuda", "cpu"):
+        cfg, state = fluid_only.build((24, 20, 16), walls="pipe", fluid_k=4, fluid_2x=True,
+                                      device=device)
+        if noise is None:
+            g = torch.Generator(device="cpu").manual_seed(9)
+            noise = 1e-4 * torch.randn(state.f.shape, generator=g)
+        state = state._replace(f=state.f + noise.to(device) * (cfg.flags == 0).float())
+        runs.append(build_runner(cfg)(state, 9))
+    gpu, cpu = runs
+    torch.cuda.synchronize()
+    err = float((gpu.f.cpu() - cpu.f).abs().max())
+    print(f"[15] walled 24x20x16 box, 9 cell-free iterations at fluid_k=4, card vs plain "
+          f"CPU: max|df| {err:.3e} (tol 1e-6) | it {gpu.it}, {cpu.it}", flush=True)
+    if not (err <= 1e-6 and gpu.it == cpu.it == 9):
+        raise AssertionError("small cell-free case disagrees with the plain CPU path")
+
+
 def main() -> int:
     try:
         import torch
@@ -933,11 +1390,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small_box()
 
+    rows.update(phase_fused_kernels(smi))
+    rows.update(phase_tiled_kernel(smi))
+    by_path.update(phase_fluid_paths(smi))
+    phase_small_fluid()
+
     # ``launches`` is the count of the first full-size path that runs the
     # kernel; ``launches_by_path`` has every path's; K1-K3 carry their
     # comparison at the suspension's shapes under ``at_128``
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    more = ("with_force_extra", "launch_alone_ms")
+    more = ("with_force_extra", "launch_alone_ms", "bitwise", "k", "ms_per_step",
+            "k1_ms_per_step", "k1_ms", "at_pipe", "by_k", "with_force_field")
     kernels_line = {"kernels": []}
     for name in KERNEL_ORDER:
         per_path = {path: counts[name] for path, counts in by_path.items()}

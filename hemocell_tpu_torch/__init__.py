@@ -3,7 +3,7 @@
 A second package beside the JAX reference ``hemocell_tpu``; it imports
 ``torch`` and nothing of JAX or of the reference package (the jax-free
 config, mesh, lattice-constant and material modules are its own copies).
-Plain tensor code is PyTorch; the hot path runs seven hand-written CUDA
+Plain tensor code is PyTorch; the hot path runs ten hand-written CUDA
 kernels for Hopper (``csrc/``), built with ``nvcc`` at first use
 (``_build.py``):
 
@@ -14,6 +14,9 @@ kernels for Hopper (``csrc/``), built with ``nvcc`` at first use
   K5  cells/repulsion.repulsion  inter-cell repulsion (binned pair search)
   K6  fluid/advection_diffusion.ad_stream_collide  CEPAC scalar lattice
   K7  fluid/lees_edwards.le_stream_collide  K1 with the Lees-Edwards planes
+  K8  fluid/stream_collide_2x.py  two fused stream-collide steps (cell-free runs)
+  K9  fluid/stream_collide_kx.py  k = 2..5 fused stream-collide steps
+  K10 fluid/stream_collide_2d.py  (x,y)-tiled stream-collide, large cross-sections
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its kernel on CUDA tensors.  Entry points run on ``device="cuda"`` unless

@@ -22,8 +22,11 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libhemocell_kernels.so")
+# -fmad=false: no a*b+c is contracted into an FMA, so the kernels that share
+# csrc/d3q19_collide.cuh round alike at every call site (the k-step kernels
+# must equal k one-step launches bit for bit)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (see csrc/*.cu)
@@ -35,6 +38,10 @@ SIGNATURES = {
     "hc_wall_hit_cells": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_repulsion": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P],
     "hc_ad_stream_collide": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
+    "hc_stream_collide_kx": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _I, _P],
+    "hc_stream_collide_2x": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _P],
+    "hc_stream_collide_2d": [_P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _I, _F,
+                             _I, _I, _I, _P],
 }
 
 _lib = None

@@ -9,18 +9,20 @@ import numpy as np
 import torch
 
 from .cells.state import CellTypeState
-from .dynamics import SimState, TypeConfig
+from .dynamics import SimState, StepConfig, TypeConfig
 from .mechanics import MODEL_REGISTRY, topology_from_arrays
 
 
 def state_from_numpy(f, it, cells: Sequence[Mapping], dtype=torch.float64,
-                     device="cpu", cepac=None, le_displacement=None) -> SimState:
+                     device="cpu", cepac=None, le_displacement=None,
+                     body_force_state=None) -> SimState:
     """SimState from numpy arrays: ``f [19,X,Y,Z]``, the iteration count and
     per cell type a mapping with ``pos``, ``vel``, ``force`` [NC,NV,3],
     ``alive`` [NC] and optionally ``force_repulsion``, ``vel_prev``
     [NC,NV,3] and ``restime`` [NC]; optionally the CEPAC populations
-    ``cepac [19,X,Y,Z]`` and the Lees-Edwards displacement (a scalar, kept
-    on the host)."""
+    ``cepac [19,X,Y,Z]``, the Lees-Edwards displacement (a scalar, kept
+    on the host) and the dynamic body-force override ``[3]`` (kept on the
+    host)."""
 
     def fl(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
@@ -44,7 +46,24 @@ def state_from_numpy(f, it, cells: Sequence[Mapping], dtype=torch.float64,
         f=fl(f), it=int(it), cells=tuple(states),
         cepac=None if cepac is None else fl(cepac),
         le_displacement=(None if le_displacement is None else
-                         torch.tensor(float(le_displacement), dtype=dtype)))
+                         torch.tensor(float(le_displacement), dtype=dtype)),
+        body_force_state=(None if body_force_state is None else
+                          torch.tensor(np.asarray(body_force_state), dtype=dtype)))
+
+
+def fluid_config_from_numpy(flags, omega, body_force=None, fluid_2x=None, fluid_k=None,
+                            dtype=torch.float64, device="cpu") -> StepConfig:
+    """Cell-free StepConfig from a numpy flag matrix ``[X,Y,Z]``, a scalar
+    omega and a uniform body force ``[3]`` or None, with the fused-runner
+    options ``fluid_2x`` and ``fluid_k``."""
+    flags = np.asarray(flags, dtype=np.uint8)
+    return StepConfig(
+        shape=tuple(int(s) for s in flags.shape),
+        flags=torch.as_tensor(flags, device=device),
+        omega=float(omega), types=[],
+        body_force=(None if body_force is None else
+                    tuple(float(v) for v in np.asarray(body_force))),
+        fluid_2x=fluid_2x, fluid_k=fluid_k, dtype=dtype, device=device)
 
 
 def type_from_numpy(name: str, model: str, topo_arrays: Mapping, material: Mapping,
@@ -76,4 +95,5 @@ def state_to_numpy(state: SimState) -> dict:
         "cepac": to_np(state.cepac),
         "le_displacement": (None if state.le_displacement is None
                             else float(state.le_displacement)),
+        "body_force_state": to_np(state.body_force_state),
     }

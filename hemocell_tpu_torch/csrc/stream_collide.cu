@@ -35,21 +35,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "d3q19_collide.cuh"
+
 namespace {
-
-__constant__ int kCX[19] = {0, -1, 1, 0, 0, 0, 0, -1, 1, -1, 1, -1, 1, -1, 1, 0, 0, 0, 0};
-__constant__ int kCY[19] = {0, 0, 0, -1, 1, 0, 0, -1, 1, 1, -1, 0, 0, 0, 0, -1, 1, -1, 1};
-__constant__ int kCZ[19] = {0, 0, 0, 0, 0, -1, 1, 0, 0, 0, 0, -1, 1, 1, -1, -1, 1, 1, -1};
-__constant__ int kOPP[19] = {0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15, 18, 17};
-__constant__ float kW[19] = {
-    1.0f / 3.0f,
-    1.0f / 18.0f, 1.0f / 18.0f, 1.0f / 18.0f, 1.0f / 18.0f, 1.0f / 18.0f, 1.0f / 18.0f,
-    1.0f / 36.0f, 1.0f / 36.0f, 1.0f / 36.0f, 1.0f / 36.0f, 1.0f / 36.0f, 1.0f / 36.0f,
-    1.0f / 36.0f, 1.0f / 36.0f, 1.0f / 36.0f, 1.0f / 36.0f, 1.0f / 36.0f, 1.0f / 36.0f};
-
-constexpr uint8_t kWall = 1;
-constexpr uint8_t kVelocity = 2;
-constexpr uint8_t kPressure = 3;
 
 // force_mode: 0 none, 1 uniform (fu), 2 field [3, X, Y, Z]
 __global__ void stream_collide_kernel(
@@ -59,6 +47,7 @@ __global__ void stream_collide_kernel(
     const uint8_t* __restrict__ flags, const float* __restrict__ bc_vel,
     int has_rho0, float rho0, const float* __restrict__ le_planes,
     int X, int Y, int Z) {
+  D3Q19_TABLES
   const long long N = (long long)X * Y * Z;
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
@@ -72,55 +61,23 @@ __global__ void stream_collide_kernel(
   for (int i = 0; i < 19; ++i) h[i] = f[i * N + n];
   const uint8_t flag = flags ? flags[n] : 0;
 
-  float res[19];
-  if (flag == kWall) {
-#pragma unroll
-    for (int i = 0; i < 19; ++i) res[i] = h[kOPP[i]];
-  } else if (flag == kVelocity && bc_vel != nullptr) {
-    const float ux = bc_vel[n], uy = bc_vel[N + n], uz = bc_vel[2 * N + n];
-#pragma unroll
-    for (int i = 0; i < 19; ++i) {
-      const float cu = kCX[i] * ux + kCY[i] * uy + kCZ[i] * uz;
-      res[i] = h[kOPP[i]] + 6.0f * kW[i] * cu;
-    }
-  } else {
-    float Fx = 0.f, Fy = 0.f, Fz = 0.f;
+  // the collision itself is d3q19::collide_node, shared with K8-K10
+  const bool velocity_node = flag == d3q19::kVelocity && bc_vel != nullptr;
+  float bux = 0.f, buy = 0.f, buz = 0.f;
+  float Fx = 0.f, Fy = 0.f, Fz = 0.f;
+  if (velocity_node) {
+    bux = bc_vel[n]; buy = bc_vel[N + n]; buz = bc_vel[2 * N + n];
+  } else if (flag != d3q19::kWall) {
     if (force_mode == 1) {
       Fx = fux; Fy = fuy; Fz = fuz;
     } else if (force_mode == 2) {
       Fx = force[n]; Fy = force[N + n]; Fz = force[2 * N + n];
     }
-    // drho = sum h is kept beside rho = 1 + drho: (rho - 1) would lose up
-    // to 6e-8 of it in f32, which the collision turns into lost mass
-    float drho = 0.f, mx = 0.f, my = 0.f, mz = 0.f;
-#pragma unroll
-    for (int i = 0; i < 19; ++i) {
-      drho += h[i];
-      mx += kCX[i] * h[i];
-      my += kCY[i] * h[i];
-      mz += kCZ[i] * h[i];
-    }
-    const float rho = 1.0f + drho;
-    const float ux = (mx + 0.5f * Fx) / rho;
-    const float uy = (my + 0.5f * Fy) / rho;
-    const float uz = (mz + 0.5f * Fz) / rho;
-    const float usq = ux * ux + uy * uy + uz * uz;
-    const float uF = ux * Fx + uy * Fy + uz * Fz;
-    const float om = omega_field ? omega_field[n] : omega;
-    const float src = 1.0f - 0.5f * om;
-    const bool pressure = (flag == kPressure) && has_rho0;
-#pragma unroll
-    for (int i = 0; i < 19; ++i) {
-      const float cu = kCX[i] * ux + kCY[i] * uy + kCZ[i] * uz;
-      const float cF = kCX[i] * Fx + kCY[i] * Fy + kCZ[i] * Fz;
-      const float poly = 3.0f * cu + 4.5f * cu * cu - 1.5f * usq;
-      const float feq = kW[i] * (drho + rho * poly);
-      const float S = kW[i] * (3.0f * (cF - uF) + 9.0f * cu * cF);
-      float v = h[i] - om * (h[i] - feq) + src * S;
-      if (pressure) v += kW[i] * (rho0 - rho) * (1.0f + poly);
-      res[i] = v;
-    }
   }
+  const float om = omega_field ? omega_field[n] : omega;
+  float res[19];
+  d3q19::collide_node(h, res, flag, Fx, Fy, Fz, om, velocity_node, bux, buy, buz,
+                      has_rho0 != 0, rho0);
 
 #pragma unroll
   for (int i = 0; i < 19; ++i) {

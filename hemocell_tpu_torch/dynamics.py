@@ -22,8 +22,11 @@ reference package's phase order:
 
 The iteration counter is a Python int and the Lees-Edwards displacement a
 host scalar, so the timescale gates and the plane shifts cost no device
-sync, and the runner is a plain Python loop.  Interior viscosity, solidify
-and preInlet are not ported yet.
+sync, and the runner is a plain Python loop over ``step``.  A run with no
+vertices at all (the cell-free warm-up of a vessel case) leaves that loop:
+``build_runner`` advances it k iterations per launch through the fused
+fluid kernels (K9, or K8 for two steps).  Interior viscosity, solidify and
+preInlet are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from .fluid import advection_diffusion as ad
 from .fluid import lbm
 from .fluid.lees_edwards import le_stream_collide
 from .fluid.stream_collide import stream_collide
+from .fluid.stream_collide_2x import stream_collide_2x
+from .fluid.stream_collide_kx import SUPPORTED_K, stream_collide_kx
 from .ibm import kernels
 
 
@@ -51,6 +56,9 @@ class SimState(NamedTuple):
     cepac: Any = None
     # Lees-Edwards accumulated x-displacement: 0-dim tensor on the host
     le_displacement: Any = None
+    # dynamic uniform body force [3] overriding cfg.body_force (the adaptive
+    # preInlet drive): a host tensor, as the kernels take it by value
+    body_force_state: Any = None
 
 
 @dataclass
@@ -95,6 +103,14 @@ class StepConfig:
     # vertex integration: 1 = Euler, 2 = Adams-Bashforth
     # (pos += 1.5 v - 0.5 v_prev; needs CellTypeState.vel_prev)
     material_integration: int = 1
+    # fused multi-step fluid kernels for cell-free runs: True turns them on
+    # (on the CPU their plain versions run through the same dispatch); None
+    # and False keep the one-step loop, which is the faster of the two on the
+    # H100 until the fused kernels are redesigned (PERF.md, section 7)
+    fluid_2x: Optional[bool] = None
+    # iterations per fused launch: None = 4; 2 takes the two-step kernel; the
+    # kernels are built for 2..5, and 1 keeps the one-step loop
+    fluid_k: Optional[int] = None
     dtype: torch.dtype = torch.float32
     device: Any = "cuda"
 
@@ -121,10 +137,10 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
     has_boundaries = bool(flags.any())
     omega = cfg.omega.to(device, dtype) if torch.is_tensor(cfg.omega) else float(cfg.omega)
     bc_velocity = _dev(cfg.bc_velocity, dtype)
-    bf = bf_host = None
+    bf_cfg = bf_cfg_host = None
     if cfg.body_force is not None:
-        bf_host = torch.as_tensor(cfg.body_force, dtype=dtype)
-        bf = bf_host.to(device)[:, None, None, None]
+        bf_cfg_host = torch.as_tensor(cfg.body_force, dtype=dtype)
+        bf_cfg = bf_cfg_host.to(device)[:, None, None, None]
     bmask = _dev(cfg.boundary_mask, torch.uint8)
     rep_on = cfg.repulsion_constant > 0.0
     brep_on = cfg.boundary_repulsion_constant > 0.0 and bmask is not None
@@ -182,6 +198,10 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                 cells[k] = cells[k]._replace(force_repulsion=part)
 
         # ---- 2: spread capped forces + repulsion, add the body force -----
+        bf, bf_host = bf_cfg, bf_cfg_host
+        if state.body_force_state is not None:
+            bf_host = torch.as_tensor(state.body_force_state).to("cpu", dtype)
+            bf = bf_host.to(device)[:, None, None, None]
         le_w = None
         if have_vertices:
             pos_lat = pos_flat  # the kernels wrap unwrapped positions
@@ -274,18 +294,76 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
             ft = torch.where(cs.alive[:, None, None], ft, torch.zeros_like(ft))
             cells[k] = cs._replace(force=ft)
 
-        return SimState(f=f_new, it=it + 1, cells=tuple(cells), cepac=cepac_new,
-                        le_displacement=le_disp_new)
+        return state._replace(f=f_new, it=it + 1, cells=tuple(cells), cepac=cepac_new,
+                              le_displacement=le_disp_new)
 
     return step
 
 
 def build_runner(cfg: StepConfig) -> Callable[[SimState, int], SimState]:
-    """``run(state, n)`` advancing n iterations with a Python loop."""
+    """``run(state, n)`` advancing n iterations: a Python loop over ``step``,
+    or for a cell-free state the fused fluid kernels, k iterations per
+    launch."""
     step = build_step(cfg)
+    device = resolve_device(cfg.device)
+
+    # The fused kernels advance a run whose only change per iteration is
+    # {f, it}, within their own scope: scalar omega, uniform or no body
+    # force, bounce-back walls only, no Lees-Edwards, no CEPAC.  (Interior
+    # viscosity and solidify join these conditions when they are ported.)
+    k_fluid = 4 if cfg.fluid_k is None else int(cfg.fluid_k)
+    if k_fluid != 1 and k_fluid not in SUPPORTED_K:
+        raise ValueError(f"fluid_k must be 1 or one of {SUPPORTED_K}, got {cfg.fluid_k}")
+    fused = bool(
+        cfg.fluid_2x
+        and k_fluid >= 2
+        and cfg.lees_edwards_velocity is None
+        and cfg.cepac_tau is None
+        and cfg.bc_velocity is None
+        and cfg.bc_density is None
+        and not (torch.is_tensor(cfg.omega) and cfg.omega.dim() > 0)
+    )
+    flags = torch.as_tensor(cfg.flags).to(device, torch.uint8)
+    flags_arg = flags if bool(flags.any()) else None
+    omega = cfg.omega
+    bf_cfg = None
+    if cfg.body_force is not None:
+        bf_cfg = torch.as_tensor(cfg.body_force, dtype=cfg.dtype)
+
+    def fluid_k_steps(f, bf, k):
+        if k == 2:
+            return stream_collide_2x(f, bf, omega, flags_arg)
+        return stream_collide_kx(f, bf, omega, flags_arg, k=k)
+
+    def fluid_loop(state: SimState, n: int):
+        """n // k fused launches, one more for a remainder of 2 or more;
+        returns the state and the iterations left (0 or 1) for ``step``."""
+        bf = bf_cfg
+        if state.body_force_state is not None:
+            bf = torch.as_tensor(state.body_force_state).to("cpu", cfg.dtype)
+        nk, rem = divmod(n, k_fluid)
+        f = state.f
+        for _ in range(nk):
+            f = fluid_k_steps(f, bf, k_fluid)
+        if rem >= 2:
+            f = fluid_k_steps(f, bf, rem)
+            rem = 0
+        return state._replace(f=f, it=state.it + (n - rem)), rem
+
+    def pure_fluid(state: SimState) -> bool:
+        # no vertices of any cell type, and no state the fused kernels ignore
+        # (a per-node omega field and mutable flags join with interior
+        # viscosity and solidify)
+        vertices = sum(cs.pos.shape[0] * cs.pos.shape[1] for cs in state.cells)
+        bfs = state.body_force_state
+        return (fused and vertices == 0 and state.cepac is None
+                and (bfs is None or torch.as_tensor(bfs).dim() == 1))
 
     def run(state: SimState, n: int) -> SimState:
-        for _ in range(int(n)):
+        n = int(n)
+        if pure_fluid(state):
+            state, n = fluid_loop(state, n)
+        for _ in range(n):
             state = step(state)
         return state
 

@@ -146,8 +146,34 @@ def stream_collide(f, force, omega, flags, bc_velocity=None, bc_density=None):
     if force is None:
         force = torch.zeros((3,) + tuple(f.shape[1:]), dtype=f.dtype, device=f.device)
     elif force.dim() == 1:
-        force = force.to(f.dtype)[:, None, None, None].expand((3,) + tuple(f.shape[1:]))
+        force = force.to(f.device, f.dtype)[:, None, None, None].expand((3,) + tuple(f.shape[1:]))
     return stream(collide(f, force, omega, flags, bc_velocity, bc_density))
+
+
+def strain_rate_tensor(f, force, omega):
+    """Strain-rate tensor from the non-equilibrium stress:
+    S_ab = -(3 omega / 2 rho) Pi_neq_ab, with Pi_neq_ab = sum_i c_ia c_ib
+    (f_i - feq_i).  omega: float or [X,Y,Z] tensor.
+
+    Returns [6, X, Y, Z] in Voigt order xx, yy, zz, xy, xz, yz.
+    """
+    c, _ = _consts(f.dtype, f.device)
+    rho, u = macroscopic(f, force)
+    fneq = f - equilibrium_dev(rho, u)
+    comps = []
+    for a, b in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)):
+        cab = (c[:, a] * c[:, b]).reshape(19, 1, 1, 1)
+        comps.append(torch.sum(cab * fneq, dim=0))
+    pi_neq = torch.stack(comps, dim=0)
+    om = omega[None] if torch.is_tensor(omega) and omega.dim() > 0 else omega
+    return -1.5 * om * pi_neq / rho[None]
+
+
+def shear_rate_magnitude(f, force, omega):
+    """gamma_dot = sqrt(2 S:S) on every node, [X, Y, Z]."""
+    s = strain_rate_tensor(f, force, omega)
+    sq = s[0] ** 2 + s[1] ** 2 + s[2] ** 2 + 2.0 * (s[3] ** 2 + s[4] ** 2 + s[5] ** 2)
+    return torch.sqrt(2.0 * sq)
 
 
 def initial_state(shape, rho0=1.0, u0=(0.0, 0.0, 0.0), dtype=torch.float32,

@@ -7,6 +7,10 @@ tensors it launches the kernel, or raises for what the kernel does not take
 (any dtype but float32).  ``launch`` is the uncounted launch itself, shared
 with the Lees-Edwards wrapper (``fluid/lees_edwards.py``), which passes the
 kernel its ``le_planes`` operand and keeps its own count.
+
+With ``LARGE_CROSS_SECTION`` set, large cross-sections with a scalar omega
+are handed to kernel K10 (``fluid/stream_collide_2d.py``), as the reference's
+``stream_collide_pallas`` hands them to its (x,y)-tiled kernel.
 """
 
 from __future__ import annotations
@@ -15,10 +19,18 @@ import torch
 
 from .. import _build
 from . import lbm
+from ._kernel_args import fluid_args
+from .stream_collide_2d import stream_collide_2d
 
-
-def _f32(t, name, shape):
-    return _build.cuda_arg(t, f"stream_collide: {name}", torch.float32, shape)
+# Cross-sections of Y*Z nodes from here on go to the (x,y)-tiled kernel K10;
+# None sends every shape to K1.  The reference decides by what fits its fast
+# memory, which has no analog on the card; TILED_FROM keeps that rule's
+# outcome at the shapes the reference names: 256 x 256 goes to the tiled
+# kernel, pipeflow30's 56 x 56 and the suspension's 128 x 128 stay on K1.
+# The dispatch is off until K10 beats K1 at those shapes on the H100
+# (PERF.md, section 7); set LARGE_CROSS_SECTION = TILED_FROM to turn it on.
+TILED_FROM = 256 * 256
+LARGE_CROSS_SECTION = None
 
 
 def stream_collide(f, force, omega, flags, bc_velocity=None, bc_density=None):
@@ -29,6 +41,11 @@ def stream_collide(f, force, omega, flags, bc_velocity=None, bc_density=None):
     [X,Y,Z] tensor; flags: uint8 [X,Y,Z]; bc_velocity: [3,X,Y,Z] or None;
     bc_density: float or None.  Returns the new populations.
     """
+    scalar_omega = not (torch.is_tensor(omega) and omega.dim() > 0)
+    large = (LARGE_CROSS_SECTION is not None
+             and f.shape[2] * f.shape[3] >= LARGE_CROSS_SECTION)
+    if large and scalar_omega:
+        return stream_collide_2d(f, force, omega, flags, bc_velocity, bc_density)
     if not f.is_cuda:
         stream_collide.plain_calls += 1
         return lbm.stream_collide(f, force, omega, flags, bc_velocity, bc_density)
@@ -42,42 +59,25 @@ def launch(f, force, omega, flags, bc_velocity=None, bc_density=None, le_planes=
     """Check the CUDA operands and launch the kernel once (no counting).
     ``flags`` may be None on an all-fluid box; ``le_planes [38,X,Y]`` are
     the pre-corrected Lees-Edwards wrap planes or None."""
+    a = fluid_args("stream_collide", f, force, flags, bc_velocity)
+    f = a.f
     X, Y, Z = f.shape[1:]
-    f = _f32(f, "f", (19, X, Y, Z))
-    flags_ptr = None
-    if flags is not None:
-        flags = _build.cuda_arg(flags, "stream_collide: flags", torch.uint8, (X, Y, Z))
-        flags_ptr = flags.data_ptr()
-    fu = (0.0, 0.0, 0.0)
-    force_ptr = None
-    if force is None:
-        force_mode = 0
-    elif force.dim() == 1:
-        force_mode = 1
-        fu = tuple(float(v) for v in force.tolist())
-    else:
-        force_mode = 2
-        force = _f32(force, "force", (3, X, Y, Z))
-        force_ptr = force.data_ptr()
     omega_ptr, omega_val = None, 0.0
     if torch.is_tensor(omega) and omega.dim() > 0:
-        omega = _f32(omega, "omega", (X, Y, Z))
+        omega = _build.cuda_arg(omega, "stream_collide: omega", torch.float32, (X, Y, Z))
         omega_ptr = omega.data_ptr()
     else:
         omega_val = float(omega)
-    bc_ptr = None
-    if bc_velocity is not None:
-        bc_velocity = _f32(bc_velocity, "bc_velocity", (3, X, Y, Z))
-        bc_ptr = bc_velocity.data_ptr()
     planes_ptr = None
     if le_planes is not None:
-        le_planes = _f32(le_planes, "le_planes", (38, X, Y))
+        le_planes = _build.cuda_arg(le_planes, "stream_collide: le_planes", torch.float32,
+                                    (38, X, Y))
         planes_ptr = le_planes.data_ptr()
 
     out = torch.empty_like(f)
     err = _build.lib().hc_stream_collide(
-        f.data_ptr(), out.data_ptr(), force_ptr, force_mode, *fu,
-        omega_ptr, omega_val, flags_ptr, bc_ptr,
+        f.data_ptr(), out.data_ptr(), a.force_ptr, a.force_mode, *a.fu,
+        omega_ptr, omega_val, a.flags_ptr, a.bc_ptr,
         int(bc_density is not None), float(bc_density or 0.0), planes_ptr,
         X, Y, Z, torch.cuda.current_stream(f.device).cuda_stream,
     )

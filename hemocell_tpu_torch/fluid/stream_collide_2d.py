@@ -1,0 +1,55 @@
+"""Wrapper of kernel K10, the (x,y)-tiled one-step D3Q19 stream-collide
+with a pull stream through shared memory (``csrc/stream_collide_2d.cu``),
+the counterpart of
+``hemocell_tpu/fluid/pallas_lbm_2d.py::stream_collide_pallas_2d``.
+
+It computes what ``fluid/stream_collide.py`` (K1) computes, for a scalar
+omega and without Lees-Edwards planes, and is where ``stream_collide`` sends
+large cross-sections.  On CPU tensors it runs the plain version,
+``lbm.stream_collide``; on CUDA tensors it launches its kernel or raises.
+The reference kernel's ``halos=`` operand (x rows exchanged between shards)
+comes with the multi-device port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from . import lbm
+from ._kernel_args import fluid_args
+
+
+def stream_collide_2d(f, force, omega, flags, bc_velocity=None, bc_density=None):
+    """One collide + stream step of ``f [19,X,Y,Z]``.
+
+    force: [3,X,Y,Z] field, uniform [3] tensor or None; omega: scalar;
+    flags: uint8 [X,Y,Z] or None (all fluid); bc_velocity: [3,X,Y,Z] or
+    None; bc_density: float or None.  Returns the new populations.
+    """
+    if torch.is_tensor(omega) and omega.dim() > 0:
+        raise ValueError("stream_collide_2d: omega must be a scalar, not a per-node field")
+    if flags is None and (bc_velocity is not None or bc_density is not None):
+        raise ValueError("stream_collide_2d: velocity and pressure nodes need a flags field")
+    omega = float(omega)
+    X, Y, Z = f.shape[1:]
+    if not f.is_cuda:
+        stream_collide_2d.plain_calls += 1
+        if flags is None:
+            flags = torch.zeros((X, Y, Z), dtype=torch.uint8)
+        return lbm.stream_collide(f, force, omega, flags, bc_velocity, bc_density)
+
+    a = fluid_args("stream_collide_2d", f, force, flags, bc_velocity)
+    f = a.f
+    out = torch.empty_like(f)
+    err = _build.lib().hc_stream_collide_2d(
+        f.data_ptr(), out.data_ptr(), a.force_ptr, a.force_mode, *a.fu, omega,
+        a.flags_ptr, a.bc_ptr, int(bc_density is not None), float(bc_density or 0.0), X, Y, Z,
+        torch.cuda.current_stream(f.device).cuda_stream)
+    _build.check(err, "hc_stream_collide_2d")
+    stream_collide_2d.launches += 1
+    return out
+
+
+stream_collide_2d.launches = 0
+stream_collide_2d.plain_calls = 0

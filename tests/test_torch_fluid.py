@@ -51,8 +51,11 @@ def test_lattice_constants_match():
 
 
 def test_kernel_source_tables_match_lattice():
-    """The D3Q19 tables compiled into the CUDA kernel are the lattice's."""
-    src = (Path(_build.CSRC) / "stream_collide.cu").read_text()
+    """The D3Q19 tables compiled into the CUDA kernels (the header every
+    stream-collide kernel includes) are the lattice's."""
+    src = (Path(_build.CSRC) / "d3q19_collide.cuh").read_text()
+    for name in ("stream_collide.cu", "stream_collide_kx.cu", "stream_collide_2d.cu"):
+        assert '#include "d3q19_collide.cuh"' in (Path(_build.CSRC) / name).read_text()
 
     def table(name):
         body = re.search(r"%s\[19\] = \{([^}]*)\}" % name, src).group(1)

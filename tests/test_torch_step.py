@@ -222,4 +222,22 @@ def test_entry_points_need_cuda_unless_cpu_asked(case_dir, setup, monkeypatch):
         tdyn.build_runner(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_pipeflow30(workdir=os.path.join(case_dir, "p30"))
+    # every other entry point of the port: the preset and the cases
+    from hemocell_tpu_torch import presets
+    from hemocell_tpu_torch.cases import cellcollision, cepac, fluid_only, leesedwards
+
+    entry_points = {
+        "presets.rbc_suspension": lambda: presets.rbc_suspension(shape=(8, 8, 8), n_cells=0),
+        "cases.cellcollision.build": lambda: cellcollision.build(
+            os.path.join(case_dir, "cc")),
+        "cases.cepac.build": lambda: cepac.build(os.path.join(case_dir, "cepac")),
+        "cases.leesedwards.build": lambda: leesedwards.build(shape=(8, 8, 8), n_cells=0),
+        "cases.fluid_only.build": lambda: fluid_only.build((8, 8, 8)),
+        "cases.fluid_only.build pipe": lambda: fluid_only.build((8, 12, 12), walls="pipe"),
+        "cases.fluid_only.main": lambda: fluid_only.main(["--shape", "8", "8", "8"]),
+    }
+    for name, call in entry_points.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+            pytest.fail(f"{name} ran without CUDA")
     assert HemoCell(path, device="cpu").device.type == "cpu"
