@@ -56,8 +56,32 @@ Then the cell-free (pure-fluid) runner and its three kernels:
  15. a walled 24x20x16 box, 9 iterations at fluid_k = 4, on the card and with
      the plain versions on the CPU.
 
-Then the ``kernels`` JSON line (all ten), the card, and as the last line
-``{"ok": true, "device": {...}}``.
+Then the multi-device path (the sharded runner of ``parallel/``) and the halo
+mode of K1 and K10 that carries its fluid:
+
+ 16. K1 in halo mode: five domains (the walled 248x56x56 pipe with a force
+     field, flags, velocity and pressure nodes; the 128^3 box with a uniform
+     force, with none, with an omega field, and all fluid with Lees-Edwards
+     planes) cut into 1 (the slab of world size 1, phase 18's shape), 2, 4
+     and 8 x-slabs in this process, each slab stepped with its neighbours'
+     rows: the slabs joined must equal one whole-domain K1 launch bit for
+     bit, and each slab its plain halo version to 1e-6; timed at the
+     quarter-slab shape beside K1 on the same slab;
+ 17. K10 in halo mode: 256^3 as one slab and as 4 slabs of 64x256x256 in
+     phase 11's three operand sets, bitwise equal to whole-domain K1, 1e-6
+     from the plain version; timed beside K10 and K1 on the quarter slab;
+ 18. the distributed path at world size 1: an NCCL group of one
+     (``init_process_group("nccl", init_method="file://...")``), then
+     ``HemoCell.distribute()``: pipeflow30 1000 iterations under phase 4's
+     gates with every fluid step a K1 halo launch, MLUPS and idle share;
+     fluid128 500 iterations bitwise equal to the single-device K1 loop;
+     fluid256 20 iterations with the dispatch to K10 on (K10 halo launches);
+     suspension128 500 iterations under phase 7's gates;
+ 19. a walled 32x24x24 pipe with 2 RBC + 1 PLT, distributed, on the card and
+     on the CPU (a gloo group of one), compared after 41 steps as in phase 5.
+
+Then the ``kernels`` JSON line (all twelve: the ten kernels and the two halo
+modes), the card, and as the last line ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (from the repository root, one GPU)
 """
@@ -96,6 +120,8 @@ REPLACES = {
     "stream_collide_2x": "hemocell_tpu/fluid/pallas_lbm_2x.py:139",
     "stream_collide_kx": "hemocell_tpu/fluid/pallas_lbm_kx.py:134",
     "stream_collide_2d": "hemocell_tpu/fluid/pallas_lbm_2d.py:201",
+    "stream_collide_halo": "hemocell_tpu/fluid/sharded_pallas.py:35",
+    "stream_collide_2d_halo": "hemocell_tpu/fluid/pallas_lbm_2d.py:201",
 }
 SOURCES = {
     "stream_collide": "hemocell_tpu_torch/csrc/stream_collide.cu",
@@ -108,10 +134,13 @@ SOURCES = {
     "stream_collide_2x": "hemocell_tpu_torch/csrc/stream_collide_kx.cu",
     "stream_collide_kx": "hemocell_tpu_torch/csrc/stream_collide_kx.cu",
     "stream_collide_2d": "hemocell_tpu_torch/csrc/stream_collide_2d.cu",
+    "stream_collide_halo": "hemocell_tpu_torch/csrc/stream_collide.cu",
+    "stream_collide_2d_halo": "hemocell_tpu_torch/csrc/stream_collide_2d.cu",
 }
 KERNEL_ORDER = ("stream_collide", "spread", "interp", "wall_hit_cells", "repulsion",
                 "ad_stream_collide", "le_stream_collide", "stream_collide_2x",
-                "stream_collide_kx", "stream_collide_2d")
+                "stream_collide_kx", "stream_collide_2d", "stream_collide_halo",
+                "stream_collide_2d_halo")
 
 
 def fail(msg: str) -> int:
@@ -345,13 +374,15 @@ def counters():
     from hemocell_tpu_torch.cells.repulsion import repulsion
     from hemocell_tpu_torch.fluid.advection_diffusion import ad_stream_collide
     from hemocell_tpu_torch.fluid.lees_edwards import le_stream_collide
-    from hemocell_tpu_torch.fluid.stream_collide import stream_collide
-    from hemocell_tpu_torch.fluid.stream_collide_2d import stream_collide_2d
+    from hemocell_tpu_torch.fluid.stream_collide import stream_collide, stream_collide_halo
+    from hemocell_tpu_torch.fluid.stream_collide_2d import (stream_collide_2d,
+                                                            stream_collide_2d_halo)
     from hemocell_tpu_torch.fluid.stream_collide_2x import stream_collide_2x
     from hemocell_tpu_torch.fluid.stream_collide_kx import stream_collide_kx
     from hemocell_tpu_torch.ibm import kernels
 
-    return {"stream_collide": stream_collide, "spread": kernels.spread,
+    return {"stream_collide": stream_collide, "stream_collide_halo": stream_collide_halo,
+            "stream_collide_2d_halo": stream_collide_2d_halo, "spread": kernels.spread,
             "interp": kernels.interp, "wall_hit_cells": kernels.wall_hit_cells,
             "repulsion": repulsion, "ad_stream_collide": ad_stream_collide,
             "le_stream_collide": le_stream_collide,
@@ -368,8 +399,9 @@ def reset_counters():
     return fns
 
 
-def phase_pipeflow(hc, smi):
-    """pipeflow30 main path: ITERATIONS coupled steps through K1-K4."""
+def phase_pipeflow(hc, smi, tag="[4]", fluid="stream_collide"):
+    """pipeflow30 main path: ITERATIONS coupled steps through K1-K4 (K1 in
+    halo mode, ``fluid="stream_collide_halo"``, on a distributed facade)."""
     import torch
 
     n0 = [hc.alive_count(0), hc.alive_count(1)]
@@ -384,7 +416,7 @@ def phase_pipeflow(hc, smi):
     launches = {k: fn.launches for k, fn in fns.items()}
     plain = {k: fn.plain_calls for k, fn in fns.items()}
     mlups = N * ITERATIONS / dt / 1e6
-    print(f"[4] pipeflow30 {hc.shape}: {ITERATIONS} iterations in {dt:.3f} s = "
+    print(f"{tag} pipeflow30 {hc.shape}: {ITERATIONS} iterations in {dt:.3f} s = "
           f"{mlups:.1f} MLUPS on {smi}", flush=True)
 
     st = hc.state
@@ -395,11 +427,11 @@ def phase_pipeflow(hc, smi):
     dmass = abs(float(st.f.double().sum()) - mass0) / N
     force_pn = hc.mean_force_pn(0)
     n1 = [hc.alive_count(0), hc.alive_count(1)]
-    print(f"[4] cells {n0} -> {n1} | max|u| {umax:.4e} | mass drift per node {dmass:.3e} "
+    print(f"{tag} cells {n0} -> {n1} | max|u| {umax:.4e} | mass drift per node {dmass:.3e} "
           f"| mean RBC force {force_pn:.4f} pN | launches {launches} | plain calls {plain}",
           flush=True)
     expected = dict.fromkeys(KERNEL_ORDER, 0)
-    expected.update({"stream_collide": ITERATIONS, "spread": ITERATIONS,
+    expected.update({fluid: ITERATIONS, "spread": ITERATIONS,
                      "interp": ITERATIONS // hc.particle_every,
                      "wall_hit_cells": ITERATIONS})
     checks = {
@@ -688,17 +720,17 @@ def phase_suspension_kernels(susp):
     return {r["name"]: r for r in rows}, {r["name"]: r for r in rows128}
 
 
-def run_gated(tag, name, cfg, state, n, expected, smi, extra_checks=None):
-    """n iterations of build_runner(cfg) from ``state`` with the counts read
-    around the run; the gates shared by the suspension runs.  Returns (final
-    state, launches, runner, wall us per iteration)."""
+def run_gated(tag, name, cfg, state, n, expected, smi, extra_checks=None, run=None):
+    """n iterations of ``run`` (default build_runner(cfg)) from ``state``
+    with the counts read around the run; the gates shared by the suspension
+    runs.  Returns (final state, launches, runner, wall us per iteration)."""
     import torch
 
     from hemocell_tpu_torch.cells import repulsion as rep
     from hemocell_tpu_torch.dynamics import build_runner
     from hemocell_tpu_torch.fluid import lbm
 
-    run = build_runner(cfg)
+    run = run or build_runner(cfg)
     N = int(np.prod(cfg.shape))
     mass0 = float(state.f.double().sum())
     n_cells = sum(int(cs.alive.sum()) for cs in state.cells)
@@ -763,9 +795,10 @@ def run_gated(tag, name, cfg, state, n, expected, smi, extra_checks=None):
     return state, launches, run, dt * 1e6 / n
 
 
-def phase_suspension(susp, smi):
+def phase_suspension(susp, smi, tag="[7]", mesh=None):
     """The suspension main path: 500 coupled iterations with repulsion and
-    CEPAC through K1, K2, K3, K5, K6."""
+    CEPAC through K1, K2, K3, K5, K6; on ``mesh`` through the sharded
+    runner (K1 in halo mode)."""
     import torch
 
     from hemocell_tpu_torch.dynamics import build_step, initial_sim_state
@@ -777,27 +810,34 @@ def phase_suspension(susp, smi):
     state = build_step(cfg)(state)
     total1 = float(concentration(state.cepac).double().sum())
     n = SUSP_ITERATIONS
+    run, fluid = None, "stream_collide"
+    if mesh is not None:
+        from hemocell_tpu_torch.parallel import build_shardmap_runner, shard_state
+
+        state, run, fluid = shard_state(state, mesh), build_shardmap_runner(cfg, mesh), \
+            "stream_collide_halo"
 
     def cepac_checks(st):
         conc = concentration(st.cepac)
         total = float(conc.double().sum())
-        print(f"[7] CEPAC total {total1:.3f} after the first step -> {total:.3f} | "
+        print(f"{tag} CEPAC total {total1:.3f} after the first step -> {total:.3f} | "
               f"min {float(conc.min()):.3e} max {float(conc.max()):.4f}", flush=True)
         return {"CEPAC finite": bool(torch.isfinite(st.cepac).all()),
                 "CEPAC total non-negative": total >= 0.0,
                 "CEPAC grows from the patch": total > total1 > 0.0}
 
     # the counted run covers it = 1 .. n; n is a multiple of both periods
-    expected = {"stream_collide": n, "spread": n, "interp": n // cfg.particle_every,
+    expected = {fluid: n, "spread": n, "interp": n // cfg.particle_every,
                 "repulsion": n // cfg.repulsion_every, "ad_stream_collide": n}
-    state, launches, run, wall_us = run_gated("[7]", "suspension128", cfg, state, n,
-                                              expected, smi, cepac_checks)
+    name = "suspension128" + (" distributed" if mesh is not None else "")
+    state, launches, run, wall_us = run_gated(tag, name, cfg, state, n, expected, smi,
+                                              cepac_checks, run)
     box = [state]
 
     def advance(k):
         box[0] = run(box[0], k)
 
-    phase_profile("[7]", advance, wall_us)
+    phase_profile(tag, advance, wall_us)
     return launches
 
 
@@ -1175,20 +1215,20 @@ def phase_tiled_kernel(smi):
                               bound_by=by_f))}
 
 
-def run_fluid_path(tag, name, cfg, state, pieces, smi, reference=True):
+def run_fluid_path(tag, name, cfg, state, pieces, smi, reference=True, run=None):
     """Drive ``build_runner(cfg)`` through ``pieces``, a list of (iterations,
     launch counts expected after the piece, cumulative), with the counts set
     to 0 just before and read after each piece.  Gates: exact counts, no
     plain call, finite, max|u| < 0.1, mass drift per node < 1e-6 and, with
     ``reference``, bitwise equality with as many K1 launches from the same
-    start.  Returns (final state, launches, runner, wall us per iteration of
-    the first piece)."""
+    start.  ``run`` replaces build_runner(cfg).  Returns (final state,
+    launches, runner, wall us per iteration of the first piece)."""
     import torch
 
     from hemocell_tpu_torch.dynamics import build_runner
     from hemocell_tpu_torch.fluid import lbm
 
-    run = build_runner(cfg)
+    run = run or build_runner(cfg)
     N = int(np.prod(cfg.shape))
     f0 = state.f
     mass0 = float(f0.double().sum())
@@ -1347,6 +1387,337 @@ def phase_small_fluid():
         raise AssertionError("small cell-free case disagrees with the plain CPU path")
 
 
+def slab_rows(ops, s, n):
+    """Slab ``s`` of ``n`` (x-slabs of equal width) of the whole-domain
+    operands ``ops`` (f, force, omega, flags, bc, rho0, le) and its halos:
+    the neighbours' rows, periodic in x."""
+    import torch
+
+    f, force, omega, flags, bc, rho0, le = ops
+    X = f.shape[1]
+    Xl = X // n
+    x0, lo, hi = s * Xl, (s * Xl - 1) % X, (s * Xl + Xl) % X
+    halos = {}
+
+    def cut(a, d, key):
+        halos[key] = (a.narrow(d, lo, 1).contiguous(), a.narrow(d, hi, 1).contiguous())
+        return a.narrow(d, x0, Xl).contiguous()
+
+    f_s = cut(f, 1, "f")
+    force_s = cut(force, 1, "force") if force is not None and force.dim() > 1 else force
+    omega_s = cut(omega, 0, "omega") if torch.is_tensor(omega) and omega.dim() > 0 else omega
+    flags_s = None if flags is None else cut(flags, 0, "flags")
+    bc_s = None if bc is None else cut(bc, 1, "bc")
+    le_s = None if le is None else cut(le, 1, "le")
+    return (f_s, force_s, omega_s, flags_s, bc_s, rho0, le_s), halos
+
+
+def halo_domains(dev):
+    """The operand sets of phase 16: name -> (f, force, omega, flags, bc,
+    rho0, le) on the card."""
+    import torch
+
+    from hemocell_tpu_torch.cases.pipeflow30 import pipe_flags
+
+    g = torch.Generator(device="cpu").manual_seed(16)
+    omega = 1.0 / 1.16
+    force_u = torch.tensor([5e-7, 2e-7, -1e-7])
+    pipe = torch.as_tensor(pipe_flags(PIPE_SHAPE, 25.0))
+    fluid = pipe == 0
+    pipe[0][fluid[0]] = 2  # velocity nodes on the plane x = 0
+    pipe[-1][fluid[-1]] = 3  # pressure nodes on the plane x = X-1
+    bc = torch.zeros((3,) + PIPE_SHAPE)
+    bc[0] = 0.01
+    bc[1] = 0.002
+    box = FLUID_SHAPE
+    return {
+        "pipe: force field + walls + velocity and pressure nodes": (
+            near_equilibrium(PIPE_SHAPE, pipe.to(dev), 16, dev),
+            (1e-5 * torch.randn((3,) + PIPE_SHAPE, generator=g)).to(dev), omega,
+            pipe.to(dev), bc.to(dev), 1.002, None),
+        "box128: uniform force": (near_equilibrium(box, None, 17, dev), force_u, omega, None,
+                                  None, None, None),
+        "box128: no force": (near_equilibrium(box, None, 18, dev), None, omega, None, None,
+                             None, None),
+        "box128: omega field": (
+            near_equilibrium(box, None, 19, dev), force_u,
+            (omega + 0.1 * torch.rand(box, generator=g)).to(dev), None, None, None, None),
+        "box128: Lees-Edwards planes": (
+            near_equilibrium(box, None, 20, dev),
+            (1e-5 * torch.randn((3,) + box, generator=g)).to(dev), omega, None, None, None,
+            (1e-3 * torch.randn((38, box[0], box[1]), generator=g)).to(dev)),
+    }
+
+
+def phase_halo_split(smi):
+    """K1 in halo mode: each domain cut into 1, 2, 4 and 8 x-slabs, every slab
+    stepped with its neighbours' rows; the slabs joined must equal one
+    whole-domain K1 launch bit for bit and each slab its plain halo version
+    to 1e-6.  Returns the row of the halo mode."""
+    import torch
+
+    from hemocell_tpu_torch.fluid.halo import stream_collide_halo_plain
+    from hemocell_tpu_torch.fluid.stream_collide import launch as launch_k1
+
+    dev = torch.device("cuda")
+    worst, row = 0.0, None
+    for name, ops in halo_domains(dev).items():
+        f, force, omega, flags, bc, rho0, le = ops
+        whole = launch_k1(f, force, omega, flags, bc, rho0, le)
+        moved = float((whole - f).abs().max())
+        for n in (1, 2, 4, 8):
+            parts, err = [], 0.0
+            for s in range(n):
+                (fs, fo, om, fl, bcs, r0, les), halos = slab_rows(ops, s, n)
+                out = launch_k1(fs, fo, om, fl, bcs, r0, les, halos=halos)
+                plain = stream_collide_halo_plain(fs, fo, om, fl, bcs, r0, halos, les)
+                err = max(err, float((out - plain).abs().max()))
+                parts.append(out)
+                del plain
+            same = torch.equal(torch.cat(parts, dim=1), whole)
+            worst = max(worst, err)
+            print(f"[16] {name} {tuple(f.shape[1:])} in {n} slabs: bitwise equal to the "
+                  f"whole-domain K1 launch {same} | vs plain max_abs_err {err:.3e} (tol 1e-6) "
+                  f"| max|out - in| {moved:.3e}", flush=True)
+            if not (same and err <= 1e-6 and moved > 1e-6):
+                raise AssertionError(f"K1 halo mode disagrees: {name}, {n} slabs")
+            del parts
+        if name.startswith("pipe") or name == "box128: uniform force":
+            # the quarter slab: the halo launch beside K1 on a periodic slab
+            # of the same shape, the plain halo version and the byte bound
+            (fs, fo, om, fl, bcs, r0, les), halos = slab_rows(ops, 0, 4)
+            Xl, Y, Z = fs.shape[1:]
+            ms = time_ms(lambda: launch_k1(fs, fo, om, fl, bcs, r0, halos=halos), 50)
+            k1_ms = time_ms(lambda: launch_k1(fs, fo, om, fl, bcs, r0), 50)
+            plain_ms = time_ms(lambda: stream_collide_halo_plain(fs, fo, om, fl, bcs, r0,
+                                                                 halos), 10)
+            per_read = (19 * 4 + (1 if fl is not None else 0)
+                        + (12 if fo is not None and fo.dim() > 1 else 0))
+            n_vel = 0 if fl is None else int((fl == 2).sum())
+            b, by = bound_ms((Xl + 2) * Y * Z * per_read + Xl * Y * Z * 19 * 4 + n_vel * 12,
+                             (Xl + 2) * Y * Z * 600)
+            print(f"[16] {name}, quarter slab {(Xl, Y, Z)} on {smi}: halo launch {ms:.4f} ms, "
+                  f"K1 on the slab {k1_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b:.4f} ms "
+                  f"({by})", flush=True)
+            entry = dict(ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                         library_ms=None, shape=[Xl, Y, Z])
+            if row is None:
+                row = dict(entry, tol=1e-6)
+            else:
+                row["at_128"] = entry
+        del whole, ops
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+    return {"stream_collide_halo": row}
+
+
+def phase_halo_tiled(smi):
+    """K10 in halo mode: 256^3 as one slab and as 4 slabs of 64x256x256 in
+    phase 11's three operand sets, bitwise equal to one whole-domain K1
+    launch and within 1e-6 of the plain version.  Returns its row."""
+    import torch
+
+    from hemocell_tpu_torch.fluid.halo import stream_collide_halo_plain
+    from hemocell_tpu_torch.fluid.stream_collide import launch as launch_k1
+    from hemocell_tpu_torch.fluid.stream_collide_2d import (stream_collide_2d,
+                                                            stream_collide_2d_halo)
+
+    dev = torch.device("cuda")
+    shape = BIG_SHAPE
+    omega = 1.0 / 1.16
+    g = torch.Generator(device="cpu").manual_seed(4)
+    force_u = torch.tensor([5e-7, 2e-7, -1e-7])
+    flags = torch.zeros(shape, dtype=torch.uint8)
+    flags[:, :, 0] = 2
+    flags[:, :, -1] = 2
+    flags[0, :, 1:-1] = 3
+    flags[:, 0, :] = 1
+    flags[:, -1, :] = 1
+    flags[40:60, 100:120, 30:50] = 1
+    flags = flags.to(dev)
+    bc = torch.zeros((3,) + shape)
+    bc[0, :, :, -1] = 0.01
+    bc[0, :, :, 0] = -0.01
+    bc[1, :, :, -1] = 0.002
+    bc = bc.to(dev)
+    f = near_equilibrium(shape, None, 5, dev)
+    force_field = (1e-5 * torch.randn((3,) + shape, generator=g)).to(dev)
+    sets = [("uniform force, all fluid", (f, force_u, omega, None, None, None, None)),
+            ("no force, all fluid", (f, None, omega, None, None, None, None)),
+            ("force field + walls + velocity and pressure nodes",
+             (f, force_field, omega, flags, bc, 1.002, None))]
+    worst = 0.0
+    for name, ops in sets:
+        whole = launch_k1(*ops[:6])
+        for n in (1, 4):
+            parts, err = [], 0.0
+            for s in range(n):
+                (fs, fo, om, fl, bcs, r0, _), halos = slab_rows(ops, s, n)
+                out = stream_collide_2d_halo(fs, fo, om, fl, bcs, r0, halos)
+                plain = stream_collide_halo_plain(fs, fo, om, fl, bcs, r0, halos)
+                err = max(err, float((out - plain).abs().max()))
+                parts.append(out)
+                del plain
+            same = torch.equal(torch.cat(parts, dim=1), whole)
+            worst = max(worst, err)
+            print(f"[17] stream_collide_2d halo mode {shape} in {n} slabs, {name}: bitwise "
+                  f"equal to the whole-domain K1 launch {same} | vs plain max_abs_err "
+                  f"{err:.3e} (tol 1e-6)", flush=True)
+            if not (same and err <= 1e-6):
+                raise AssertionError(f"K10 halo mode disagrees: {name}, {n} slabs")
+            del parts
+            torch.cuda.empty_cache()
+        del whole
+    (fs, fo, om, fl, bcs, r0, _), halos = slab_rows(sets[0][1], 1, 4)
+    Xl, Y, Z = fs.shape[1:]
+    ms = time_ms(lambda: stream_collide_2d_halo(fs, fo, om, fl, bcs, r0, halos), 20)
+    k10_ms = time_ms(lambda: stream_collide_2d(fs, fo, om, fl), 20)
+    k1_ms = time_ms(lambda: launch_k1(fs, fo, om, fl), 20)
+    plain_ms = time_ms(lambda: stream_collide_halo_plain(fs, fo, om, fl, bcs, r0, halos), 3,
+                       warmup=1)
+    b, by = bound_ms((Xl + 2) * Y * Z * 19 * 4 + Xl * Y * Z * 19 * 4, (Xl + 2) * Y * Z * 350)
+    print(f"[17] slab {(Xl, Y, Z)}, uniform force, on {smi}: K10 halo {ms:.4f} ms, K10 on the "
+          f"slab {k10_ms:.4f} ms, K1 {k1_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b:.4f} ms "
+          f"({by})", flush=True)
+    del f, force_field, bc, flags, sets
+    torch.cuda.empty_cache()
+    return {"stream_collide_2d_halo": dict(
+        tol=1e-6, max_abs_err=worst, ms=ms, k10_ms=k10_ms, k1_ms=k1_ms, plain_ms=plain_ms,
+        bound_ms=b, bound_by=by, library_ms=None, shape=[Xl, Y, Z])}
+
+
+def phase_distributed(smi, mesh):
+    """The sharded runner at world size 1 on ``mesh`` (an NCCL group of
+    one): pipeflow30, fluid128 (bitwise against the K1 loop), fluid256 with
+    the dispatch to K10 on, suspension128.  Returns the launches by path."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from hemocell_tpu_torch.cases import fluid_only
+    from hemocell_tpu_torch.cases.pipeflow30 import build_pipeflow30
+    from hemocell_tpu_torch.parallel import build_shardmap_runner, shard_state
+
+    by_path = {}
+    # the host's cost of one NCCL all_reduce of a few bytes (the collective
+    # the sharded step skips at world size 1)
+    t = torch.zeros(4, device=mesh.device)
+    for _ in range(10):
+        dist.all_reduce(t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_reduce(t)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    print(f"[18] NCCL all_reduce of 16 bytes at world size 1: {host_us:.1f} us of host time "
+          f"per call", flush=True)
+    t0 = time.time()
+    workdir = tempfile.mkdtemp(prefix="pipeflow30_")
+    try:
+        hc = build_pipeflow30(device=mesh.device, workdir=workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    hc.distribute(mesh)
+    print(f"[18] pipeflow30 packed in {time.time() - t0:.1f} s and distributed over "
+          f"{mesh.size} rank ({mesh.backend}, {mesh.device})", flush=True)
+    by_path["pipeflow30 distributed"], wall_us = phase_pipeflow(
+        hc, smi, tag="[18]", fluid="stream_collide_halo")
+    phase_profile("[18]", hc.iterate, wall_us)
+    del hc
+    torch.cuda.empty_cache()
+
+    cfg, state0 = fluid_only.build(FLUID_SHAPE)
+    state0 = perturbed(cfg, state0, 7)
+    state, by_path["fluid128 distributed"], run, wall_us = run_fluid_path(
+        "[18]", "fluid128 distributed", cfg, shard_state(state0, mesh),
+        [(500, {"stream_collide_halo": 500})], smi, run=build_shardmap_runner(cfg, mesh))
+    profile_runner("[18] fluid128 distributed:", run, state, wall_us)
+    del state, state0, run
+    torch.cuda.empty_cache()
+
+    sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
+    cfg, state = fluid_only.build(BIG_SHAPE)
+    state = perturbed(cfg, state, 6)
+    sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM
+    try:
+        _, by_path["fluid256 distributed"], _, _ = run_fluid_path(
+            "[18]", "fluid256 distributed", cfg, shard_state(state, mesh),
+            [(20, {"stream_collide_2d_halo": 20})], smi, reference=False,
+            run=build_shardmap_runner(cfg, mesh))
+    finally:
+        sc_module.LARGE_CROSS_SECTION = None
+    del state
+    torch.cuda.empty_cache()
+
+    susp = build_suspension()
+    by_path["suspension128 distributed"] = phase_suspension(susp, smi, "[18]", mesh)
+    del susp
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_small_distributed(mesh):
+    """A walled 32x24x24 pipe with 2 RBC + 1 PLT through the sharded runner,
+    on the card (``mesh``) and on the CPU (a gloo group of one), 41 steps
+    from the same state; tolerances of phase 5."""
+    import torch
+    import torch.distributed as dist
+
+    from hemocell_tpu_torch import HemoCell
+    from hemocell_tpu_torch.cases.pipeflow30 import pipe_flags
+    from hemocell_tpu_torch.cells.state import place_cells
+    from hemocell_tpu_torch.parallel import XMesh
+
+    cpu_mesh = XMesh(group=dist.new_group(backend="gloo"), rank=0, size=1,
+                     device=torch.device("cpu"), backend="gloo")
+    d = tempfile.mkdtemp(prefix="chip_smoke_small_")
+    try:
+        with open(os.path.join(d, "config.xml"), "w") as fh:
+            fh.write(SMALL_CONFIG)
+        for name in ("RBC", "PLT"):
+            shutil.copy(os.path.join(HERE, "tools", "cell_templates", f"{name}_template.xml"),
+                        os.path.join(d, f"{name}.xml"))
+        rng = np.random.default_rng(0)
+        centers = (np.array([[8.0, 11.5, 11.5], [24.0, 11.0, 12.0]]),
+                   np.array([[16.0, 12.0, 11.0]]))
+        runs = []
+        for m in (mesh, cpu_mesh):
+            hc = HemoCell(os.path.join(d, "config.xml"), device=m.device)
+            hc.params.pipe_flow_radius(hc.cfg, 10.0)
+            hc.initialize_lattice(flags=pipe_flags((32, 24, 24), 10.0))
+            hc.add_cell_type("RBC", "RbcHighOrderModel")
+            hc.add_cell_type("PLT", "PltSimpleModel")
+            if not runs:
+                positions = [place_cells(ct.mesh.vertices, c) for ct, c in
+                             zip(hc.cell_types, centers)]
+                positions = [p + 0.01 * rng.standard_normal(p.shape) for p in positions]
+            for k, p in enumerate(positions):
+                hc.set_cells(k, p)
+            r = hc.params.pipe_radius
+            hc.set_body_force((8 * hc.params.nu_lbm * hc.params.u_lbm_max * 0.5 / r / r * 20,
+                               0.0, 0.0))
+            hc.distribute(m)
+            hc.iterate(41)
+            hc.block()
+            runs.append(hc.state)
+        gpu, cpu = runs
+        err_f = float((gpu.f.cpu() - cpu.f).abs().max())
+        err_pos = max(float((a.pos.cpu() - b.pos).abs().max())
+                      for a, b in zip(gpu.cells, cpu.cells))
+        alive_ok = all(bool((a.alive.cpu() == b.alive).all())
+                       for a, b in zip(gpu.cells, cpu.cells))
+        alive = [int(a.alive.sum()) for a in gpu.cells]
+        print(f"[19] small walled pipe 32x24x24 distributed, 41 steps, card (NCCL) vs CPU "
+              f"(gloo): max|df| {err_f:.3e} (tol 1e-6) | max|dpos| {err_pos:.3e} lu (tol 1e-4) "
+              f"| alive equal {alive_ok} {alive}", flush=True)
+        if not (err_f <= 1e-6 and err_pos <= 1e-4 and alive_ok and sum(alive) > 0):
+            raise AssertionError("small distributed case disagrees between card and CPU")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1395,12 +1766,30 @@ def main() -> int:
     by_path.update(phase_fluid_paths(smi))
     phase_small_fluid()
 
+    rows.update(phase_halo_split(smi))
+    rows.update(phase_halo_tiled(smi))
+    import torch.distributed as dist
+
+    from hemocell_tpu_torch.parallel import init_distributed
+
+    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    try:
+        mesh = init_distributed("cuda", init_method=f"file://{pg_dir}/pg", rank=0,
+                                world_size=1)
+        by_path.update(phase_distributed(smi, mesh))
+        phase_small_distributed(mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+
     # ``launches`` is the count of the first full-size path that runs the
     # kernel; ``launches_by_path`` has every path's; K1-K3 carry their
     # comparison at the suspension's shapes under ``at_128``
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     more = ("with_force_extra", "launch_alone_ms", "bitwise", "k", "ms_per_step",
-            "k1_ms_per_step", "k1_ms", "at_pipe", "by_k", "with_force_field")
+            "k1_ms_per_step", "k1_ms", "k10_ms", "at_pipe", "by_k", "with_force_field",
+            "shape", "at_128")
     kernels_line = {"kernels": []}
     for name in KERNEL_ORDER:
         per_path = {path: counts[name] for path, counts in by_path.items()}

@@ -42,6 +42,12 @@ SIGNATURES = {
     "hc_stream_collide_2x": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _P],
     "hc_stream_collide_2d": [_P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _I, _F,
                              _I, _I, _I, _P],
+    # the halo modes: the same arguments and the array of twelve row
+    # pointers of csrc/halo_rows.cuh before the shape
+    "hc_stream_collide_halo": [_P, _P, _P, _I, _F, _F, _F, _P, _F, _P, _P, _I, _F,
+                               _P, _P, _I, _I, _I, _P],
+    "hc_stream_collide_2d_halo": [_P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _I, _F,
+                                  _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -7,6 +7,7 @@ viscosity is not ported yet: ``--interior-viscosity`` raises.
 
 Usage: python -m hemocell_tpu_torch.cases.cellcollision [--shearrate 200]
            [--iterations 4000] [--device cuda]
+       torchrun --nproc-per-node N -m hemocell_tpu_torch.cases.cellcollision --distribute
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 
 from ..config.defaults import FLAG_VELOCITY
 from ..hemocell import HemoCell
+from ._launch import case_mesh
 
 RBC_XML = """<?xml version="1.0" ?>
 <hemocell><MaterialModel>
@@ -78,17 +80,23 @@ def build(workdir: str, shearrate: float = 200.0, interior_viscosity: bool = Fal
     return hc
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--shearrate", type=float, default=200.0)
     ap.add_argument("--iterations", type=int, default=4000)
     ap.add_argument("--interior-viscosity", action="store_true")
     ap.add_argument("--workdir", default=None)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--distribute", action="store_true",
+                    help="run on the ranks of torchrun, one x-slab each")
+    args = ap.parse_args(argv)
 
+    mesh, say = case_mesh(args)
     workdir = args.workdir or tempfile.mkdtemp(prefix="cellcollision_")
-    hc = build(workdir, args.shearrate, args.interior_viscosity, device=args.device)
+    hc = build(workdir, args.shearrate, args.interior_viscosity,
+               device=mesh.device if mesh else args.device)
+    if mesh is not None:
+        hc.distribute(mesh)
     to_um = hc.params.dx * 1e6
     done = 0
     while done < args.iterations:
@@ -96,11 +104,12 @@ def main():
         hc.iterate(n)
         hc.block()
         done += n
-        c = hc.state.cells[0].pos.mean(dim=1).cpu().numpy()
-        print(f"(cellcollision) iter {hc.iter}: cell centres "
-              f"({c[0, 0] * to_um:.1f},{c[0, 2] * to_um:.1f}) "
-              f"({c[1, 0] * to_um:.1f},{c[1, 2] * to_um:.1f}) um | "
-              f"alive {hc.alive_count(0)} | device {hc.device}")
+        c = hc.local_state.cells[0].pos.mean(dim=1).cpu().numpy()
+        say(f"(cellcollision) iter {hc.iter}: cell centres "
+            f"({c[0, 0] * to_um:.1f},{c[0, 2] * to_um:.1f}) "
+            f"({c[1, 0] * to_um:.1f},{c[1, 2] * to_um:.1f}) um | "
+            f"alive {hc.alive_count(0)} | device {hc.device}")
+    return hc
 
 
 if __name__ == "__main__":

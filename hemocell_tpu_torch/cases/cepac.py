@@ -7,6 +7,7 @@ ported yet: ``--solidify`` raises.
 
 Usage: python -m hemocell_tpu_torch.cases.cepac [--iterations 2000]
            [--device cuda]
+       torchrun --nproc-per-node N -m hemocell_tpu_torch.cases.cepac --distribute
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 from ..config.defaults import FLAG_WALL
 from ..fluid.advection_diffusion import concentration
 from ..hemocell import HemoCell
+from ._launch import case_mesh
 
 PLT_XML = """<?xml version="1.0" ?>
 <hemocell><MaterialModel>
@@ -78,26 +80,32 @@ def build(workdir: str, solidify: bool = False, device="cuda") -> HemoCell:
     return hc
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iterations", type=int, default=2000)
     ap.add_argument("--solidify", action="store_true")
     ap.add_argument("--workdir", default=None)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--distribute", action="store_true",
+                    help="run on the ranks of torchrun, one x-slab each")
+    args = ap.parse_args(argv)
 
+    mesh, say = case_mesh(args)
     workdir = args.workdir or tempfile.mkdtemp(prefix="cepac_")
-    hc = build(workdir, args.solidify, device=args.device)
+    hc = build(workdir, args.solidify, device=mesh.device if mesh else args.device)
+    if mesh is not None:
+        hc.distribute(mesh)
     done = 0
     while done < args.iterations:
         n = min(500, args.iterations - done)
         hc.iterate(n)
         hc.block()
         done += n
-        c = concentration(hc.state.cepac)
-        print(f"(cepac) iter {hc.iter}: CEPAC total {float(c.sum()):.3f} "
-              f"max {float(c.max()):.4f} | PLT alive {hc.alive_count(0)} "
-              f"| device {hc.device}")
+        c = concentration(hc.state.cepac)  # gathered from every rank
+        say(f"(cepac) iter {hc.iter}: CEPAC total {float(c.sum()):.3f} "
+            f"max {float(c.max()):.4f} | PLT alive {hc.alive_count(0)} "
+            f"| device {hc.device}")
+    return hc
 
 
 if __name__ == "__main__":

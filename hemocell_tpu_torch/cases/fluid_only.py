@@ -11,9 +11,14 @@ advances ``--fluid-k`` iterations (4 unless given) per launch of the fused
 fluid kernels.  Prints the rate in MLUPS from a host clock around a
 synchronized run, and the velocity statistics over the fluid nodes.
 
+With ``--distribute`` (under torchrun, one rank per card) the lattice is
+cut into x-slabs and every rank runs the K1 halo-mode loop of the sharded
+runner; the fused kernels are single-device.
+
 Usage: python -m hemocell_tpu_torch.cases.fluid_only [--shape 128 128 128]
            [--walls pipe] [--iterations 500] [--fused] [--fluid-k 4]
            [--device cpu]
+       torchrun --nproc-per-node N -m hemocell_tpu_torch.cases.fluid_only --distribute
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from .._device import resolve_device
 from ..dynamics import StepConfig, build_runner, initial_sim_state
 from ..presets import default_params, rbc_suspension
 from ..utils.fluidinfo import velocity_statistics
+from ._launch import case_mesh
 from .pipeflow30 import pipe_flags
 
 BOX_SHAPE = (128, 128, 128)
@@ -77,11 +83,20 @@ def main(argv=None):
     ap.add_argument("--fluid-k", type=int, default=None)
     ap.add_argument("--fused", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--distribute", action="store_true",
+                    help="run on the ranks of torchrun, one x-slab each")
     args = ap.parse_args(argv)
 
+    mesh, say = case_mesh(args)
     cfg, state = build(args.shape, args.walls, args.fluid_k, args.fused,
-                       device=args.device)
-    run = build_runner(cfg)
+                       device=mesh.device if mesh else args.device)
+    if mesh is None:
+        run = build_runner(cfg)
+    else:
+        from ..parallel import build_shardmap_runner, shard_state
+
+        run = build_shardmap_runner(cfg, mesh)
+        state = shard_state(state, mesh)
     cuda = cfg.device.type == "cuda"
     state = run(state, 1)  # builds the kernels on a CUDA device
     if cuda:
@@ -91,12 +106,17 @@ def main(argv=None):
     if cuda:
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    where = torch.cuda.get_device_name(0) if cuda else "cpu"
+    if mesh is not None:
+        from ..parallel import gather_state
+
+        state = gather_state(state, mesh)
+    where = torch.cuda.get_device_name(cfg.device) if cuda else "cpu"
     mlups = np.prod(cfg.shape) * args.iterations / dt / 1e6
     stats = velocity_statistics(state.f, body_force_view(cfg), cfg.flags)
-    print(f"(fluid_only) {cfg.shape} walls {args.walls}: {args.iterations} iterations in "
-          f"{dt:.3f} s = {mlups:.1f} MLUPS on {where} | it {state.it} | |u| min "
-          f"{stats.min:.4e} max {stats.max:.4e} avg {stats.avg:.4e}")
+    say(f"(fluid_only) {cfg.shape} walls {args.walls}: {args.iterations} iterations in "
+        f"{dt:.3f} s = {mlups:.1f} MLUPS on {where}"
+        + (f" x {mesh.size} ranks" if mesh else "") + f" | it {state.it} | |u| min "
+        f"{stats.min:.4e} max {stats.max:.4e} avg {stats.avg:.4e}")
     return state
 
 

@@ -16,13 +16,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..dynamics import build_runner, initial_sim_state
 from ..fluid import lbm
 from ..presets import default_params, rbc_suspension
 
 
-def shear_velocity(shape, gamma, dtype=torch.float32, device="cpu"):
+def shear_velocity(shape, gamma, dtype=torch.float32, device="cuda"):
     """u [3,X,Y,Z] with the linear profile u_x = gamma (z - (Z-1)/2)."""
+    device = resolve_device(device)
     X, Y, Z = shape
     u = torch.zeros((3, X, Y, Z), dtype=dtype, device=device)
     u[0] = gamma * (torch.arange(Z, dtype=dtype, device=device) - (Z - 1) / 2.0)

@@ -9,7 +9,10 @@ until the in-tube hematocrit after placement denial is within 1% of the
 target.
 
 Usage: python -m hemocell_tpu_torch.cases.pipeflow30 [--iterations N]
-           [--ht 0.30] [--device cuda]
+           [--ht 0.30] [--shape 248 56 56] [--radius 25] [--device cuda]
+       torchrun --nproc-per-node N -m hemocell_tpu_torch.cases.pipeflow30 --distribute
+           (one rank per card, the pipe cut into x-slabs; with --device cpu
+           the ranks run the plain path over gloo)
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 
 from ..config.defaults import FLAG_WALL
 from ..hemocell import HemoCell
+from ._launch import case_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -132,27 +136,37 @@ def build_pipeflow30(
     return hc
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iterations", type=int, default=500)
     ap.add_argument("--ht", type=float, default=0.30)
+    ap.add_argument("--shape", type=int, nargs=3, default=(248, 56, 56))
+    ap.add_argument("--radius", type=float, default=25.0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--distribute", action="store_true",
+                    help="run on the ranks of torchrun, one x-slab each")
+    args = ap.parse_args(argv)
 
-    hc = build_pipeflow30(target_hematocrit=args.ht, device=args.device)
-    print(f"(pipeflow30) {hc.alive_count(0)} RBC + {hc.alive_count(1)} PLT kept, "
-          f"tube hematocrit {hc.measured_hematocrit:.3f}, device {hc.device}")
+    mesh, say = case_mesh(args)
+    hc = build_pipeflow30(target_hematocrit=args.ht, shape=tuple(args.shape),
+                          radius=args.radius, device=mesh.device if mesh else args.device)
+    if mesh is not None:
+        hc.distribute(mesh)
+    say(f"(pipeflow30) {hc.alive_count(0)} RBC + {hc.alive_count(1)} PLT kept, "
+        f"tube hematocrit {hc.measured_hematocrit:.3f}, device {hc.device}"
+        + (f", {mesh.size} ranks" if mesh else ""))
     t0 = time.time()
     step = 100
     for it in range(0, args.iterations, step):
         hc.iterate(min(step, args.iterations - it))
         hc.block()
         mlups = np.prod(hc.shape) * hc.iter / (time.time() - t0) / 1e6
-        print(f"(pipeflow30) iter {hc.iter}: "
-              f"cells {hc.alive_count(0) + hc.alive_count(1)} "
-              f"| mean RBC force {hc.mean_force_pn(0):.3f} pN "
-              f"| {mlups:.1f} MLUPS on {hc.device}")
-    print("(pipeflow30) done")
+        say(f"(pipeflow30) iter {hc.iter}: "
+            f"cells {hc.alive_count(0) + hc.alive_count(1)} "
+            f"| mean RBC force {hc.mean_force_pn(0):.3f} pN "
+            f"| {mlups:.1f} MLUPS on {hc.device}")
+    say("(pipeflow30) done")
+    return hc
 
 
 if __name__ == "__main__":

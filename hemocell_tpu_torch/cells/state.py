@@ -25,6 +25,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
+
 
 class CellTypeState(NamedTuple):
     pos: torch.Tensor
@@ -36,11 +38,12 @@ class CellTypeState(NamedTuple):
     vel_prev: Optional[torch.Tensor] = None
 
 
-def make_cell_state(positions, dtype=torch.float32, device="cpu",
+def make_cell_state(positions, dtype=torch.float32, device="cuda",
                     adams_bashforth: bool = False) -> CellTypeState:
     """positions: [NC, NV, 3] initial vertex positions (lattice units).
     ``adams_bashforth`` allocates the previous-velocity buffer for
     ``StepConfig.material_integration == 2``."""
+    device = resolve_device(device)
     pos = torch.as_tensor(np.asarray(positions), dtype=dtype, device=device)
     nc = pos.shape[0]
     return CellTypeState(

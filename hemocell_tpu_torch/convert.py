@@ -8,13 +8,14 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .cells.state import CellTypeState
 from .dynamics import SimState, StepConfig, TypeConfig
 from .mechanics import MODEL_REGISTRY, topology_from_arrays
 
 
 def state_from_numpy(f, it, cells: Sequence[Mapping], dtype=torch.float64,
-                     device="cpu", cepac=None, le_displacement=None,
+                     device="cuda", cepac=None, le_displacement=None,
                      body_force_state=None) -> SimState:
     """SimState from numpy arrays: ``f [19,X,Y,Z]``, the iteration count and
     per cell type a mapping with ``pos``, ``vel``, ``force`` [NC,NV,3],
@@ -23,6 +24,7 @@ def state_from_numpy(f, it, cells: Sequence[Mapping], dtype=torch.float64,
     ``cepac [19,X,Y,Z]``, the Lees-Edwards displacement (a scalar, kept
     on the host) and the dynamic body-force override ``[3]`` (kept on the
     host)."""
+    device = resolve_device(device)
 
     def fl(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
@@ -52,10 +54,11 @@ def state_from_numpy(f, it, cells: Sequence[Mapping], dtype=torch.float64,
 
 
 def fluid_config_from_numpy(flags, omega, body_force=None, fluid_2x=None, fluid_k=None,
-                            dtype=torch.float64, device="cpu") -> StepConfig:
+                            dtype=torch.float64, device="cuda") -> StepConfig:
     """Cell-free StepConfig from a numpy flag matrix ``[X,Y,Z]``, a scalar
     omega and a uniform body force ``[3]`` or None, with the fused-runner
     options ``fluid_2x`` and ``fluid_k``."""
+    device = resolve_device(device)
     flags = np.asarray(flags, dtype=np.uint8)
     return StepConfig(
         shape=tuple(int(s) for s in flags.shape),
@@ -68,7 +71,7 @@ def fluid_config_from_numpy(flags, omega, body_force=None, fluid_2x=None, fluid_
 
 def type_from_numpy(name: str, model: str, topo_arrays: Mapping, material: Mapping,
                     material_every: int = 1, dtype=torch.float64,
-                    device="cpu") -> TypeConfig:
+                    device="cuda") -> TypeConfig:
     """TypeConfig from a topology given as numpy arrays (the keys of
     ``topology_device_arrays``) and a material dict of floats."""
     return TypeConfig(

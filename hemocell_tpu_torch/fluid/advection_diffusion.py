@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .._device import resolve_device
 from .lbm import _consts, stream
 
 
@@ -81,7 +82,8 @@ ad_stream_collide.launches = 0
 ad_stream_collide.plain_calls = 0
 
 
-def ad_initial_state(shape, conc0=0.0, dtype=torch.float32, device="cpu"):
+def ad_initial_state(shape, conc0=0.0, dtype=torch.float32, device="cuda"):
+    device = resolve_device(device)
     shape = tuple(int(s) for s in shape)
     conc = torch.full(shape, float(conc0), dtype=dtype, device=device)
     u = torch.zeros((3,) + shape, dtype=dtype, device=device)

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from .._device import constant
+from .._device import constant, resolve_device
 from ..config.defaults import FLAG_PRESSURE, FLAG_VELOCITY, FLAG_WALL
 from . import d3q19
 
@@ -177,9 +177,10 @@ def shear_rate_magnitude(f, force, omega):
 
 
 def initial_state(shape, rho0=1.0, u0=(0.0, 0.0, 0.0), dtype=torch.float32,
-                  device="cpu"):
+                  device="cuda"):
     """Equilibrium deviation populations at uniform rho/velocity (exactly
     zero for the rho=1 rest state).  shape: (X, Y, Z)."""
+    device = resolve_device(device)
     rho = torch.full(tuple(shape), float(rho0), dtype=dtype, device=device)
     u = torch.stack(
         [torch.full(tuple(shape), float(v), dtype=dtype, device=device) for v in u0]

@@ -7,8 +7,9 @@ It computes what ``fluid/stream_collide.py`` (K1) computes, for a scalar
 omega and without Lees-Edwards planes, and is where ``stream_collide`` sends
 large cross-sections.  On CPU tensors it runs the plain version,
 ``lbm.stream_collide``; on CUDA tensors it launches its kernel or raises.
-The reference kernel's ``halos=`` operand (x rows exchanged between shards)
-comes with the multi-device port.
+With ``halos=`` (``fluid/halo.py``: the rows ``f``, ``force``, ``flags``,
+``bc``) ``f`` is one rank's x-slab: ``stream_collide_2d_halo`` launches K10
+in halo mode and keeps its own count.
 """
 
 from __future__ import annotations
@@ -16,22 +17,30 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from . import halo as _halo
 from . import lbm
 from ._kernel_args import fluid_args
 
 
-def stream_collide_2d(f, force, omega, flags, bc_velocity=None, bc_density=None):
-    """One collide + stream step of ``f [19,X,Y,Z]``.
-
-    force: [3,X,Y,Z] field, uniform [3] tensor or None; omega: scalar;
-    flags: uint8 [X,Y,Z] or None (all fluid); bc_velocity: [3,X,Y,Z] or
-    None; bc_density: float or None.  Returns the new populations.
-    """
+def _check_scope(omega, flags, bc_velocity, bc_density):
     if torch.is_tensor(omega) and omega.dim() > 0:
         raise ValueError("stream_collide_2d: omega must be a scalar, not a per-node field")
     if flags is None and (bc_velocity is not None or bc_density is not None):
         raise ValueError("stream_collide_2d: velocity and pressure nodes need a flags field")
-    omega = float(omega)
+    return float(omega)
+
+
+def stream_collide_2d(f, force, omega, flags, bc_velocity=None, bc_density=None, halos=None):
+    """One collide + stream step of ``f [19,X,Y,Z]``.
+
+    force: [3,X,Y,Z] field, uniform [3] tensor or None; omega: scalar;
+    flags: uint8 [X,Y,Z] or None (all fluid); bc_velocity: [3,X,Y,Z] or
+    None; bc_density: float or None; halos: the neighbours' x rows of a
+    slab or None.  Returns the new populations.
+    """
+    if halos is not None:
+        return stream_collide_2d_halo(f, force, omega, flags, bc_velocity, bc_density, halos)
+    omega = _check_scope(omega, flags, bc_velocity, bc_density)
     X, Y, Z = f.shape[1:]
     if not f.is_cuda:
         stream_collide_2d.plain_calls += 1
@@ -51,5 +60,33 @@ def stream_collide_2d(f, force, omega, flags, bc_velocity=None, bc_density=None)
     return out
 
 
+def stream_collide_2d_halo(f, force, omega, flags, bc_velocity, bc_density, halos):
+    """K10 in halo mode: one step of the slab ``f [19,X,Y,Z]`` with the
+    neighbours' rows in place of the periodic wrap in x; y stays periodic.
+    The plain version is ``halo.stream_collide_halo_plain``."""
+    omega = _check_scope(omega, flags, bc_velocity, bc_density)
+    if not f.is_cuda:
+        stream_collide_2d_halo.plain_calls += 1
+        return _halo.stream_collide_halo_plain(f, force, omega, flags, bc_velocity,
+                                               bc_density, halos)
+    a = fluid_args("stream_collide_2d", f, force, flags, bc_velocity)
+    f = a.f
+    X, Y, Z = f.shape[1:]
+    keys = _halo.needed_keys(force, flags, bc_velocity, omega)
+    _halo.check_halos("stream_collide_2d", halos, keys)
+    rows, ptrs = _halo.row_pointers("stream_collide_2d", halos, keys, X, Y, Z)
+    out = torch.empty_like(f)
+    err = _build.lib().hc_stream_collide_2d_halo(
+        f.data_ptr(), out.data_ptr(), a.force_ptr, a.force_mode, *a.fu, omega,
+        a.flags_ptr, a.bc_ptr, int(bc_density is not None), float(bc_density or 0.0), ptrs,
+        X, Y, Z, torch.cuda.current_stream(f.device).cuda_stream)
+    _build.check(err, "hc_stream_collide_2d_halo")
+    del rows
+    stream_collide_2d_halo.launches += 1
+    return out
+
+
 stream_collide_2d.launches = 0
 stream_collide_2d.plain_calls = 0
+stream_collide_2d_halo.launches = 0
+stream_collide_2d_halo.plain_calls = 0

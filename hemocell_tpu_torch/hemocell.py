@@ -6,10 +6,16 @@ or set cells, set the body force, enable repulsion, boundary repulsion or
 the CEPAC field, iterate, and read observables.  The
 facade runs on ``device="cuda"`` unless the caller passes ``device="cpu"``,
 and raises when CUDA is asked for and absent.
+
+``distribute()`` runs it on a 1-D x mesh of ranks (``parallel/``), one per
+card, as the reference runs under ``mpirun -n N``: each rank holds an
+x-slab of the lattice and every cell, and steps through the sharded
+runner.  The getters return global values on every rank.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass
 from typing import Optional
@@ -39,6 +45,8 @@ from .mechanics import (
 )
 from .mechanics.forces import mean_force_magnitude
 from .mesh import build_topology, construct_mesh, mirror_inner_edges
+
+_log = logging.getLogger(__name__)
 
 _CONSTRUCT = {
     "RbcHighOrderModel": "RBC_FROM_SPHERE",
@@ -91,6 +99,9 @@ class HemoCell:
         self._state: Optional[SimState] = None
         self._runner = None
         self._dirty = True
+        self._mesh = None  # the x mesh after distribute()
+        self._distributed_mode = "single"
+        self._owner_note_logged = False
 
     # ------------------------------------------------------------------
     # setup
@@ -232,14 +243,64 @@ class HemoCell:
             dtype=self.dtype,
             device=self.device,
         )
-        self._runner = build_runner(cfg)
+        if self._mesh is None:
+            self._runner = build_runner(cfg)
+            self._distributed_mode = "single"
+        else:
+            from .parallel import build_shardmap_runner, sharded_unsupported_reason
+
+            if sum(cs.pos.shape[0] for cs in self.cell_states) > 0 \
+                    and not self._owner_note_logged:
+                # the reference picks its owner-computes runner here
+                _log.warning("distribute: owner-computes waits for its port; running the "
+                             "vertex-replicated sharded runner")
+                self._owner_note_logged = True
+            reason = sharded_unsupported_reason(cfg, self._mesh)
+            if reason is not None:
+                raise NotImplementedError(
+                    f"distribute: the sharded runner does not cover {reason}, and the "
+                    "reference's GSPMD runner has no counterpart in the port")
+            self._runner = build_shardmap_runner(cfg, self._mesh)
+            self._distributed_mode = "shardmap"
         if self._state is None:
             self._state = initial_sim_state(cfg, self.cell_states, rho0=self._rho0,
                                             u0=self._u0, cepac0=self._cepac0)
+            if self._mesh is not None:
+                from .parallel import shard_state
+
+                self._state = shard_state(self._state, self._mesh)
         else:
             # keep fluid + iteration, adopt (possibly new) cell states
             self._state = self._state._replace(cells=tuple(self.cell_states))
         self._dirty = False
+
+    def distribute(self, mesh=None):
+        """Run domain-decomposed over an x mesh of ranks (``parallel.XMesh``;
+        default: the mesh of this process's group, read from torchrun's
+        environment, on the facade's kind of device).  An existing state is
+        cut into this rank's slab; the next iteration builds the sharded
+        runner.  Returns the mesh."""
+        from .parallel import make_mesh, shard_state
+
+        if mesh is None:
+            mesh = make_mesh(self.device.type)
+        self._mesh = mesh
+        self._move_to(mesh.device)
+        if self._state is not None:
+            self._state = shard_state(self._state, mesh)
+        self._dirty = True
+        return mesh
+
+    def _move_to(self, device):
+        """Hold every tensor of the facade on ``device`` (the rank's card)."""
+        self.device = device
+        if self.flags is not None:
+            self.flags = self.flags.to(device)
+        for ct in self.cell_types:
+            ct.topo_dev = {k: v.to(device) if torch.is_tensor(v) else v
+                           for k, v in ct.topo_dev.items()}
+        self.cell_states = [CellTypeState(*[None if t is None else t.to(device) for t in cs])
+                            for cs in self.cell_states]
 
     def iterate(self, n: int = 1):
         """Advance n coupled iterations."""
@@ -260,6 +321,18 @@ class HemoCell:
 
     @property
     def state(self) -> SimState:
+        """The simulation state; on a distributed facade the global state,
+        gathered from the ranks (a collective: every rank reads it)."""
+        state = self.local_state
+        if self._mesh is not None:
+            from .parallel import gather_state
+
+            state = gather_state(state, self._mesh)
+        return state
+
+    @property
+    def local_state(self) -> SimState:
+        """This rank's state: its slab of the lattice fields, every cell."""
         if self._dirty or self._state is None:
             self._build()
         return self._state
@@ -270,12 +343,12 @@ class HemoCell:
         return u
 
     def alive_count(self, type_index=0):
-        return int(self.state.cells[type_index].alive.sum())
+        return int(self.local_state.cells[type_index].alive.sum())
 
     def mean_force_pn(self, type_index=0):
         """Mean vertex force magnitude of live cells in pN (pipeflow
         oracle)."""
-        cs = self.state.cells[type_index]
+        cs = self.local_state.cells[type_index]
         f_lu = mean_force_magnitude(cs.force + cs.force_repulsion, cs.alive)
         return float(f_lu) * self.params.df * 1e12
 

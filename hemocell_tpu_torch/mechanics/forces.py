@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..config.defaults import (
     MAX_CELL_BENDING_ANGLE,
     MAX_CELL_PERSISTENCE_LENGTH,
@@ -46,10 +47,11 @@ class ForceTerms(NamedTuple):
     inner_link: torch.Tensor
 
 
-def topology_from_arrays(arrays: dict, dtype=torch.float32, device="cpu") -> dict:
+def topology_from_arrays(arrays: dict, dtype=torch.float32, device="cuda") -> dict:
     """Tensors for the force functions from a dict of numpy arrays with the
     keys of ``topology_device_arrays`` (a negative ring entry means "no
     neighbour" and is mapped to 0; ``ring_mask`` zeroes it)."""
+    device = resolve_device(device)
     t = {}
     for k in _INDEX_KEYS:
         a = np.asarray(arrays[k])
@@ -63,7 +65,7 @@ def topology_from_arrays(arrays: dict, dtype=torch.float32, device="cpu") -> dic
     return t
 
 
-def topology_device_arrays(topo, dtype=torch.float32, device="cpu") -> dict:
+def topology_device_arrays(topo, dtype=torch.float32, device="cuda") -> dict:
     """Topology tensors from a ``CellTopology``."""
     arrays = {k: getattr(topo, k) for k in _INDEX_KEYS[1:] + _FLOAT_KEYS}
     arrays["tri"] = topo.triangles

@@ -59,7 +59,7 @@ def test_ad_pieces_f64_match_jax():
                                np.asarray(jad.concentration(jnp.asarray(g))),
                                rtol=0, atol=1e-13)
     np.testing.assert_allclose(
-        tad.ad_initial_state(SHAPE, 0.3, dtype=torch.float64).numpy(),
+        tad.ad_initial_state(SHAPE, 0.3, dtype=torch.float64, device="cpu").numpy(),
         np.asarray(jad.ad_initial_state(SHAPE, 0.3, dtype=jnp.float64)), rtol=0, atol=1e-15)
     assert tad.tau_from_diffusivity(1.0 / 6.0) == jad.tau_from_diffusivity(1.0 / 6.0) == 1.0
 

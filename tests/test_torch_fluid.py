@@ -122,7 +122,7 @@ def test_macroscopic_and_initial_state_f64():
     init_j = jax_lbm.initial_state(shape, rho0=1.01, u0=(0.01, 0.0, -0.02),
                                    dtype=jnp.float64)
     init_t = lbm.initial_state(shape, rho0=1.01, u0=(0.01, 0.0, -0.02),
-                               dtype=torch.float64)
+                               dtype=torch.float64, device="cpu")
     np.testing.assert_allclose(init_t.numpy(), np.asarray(init_j), atol=1e-15)
 
 

@@ -81,8 +81,8 @@ def _jax_run(cfg, f0, n, body_force_state=None):
 
 def _port_run(walls, f0, n, fluid_2x, fluid_k=None, body_force_state=None):
     cfg = fluid_config_from_numpy(_flags(walls), OMEGA, BODY_FORCE, fluid_2x=fluid_2x,
-                                  fluid_k=fluid_k)
-    state = state_from_numpy(f0, 0, [], body_force_state=body_force_state)
+                                  fluid_k=fluid_k, device="cpu")
+    state = state_from_numpy(f0, 0, [], body_force_state=body_force_state, device="cpu")
     for fn in WRAPPERS.values():
         fn.plain_calls = 0
     out = tdyn.build_runner(cfg)(state, n)
@@ -135,7 +135,7 @@ def test_default_on_the_cpu_is_the_one_step_loop():
 @pytest.mark.parametrize("fluid_k", [0, 6, -2])
 def test_a_fluid_k_the_kernels_are_not_built_for_is_refused_at_build(fluid_k):
     cfg = fluid_config_from_numpy(_flags(False), OMEGA, BODY_FORCE, fluid_2x=True,
-                                  fluid_k=fluid_k)
+                                  fluid_k=fluid_k, device="cpu")
     with pytest.raises(ValueError, match="fluid_k"):
         tdyn.build_runner(cfg)
 
@@ -162,13 +162,14 @@ def test_body_force_state_overrides_the_configured_force(fluid_2x):
 def test_a_state_with_cells_does_not_take_the_fused_path():
     """One cell of four force-free vertices: the runner steps it through
     ``step`` (spread, interpolation, advance), not the fused kernels."""
-    base = fluid_config_from_numpy(_flags(False), OMEGA, BODY_FORCE, fluid_2x=True)
+    base = fluid_config_from_numpy(_flags(False), OMEGA, BODY_FORCE, fluid_2x=True,
+                                   device="cpu")
     tc = tdyn.TypeConfig(name="dummy", model_fn=None, topo={}, material={},
                          material_every=10 ** 9)
     cfg = dataclasses.replace(base, types=[tc])
     pos = np.array([[[4.0, 4.0, 4.0], [5.0, 4.0, 4.0], [4.0, 5.0, 4.0], [4.0, 4.0, 5.0]]])
     cell = dict(pos=pos, vel=np.zeros_like(pos), force=np.zeros_like(pos), alive=[True])
-    state = state_from_numpy(_f0(seed=3), 1, [cell])
+    state = state_from_numpy(_f0(seed=3), 1, [cell], device="cpu")
     for fn in WRAPPERS.values():
         fn.plain_calls = 0
     out = tdyn.build_runner(cfg)(state, 4)
@@ -178,7 +179,7 @@ def test_a_state_with_cells_does_not_take_the_fused_path():
     assert float((out.cells[0].pos - state.cells[0].pos).abs().max()) > 0.0
     # the same configuration with the cell type empty is cell-free again
     empty = state_from_numpy(_f0(seed=3), 1, [dict(
-        pos=pos[:0], vel=pos[:0], force=pos[:0], alive=np.zeros(0, bool))])
+        pos=pos[:0], vel=pos[:0], force=pos[:0], alive=np.zeros(0, bool))], device="cpu")
     for fn in WRAPPERS.values():
         fn.plain_calls = 0
     tdyn.build_runner(cfg)(empty, 4)
@@ -284,7 +285,7 @@ def test_fluidinfo_statistics_match_jax():
             pos=rng.standard_normal((nc, nv, 3)), vel=rng.standard_normal((nc, nv, 3)),
             force=rng.standard_normal((nc, nv, 3)),
             force_repulsion=rng.standard_normal((nc, nv, 3)), alive=alive))
-    tcells = state_from_numpy(f, 0, cells_np).cells
+    tcells = state_from_numpy(f, 0, cells_np, device="cpu").cells
     jcells = [j_make_cell_state(c["pos"], dtype=jnp.float64)._replace(
         vel=jnp.asarray(c["vel"]), force=jnp.asarray(c["force"]),
         force_repulsion=jnp.asarray(c["force_repulsion"]), alive=jnp.asarray(c["alive"]))

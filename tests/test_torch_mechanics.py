@@ -48,7 +48,7 @@ def test_topology_copy_matches(case):
     mesh, inner = _mesh(kind, generate)
     np.testing.assert_array_equal(mesh.vertices, jmesh.vertices)
     t_port = tf.topology_device_arrays(build_topology(mesh, inner_edges=inner),
-                                       dtype=torch.float64)
+                                       dtype=torch.float64, device="cpu")
     for k, v in t_port.items():
         ref = t_jax[k]
         if k == "num_vertices":
@@ -65,7 +65,7 @@ def test_forces_batched_match_vmap(case):
     ref = jax.vmap(lambda p, v: jfn(p, v, t_jax, MC))(jnp.asarray(pos), jnp.asarray(vel))
     t_port = tf.topology_from_arrays(
         {k: (v if k == "num_vertices" else np.asarray(v)) for k, v in t_jax.items()},
-        dtype=torch.float64)
+        dtype=torch.float64, device="cpu")
     out = tfn(torch.as_tensor(pos), torch.as_tensor(vel), t_port, MC)
     for name in jf.ForceTerms._fields:
         r = np.asarray(getattr(ref, name))

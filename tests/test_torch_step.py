@@ -114,7 +114,7 @@ def steppers(setup):
             t["name"], t["model"],
             {k: (v if k == "num_vertices" else np.asarray(v))
              for k, v in topology_device_arrays(t["topo"], dtype=jnp.float64).items()},
-            t["material"], material_every=20) for t in setup["types"]],
+            t["material"], material_every=20, device="cpu") for t in setup["types"]],
         body_force=setup["body_force"], particle_every=5, f_limit=p.f_limit,
         dtype=torch.float64, device="cpu")
     return jax.jit(jdyn.build_step(jcfg)), tdyn.build_step(tcfg), jcfg
@@ -236,6 +236,34 @@ def test_entry_points_need_cuda_unless_cpu_asked(case_dir, setup, monkeypatch):
         "cases.fluid_only.build pipe": lambda: fluid_only.build((8, 12, 12), walls="pipe"),
         "cases.fluid_only.main": lambda: fluid_only.main(["--shape", "8", "8", "8"]),
     }
+    # the state constructors and converters, the multi-device entry points
+    from hemocell_tpu_torch import parallel
+    from hemocell_tpu_torch.cases.leesedwards import shear_velocity
+    from hemocell_tpu_torch.cells.state import make_cell_state
+    from hemocell_tpu_torch.convert import fluid_config_from_numpy
+    from hemocell_tpu_torch.fluid import advection_diffusion, lbm
+    from hemocell_tpu_torch.mechanics import forces
+
+    topo = topology_device_arrays(setup["types"][1]["topo"], dtype=jnp.float64)
+    topo = {k: (v if k == "num_vertices" else np.asarray(v)) for k, v in topo.items()}
+    cpu_hc = HemoCell(path, device="cpu")
+    cpu_hc.device = torch.device("cuda")  # a facade on the card
+    entry_points.update({
+        "lbm.initial_state": lambda: lbm.initial_state((4, 4, 4)),
+        "ad_initial_state": lambda: advection_diffusion.ad_initial_state((4, 4, 4)),
+        "make_cell_state": lambda: make_cell_state(np.zeros((1, 4, 3))),
+        "topology_from_arrays": lambda: forces.topology_from_arrays(topo),
+        "topology_device_arrays": lambda: forces.topology_device_arrays(
+            setup["types"][1]["topo"]),
+        "state_from_numpy": lambda: state_from_numpy(np.zeros((19, 4, 4, 4)), 0, []),
+        "fluid_config_from_numpy": lambda: fluid_config_from_numpy(
+            np.zeros((4, 4, 4)), 1.0),
+        "type_from_numpy": lambda: type_from_numpy("PLT", "PltSimpleModel", topo, {}),
+        "shear_velocity": lambda: shear_velocity((4, 4, 4), 1e-3),
+        "parallel.init_distributed": parallel.init_distributed,
+        "parallel.make_mesh": parallel.make_mesh,
+        "HemoCell.distribute": cpu_hc.distribute,
+    })
     for name, call in entry_points.items():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
