@@ -7,8 +7,10 @@ Phases, in order; any failure exits non-zero and prints no result:
   2. build the CUDA kernels from csrc/ (timed);
   3. hold K1-K4 against their plain PyTorch versions at pipeflow30 shapes (a
      near-equilibrium fluid and the packed vertex set; K2 with and without
-     its uncapped extra force), and time kernel, plain version and, where
-     one exists, the single PyTorch call computing the same function;
+     its uncapped extra force; K1 also with the omega field of interior
+     viscosity from a raycast of the packed RBCs), and time kernel, plain
+     version and, where one exists, the single PyTorch call computing the
+     same function;
   4. pipeflow30 at full size (248x56x56, radius 25, 30% hematocrit, packed by
      tools/packcells): 1000 coupled iterations through K1-K4 with the launch
      counts read around the run, MLUPS, and the physical checks; then a
@@ -16,11 +18,11 @@ Phases, in order; any failure exits non-zero and prints no result:
      the device's idle share);
   5. a small walled pipe with 2 RBC + 1 PLT run on the card and with the
      plain versions on the CPU from the same state, compared after 41 steps;
-  6. hold K5 (repulsion), K6 (CEPAC) and K7 (Lees-Edwards) against their
-     plain versions at the shapes of the 128^3 suspension (872 RBC, 559,824
-     vertices; one node overfull with vertices of several cells, 5% of the
-     cells dead), and K1, K2 (without and with its extra force) and K3 once
-     more at these shapes;
+  6. hold K5 (repulsion), K6 (CEPAC) and K7 (Lees-Edwards, with a scalar
+     omega and with a per-node omega field) against their plain versions at
+     the shapes of the 128^3 suspension (872 RBC, 559,824 vertices; one node
+     overfull with vertices of several cells, 5% of the cells dead), and K1,
+     K2 (without and with its extra force) and K3 once more at these shapes;
   7. the suspension at full size: presets.rbc_suspension 128^3, 872 RBC (30%
      hematocrit), repulsion every step, CEPAC with a Dirichlet slab, 500
      iterations through K1, K2, K3, K5, K6, with launch counts, MLUPS, the
@@ -80,8 +82,31 @@ mode of K1 and K10 that carries its fluid:
  19. a walled 32x24x24 pipe with 2 RBC + 1 PLT, distributed, on the card and
      on the CPU (a gloo group of one), compared after 41 steps as in phase 5.
 
-Then the ``kernels`` JSON line (all twelve: the ten kernels and the two halo
-modes), the card, and as the last line ``{"ok": true, "device": {...}}``.
+Then the binned kernels, which no path of the step runs, and the step with
+interior viscosity and solidify:
+
+ 20. K11 (binned spread) and K12 (binned interpolation, 1 to 4 channels)
+     against their plain versions: at pipeflow30 shapes (its 147,270
+     vertices) at the default capacity 2048, with half the slabs empty, and
+     with no vertex; at suspension128's (559,824 vertices) at the next power
+     of two above the largest slab; and at capacity 256, where slabs
+     overflow: the overflow counts, the dropped deposits and the zero rows
+     must match; timed beside the plain version and the library call;
+ 21. pipeflow30 with interior viscosity (RBC, ratio 5, membrane sweep every
+     10 steps, raycast every 100) and solidify (PLT every 10 steps, binding
+     sites on the wall nodes next to the fluid): 1000 iterations through K1
+     (omega field, runtime flags), K2, K3 and K4 with exact launch counts,
+     MLUPS, the physical gates, each raycast against the geometry (the
+     RBCs' own interiors against their enclosed volume; the packed cells
+     interpenetrate, so their union is smaller) and the omega field the
+     step left against the raycast away from the membrane sweep, the
+     flags' changes and the hardened platelets; then a profiler window;
+ 22. cellcollision --interior-viscosity and the solidify chamber of
+     cases/solidify_example, on the card and with the plain versions on the
+     CPU from the same state.
+
+Then the ``kernels`` JSON line (all fourteen: the twelve kernels and the two
+halo modes), the card, and as the last line ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (from the repository root, one GPU)
 """
@@ -122,6 +147,8 @@ REPLACES = {
     "stream_collide_2d": "hemocell_tpu/fluid/pallas_lbm_2d.py:201",
     "stream_collide_halo": "hemocell_tpu/fluid/sharded_pallas.py:35",
     "stream_collide_2d_halo": "hemocell_tpu/fluid/pallas_lbm_2d.py:201",
+    "spread_static": "hemocell_tpu/ibm/pallas_ibm.py:1154",
+    "interp_static": "hemocell_tpu/ibm/pallas_ibm.py:1193",
 }
 SOURCES = {
     "stream_collide": "hemocell_tpu_torch/csrc/stream_collide.cu",
@@ -136,11 +163,13 @@ SOURCES = {
     "stream_collide_2d": "hemocell_tpu_torch/csrc/stream_collide_2d.cu",
     "stream_collide_halo": "hemocell_tpu_torch/csrc/stream_collide.cu",
     "stream_collide_2d_halo": "hemocell_tpu_torch/csrc/stream_collide_2d.cu",
+    "spread_static": "hemocell_tpu_torch/csrc/ibm_static.cu",
+    "interp_static": "hemocell_tpu_torch/csrc/ibm_static.cu",
 }
 KERNEL_ORDER = ("stream_collide", "spread", "interp", "wall_hit_cells", "repulsion",
                 "ad_stream_collide", "le_stream_collide", "stream_collide_2x",
                 "stream_collide_kx", "stream_collide_2d", "stream_collide_halo",
-                "stream_collide_2d_halo")
+                "stream_collide_2d_halo", "spread_static", "interp_static")
 
 
 def fail(msg: str) -> int:
@@ -356,7 +385,78 @@ def phase_kernels(hc):
     check_rows("[3]", rows)
     print(f"[3] shapes: lattice {shape} ({N} nodes), {P} vertices, {n_cells} cells",
           flush=True)
-    return {r["name"]: r for r in rows}
+    rows = {r["name"]: r for r in rows}
+    rows["stream_collide"]["with_omega_field"] = k1_omega_field(hc, f, pos, force, active, bf)
+    return rows
+
+
+def enclosed_volume(pos, tri, alive):
+    """Volume enclosed by the live cells' meshes (lu^3): the signed
+    tetrahedra of each cell's triangles with the origin, summed."""
+    import torch
+
+    v0, v1, v2 = pos[:, tri[:, 0]], pos[:, tri[:, 1]], pos[:, tri[:, 2]]
+    vol = (v0 * torch.linalg.cross(v1, v2, dim=-1)).sum(dim=(1, 2)) / 6.0
+    return (vol.abs() * alive).sum()
+
+
+def raycast_check(pos, alive, tri, shape, box):
+    """The raycast of the live cells at ``pos [NC,NV,3]`` against their
+    geometry: (the union of their interiors [X,Y,Z], the sum of the cells'
+    own interior node counts, their enclosed volume in lu^3).  Packed cells
+    interpenetrate, so the union holds fewer nodes than their volumes add
+    up to; each cell's own interior is what the volume measures."""
+    from hemocell_tpu_torch.cells.interior import interior_mask
+
+    union = interior_mask(pos, tri, alive, shape, box)
+    own = sum(int(interior_mask(pos[k:k + 1], tri, alive[k:k + 1], shape, box).sum())
+              for k in range(pos.shape[0]))
+    return union, own, float(enclosed_volume(pos, tri, alive))
+
+
+def k1_omega_field(hc, f, pos, force, active, bf):
+    """K1 with the omega field of interior viscosity at pipeflow30 shapes:
+    omega_interior (viscosity ratio 5) inside the packed RBCs, found by a
+    raycast of their membranes, the bulk omega elsewhere; the spread force
+    field plus the body force.  Against its plain version (1e-6), timed."""
+    from hemocell_tpu_torch.cells.interior import (interior_mask, interior_tau,
+                                                   omega_field_from_mask)
+    from hemocell_tpu_torch.fluid import lbm
+    from hemocell_tpu_torch.fluid.stream_collide import stream_collide
+    from hemocell_tpu_torch.ibm import coupling
+
+    flags, shape = hc.flags, hc.shape
+    N = int(np.prod(shape))
+    ct, rbc = hc.cell_types[0], hc.cell_states[0]
+    box = int(np.ceil(2 * np.ptp(ct.mesh.vertices, axis=0).max()))
+    tri = ct.topo_dev["tri"]
+    mask, own, volume = raycast_check(rbc.pos, rbc.alive, tri, shape, box)
+    raycast_ms = time_ms(lambda: interior_mask(rbc.pos, tri, rbc.alive, shape, box), 3,
+                         warmup=1)
+    inside = int(mask.sum())
+    om = omega_field_from_mask(mask, hc.omega, 1.0 / interior_tau(5.0, hc.params.tau))
+    force_field = coupling.spread_forces(pos, force, active, flags, hc.params.f_limit) + bf
+    out = stream_collide(f, force_field, om, flags)
+    ref = lbm.stream_collide(f, force_field, om, flags)
+    err, tol = float((out - ref).abs().max()), 1e-6
+    moved = float((out - stream_collide(f, force_field, hc.omega, flags)).abs().max())
+    del ref
+    b, by = bound_ms(N * (19 * 4 * 2 + 1 + 12 + 4), N * 600)
+    row = dict(max_abs_err=err, tol=tol,
+               ms=time_ms(lambda: stream_collide(f, force_field, om, flags), 50),
+               plain_ms=time_ms(lambda: lbm.stream_collide(f, force_field, om, flags), 10),
+               bound_ms=b, bound_by=by, library_ms=None, interior_nodes=inside,
+               raycast_ms=raycast_ms)
+    print(f"[3] stream_collide with an omega field: {inside} nodes inside {hc.alive_count(0)} "
+          f"RBC, {own} counted cell by cell (enclosed volume {volume:.1f} lu^3; raycast "
+          f"{raycast_ms:.3f} ms) | "
+          f"max_abs_err {err:.3e} (tol {tol:.0e}) | kernel {row['ms']:.4f} ms | plain "
+          f"{row['plain_ms']:.4f} ms | bound {b * 1e3:.2f} us ({by}) | differs from the "
+          f"scalar-omega step by {moved:.3e}", flush=True)
+    if not (err <= tol and moved > 1e-6 and abs(own - volume) <= 0.1 * volume):
+        raise AssertionError("K1 with an omega field disagrees with its plain version, or "
+                             "the cells' interiors are off their enclosed volume")
+    return row
 
 
 def check_rows(tag, rows):
@@ -379,7 +479,7 @@ def counters():
                                                             stream_collide_2d_halo)
     from hemocell_tpu_torch.fluid.stream_collide_2x import stream_collide_2x
     from hemocell_tpu_torch.fluid.stream_collide_kx import stream_collide_kx
-    from hemocell_tpu_torch.ibm import kernels
+    from hemocell_tpu_torch.ibm import kernels, static
 
     return {"stream_collide": stream_collide, "stream_collide_halo": stream_collide_halo,
             "stream_collide_2d_halo": stream_collide_2d_halo, "spread": kernels.spread,
@@ -388,7 +488,8 @@ def counters():
             "le_stream_collide": le_stream_collide,
             "stream_collide_2x": stream_collide_2x,
             "stream_collide_kx": stream_collide_kx,
-            "stream_collide_2d": stream_collide_2d}
+            "stream_collide_2d": stream_collide_2d,
+            "spread_static": static.spread_static, "interp_static": static.interp_static}
 
 
 def reset_counters():
@@ -579,6 +680,7 @@ def phase_suspension_kernels(susp):
 
     from hemocell_tpu_torch.cases.leesedwards import shear_velocity
     from hemocell_tpu_torch.cells import repulsion as rep
+    from hemocell_tpu_torch.cells.interior import interior_tau
     from hemocell_tpu_torch.fluid import advection_diffusion as ad
     from hemocell_tpu_torch.fluid import lbm
     from hemocell_tpu_torch.fluid import lees_edwards as le
@@ -697,14 +799,38 @@ def phase_suspension_kernels(susp):
         return le.le_stream_collide(f, force, cfg.omega, disp, LE_VELOCITY)
 
     ms5, ms3 = time_ms(k7, 5), time_ms(k7, 3)
-    rows.append(dict(name="le_stream_collide", tol=1e-6, max_abs_err=err, ms=ms5,
-                     plain_ms=time_ms(lambda: le.le_stream_collide_plain(
-                         f, force, cfg.omega, disp, LE_VELOCITY), 5),
-                     bound_ms=b, bound_by=by, library_ms=None, launch_alone_ms=launch_ms))
     print(f"[6] le_stream_collide: wrapper {ms5:.4f} ms over 5 queued calls, {ms3:.4f} ms "
           f"over 3; the kernel launch alone {launch_ms:.4f} ms; the rest is the two "
           f"corrected planes in PyTorch", flush=True)
-    del planes, periodic, out, ref
+
+    # K7 with a per-node omega field (interior viscosity under shear):
+    # omega_interior (viscosity ratio 5) on a seeded fifth of the nodes
+    om_int = 1.0 / interior_tau(5.0, 1.0 / cfg.omega)
+    om_field = torch.where(torch.rand(shape, generator=g) < 0.2, om_int, cfg.omega).to(dev)
+    out_o = le.le_stream_collide(f, force, om_field, disp, LE_VELOCITY)
+    err_o = float((out_o - le.le_stream_collide_plain(f, force, om_field, disp,
+                                                      LE_VELOCITY)).abs().max())
+    moved_o = float((out_o - out).abs().max())
+    del out_o
+    b_o, by_o = bound_ms(N * (19 * 4 * 2 + 12 + 4), N * 600)
+    with_field = dict(
+        max_abs_err=err_o, tol=1e-6,
+        ms=time_ms(lambda: le.le_stream_collide(f, force, om_field, disp, LE_VELOCITY), 5),
+        plain_ms=time_ms(lambda: le.le_stream_collide_plain(f, force, om_field, disp,
+                                                            LE_VELOCITY), 5),
+        bound_ms=b_o, bound_by=by_o, library_ms=None)
+    print(f"[6] le_stream_collide with an omega field: max_abs_err {err_o:.3e} (tol 1e-6) | "
+          f"wrapper {with_field['ms']:.4f} ms over 5 queued calls | plain "
+          f"{with_field['plain_ms']:.4f} ms | differs from the scalar-omega step by "
+          f"{moved_o:.3e}", flush=True)
+    if not (err_o <= 1e-6 and moved_o > 1e-6):
+        raise AssertionError("K7 with an omega field disagrees with its plain version")
+    rows.append(dict(name="le_stream_collide", tol=1e-6, max_abs_err=err, ms=ms5,
+                     plain_ms=time_ms(lambda: le.le_stream_collide_plain(
+                         f, force, cfg.omega, disp, LE_VELOCITY), 5),
+                     bound_ms=b, bound_by=by, library_ms=None, launch_alone_ms=launch_ms,
+                     with_omega_field=with_field))
+    del planes, periodic, out, ref, om_field
 
     # ---- K1, K2 (without and with force_extra), K3 at this box's shapes:
     # all-fluid flags, the vertex set and the populations from above, vertex
@@ -1718,6 +1844,343 @@ def phase_small_distributed(mesh):
         shutil.rmtree(d, ignore_errors=True)
 
 
+def static_compare(name, pos, shape, capacity, g):
+    """K11 and K12 (1 to 4 channels) against their plain versions on the
+    vertex set ``pos [P,3]`` at ``capacity``: the field to 1e-5 of its
+    largest value (f32 atomics in run-dependent order), the rows to 1e-6 of
+    max|u|, the overflow counts equal to the bins', the rows of the dropped
+    vertices exactly 0.  Returns the inputs for ``static_times``."""
+    import torch
+
+    from hemocell_tpu_torch.ibm import static
+
+    dev = pos.device
+    P = pos.shape[0]
+    force = (1e-3 * torch.randn((P, 3), generator=g)).to(dev)
+    u = (0.01 * torch.randn((4,) + tuple(shape), generator=g)).to(dev)
+    bins = static.build_bins(pos, shape, capacity)
+    counts = bins.starts[1:] - bins.starts[:-1]
+    overflow = int(bins.overflow)
+    dropped = bins.order[~bins.valid]
+
+    def err_of(a, b):
+        return float((a - b).abs().max()) if a.numel() else 0.0
+
+    field, ov = static.spread_static(pos, force, shape, capacity)
+    ref, ov_ref = static.spread_static_plain(pos, force, shape, capacity)
+    err11, tol11 = err_of(field, ref), 1e-5 * float(ref.abs().max())
+    ok = int(ov) == int(ov_ref) == overflow and err11 <= tol11 and (P == 0 or tol11 > 0)
+    del field, ref
+    err12, tol12 = 0.0, 1e-6 * float(u.abs().max())
+    for nch in (1, 2, 3, 4):
+        uc = u[:nch].contiguous()
+        vals, ov = static.interp_static(pos, uc, shape, capacity)
+        ref, ov_ref = static.interp_static_plain(pos, uc, shape, capacity)
+        err12 = max(err12, err_of(vals, ref))
+        ok = (ok and int(ov) == int(ov_ref) == overflow and tuple(vals.shape) == (P, nch)
+              and not bool(vals[dropped].any()) and not bool(ref[dropped].any()))
+    print(f"[20] {name} {tuple(shape)}, {P} vertices, capacity {capacity}: largest slab "
+          f"{int(counts.max())}, {int((counts == 0).sum())} empty slabs, overflow {overflow} "
+          f"| spread_static max_abs_err {err11:.3e} (tol {tol11:.3e}) | interp_static, 1 to "
+          f"4 channels, max_abs_err {err12:.3e} (tol {tol12:.3e}); the {dropped.numel()} "
+          f"dropped rows are 0", flush=True)
+    if not (ok and err12 <= tol12):
+        raise AssertionError(f"K11/K12 disagree with their plain versions: {name}")
+    return dict(pos=pos, force=force, u=u[:3].contiguous(), bins=bins, capacity=capacity,
+                largest_slab=int(counts.max()), overflow=overflow, errs=(err11, tol11, err12,
+                                                                         tol12))
+
+
+def static_times(case, shape):
+    """The rows of K11 and K12 (3 channels) on a case of ``static_compare``:
+    the wrapper (binning included), the launch alone on the binned input,
+    the plain version, the library call (``index_add_`` with precomputed
+    weights; a CSR ``torch.sparse.mm``) and the bound: each vertex's
+    position and force (or position and row) once, the field written once
+    (or the nodes the kept vertices touch read once)."""
+    import torch
+
+    from hemocell_tpu_torch import _build
+    from hemocell_tpu_torch.ibm import static
+
+    pos, force, u, bins, C = (case[k] for k in ("pos", "force", "u", "bins", "capacity"))
+    err11, tol11, err12, tol12 = case["errs"]
+    X, Y, Z = shape
+    N, P = X * Y * Z, pos.shape[0]
+    lib = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    pos_s, starts = bins.pos.contiguous(), bins.starts.to(torch.int32)
+    force_s, order = force[bins.order].contiguous(), bins.order.to(torch.int32)
+    field = torch.zeros((3, X, Y, Z), device=pos.device)
+    vals = torch.empty((P, 3), device=pos.device)
+
+    def k11_alone():
+        field.zero_()
+        _build.check(lib.hc_spread_static(pos_s.data_ptr(), force_s.data_ptr(),
+                                          starts.data_ptr(), C, field.data_ptr(), X, Y, Z,
+                                          stream), "hc_spread_static")
+
+    def k12_alone():
+        _build.check(lib.hc_interp_static(u.data_ptr(), pos_s.data_ptr(), order.data_ptr(),
+                                          starts.data_ptr(), C, 3, vals.data_ptr(), X, Y, Z,
+                                          stream), "hc_interp_static")
+
+    idx, w = static._corners(bins, shape)
+    flat = idx.reshape(-1)
+    touched = int(torch.unique(flat[w.reshape(-1) != 0]).numel())
+    contrib = (w[:, :, None] * force_s[:, None, :]).reshape(-1, 3)
+    acc = torch.zeros((N, 3), device=pos.device)
+    W = torch.sparse_coo_tensor(torch.stack([bins.order.repeat_interleave(8), flat]),
+                                w.reshape(-1), (P, N)).coalesce().to_sparse_csr()
+    uT = u.reshape(3, N).T.contiguous()
+    b11, by11 = bound_ms(P * 24 + 3 * N * 4, P * 80)
+    b12, by12 = bound_ms(P * 24 + touched * 12, P * 80)
+    extra = dict(capacity=C, largest_slab=case["largest_slab"], overflow=case["overflow"])
+    rows = {
+        "spread_static": dict(
+            extra, tol=tol11, max_abs_err=err11,
+            ms=time_ms(lambda: static.spread_static(pos, force, shape, C), 20),
+            launch_alone_ms=time_ms(k11_alone, 50),
+            plain_ms=time_ms(lambda: static.spread_static_plain(pos, force, shape, C), 10),
+            bound_ms=b11, bound_by=by11,
+            library_ms=time_ms(lambda: acc.zero_().index_add_(0, flat, contrib), 50)),
+        "interp_static": dict(
+            extra, tol=tol12, max_abs_err=err12,
+            ms=time_ms(lambda: static.interp_static(pos, u, shape, C), 20),
+            launch_alone_ms=time_ms(k12_alone, 50),
+            plain_ms=time_ms(lambda: static.interp_static_plain(pos, u, shape, C), 10),
+            bound_ms=b12, bound_by=by12,
+            library_ms=time_ms(lambda: torch.sparse.mm(W, uT), 50)),
+    }
+    check_rows(f"[20] {tuple(shape)}, capacity {C}:", [dict(r, name=n) for n, r in rows.items()])
+    for n, r in rows.items():
+        print(f"[20]   {n}: the launch alone on the binned input {r['launch_alone_ms']:.4f} ms",
+              flush=True)
+    return rows
+
+
+def phase_static_kernels(pipe_pos, susp_pos):
+    """K11 and K12, which no path of the step runs: held against their plain
+    versions at pipeflow30 shapes (capacity 2048, the reference's default;
+    half the slabs empty; no vertex; capacity 256) and at suspension128's
+    (the next power of two above the largest slab; capacity 256), then
+    timed at both.  Returns (rows at pipeflow30 shapes, rows at
+    suspension128's, the launches of the comparisons)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(20)
+    fns = reset_counters()
+    pipe = static_compare("pipeflow30", pipe_pos, PIPE_SHAPE, 2048, g)
+    half = pipe_pos[torch.remainder(pipe_pos[:, 0], PIPE_SHAPE[0]) < PIPE_SHAPE[0] / 2]
+    static_compare("pipeflow30, the vertices of x < X/2 only", half.contiguous(), PIPE_SHAPE,
+                   2048, g)
+    static_compare("no vertex", pipe_pos[:0], PIPE_SHAPE, 2048, g)
+    over = static_compare("pipeflow30, overfull slabs", pipe_pos, PIPE_SHAPE, 256, g)
+    largest = static_compare("suspension128", susp_pos, SUSP_SHAPE, 2048, g)["largest_slab"]
+    susp = static_compare("suspension128", susp_pos, SUSP_SHAPE, 1 << largest.bit_length(), g)
+    susp_over = static_compare("suspension128, overfull slabs", susp_pos, SUSP_SHAPE, 256, g)
+    launches = {k: fn.launches for k, fn in fns.items()}
+    if any(fn.plain_calls for fn in fns.values()) or not (over["overflow"] > 0
+                                                          and susp_over["overflow"] > 0):
+        raise AssertionError("K11/K12 comparisons: a plain call, or no slab overflowed")
+    rows = static_times(pipe, PIPE_SHAPE)
+    rows128 = static_times(susp, SUSP_SHAPE)
+    return rows, rows128, launches
+
+
+def phase_pipeflow_features(hc, smi):
+    """pipeflow30 with interior viscosity (RBC, viscosity ratio 5, membrane
+    sweep every 10 steps, raycast every 100) and solidify (PLT every 10
+    steps, the material defaults: distance 1 lu, shear threshold 0; binding
+    sites on the wall nodes next to the fluid): ITERATIONS iterations in
+    pieces of 1 (the solidify step; every tenth also the raycast) and 9
+    steps, with the counts read around the whole run.  Returns (launches,
+    wall us per iteration)."""
+    import torch
+
+    from hemocell_tpu_torch.cells.repulsion import boundary_neighbor_mask
+    from hemocell_tpu_torch.config.defaults import FLAG_FLUID, FLAG_WALL
+
+    hc.enable_interior_viscosity(0, every=10, viscosity_ratio=5.0, entire_every=100)
+    hc.enable_solidify(1, every=10)
+    st = hc.local_state
+    dev = st.f.device
+    om_int = torch.tensor(hc.cell_types[0].omega_interior, dtype=st.f.dtype)
+    tri = hc.cell_types[0].topo_dev["tri"]
+    flags0, f0 = st.flags_state.clone(), st.f.clone()
+    n0 = [hc.alive_count(0), hc.alive_count(1)]
+    N = int(np.prod(hc.shape))
+    hardened, kept, wall_removed = (torch.zeros((), dtype=torch.long, device=dev)
+                                    for _ in range(3))
+    raycasts = []  # (positions and alive the raycast step read, the field it left)
+    fns = reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it0 in range(0, ITERATIONS, 10):
+        rbc, plt = hc.local_state.cells
+        marked, before = plt.solidify & plt.alive, plt.alive
+        if it0 % 100 == 0:
+            snap = (rbc.pos.clone(), rbc.alive.clone())
+        hc.iterate(1)  # the solidify step; at it0 % 100 == 0 also the raycast
+        st = hc.local_state
+        plt = st.cells[1]
+        hardened += marked.sum()
+        kept += (marked & (plt.alive | plt.solidify)).sum()
+        wall_removed += (before & ~marked & ~plt.alive).sum()
+        if it0 % 100 == 0:
+            raycasts.append(snap + (st.omega_field.clone(),))
+        before = plt.alive
+        hc.iterate(9)
+        wall_removed += (before & ~hc.local_state.cells[1].alive).sum()
+    hc.block()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    plain = {k: fn.plain_calls for k, fn in fns.items()}
+    mlups = N * ITERATIONS / dt / 1e6
+    print(f"[21] pipeflow30 + interior viscosity + solidify {hc.shape}: {ITERATIONS} "
+          f"iterations in {dt:.3f} s = {mlups:.1f} MLUPS on {smi}", flush=True)
+
+    st = hc.local_state
+    finite = bool(torch.isfinite(st.f).all() & torch.isfinite(st.omega_field).all()) and all(
+        bool(torch.isfinite(cs.pos).all() & torch.isfinite(cs.vel).all()
+             & torch.isfinite(cs.force).all()) for cs in st.cells)
+    umax = float(hc.fluid_velocity().abs().max())
+    n1 = [hc.alive_count(0), hc.alive_count(1)]
+    flags1 = st.flags_state
+    changed = flags1 != flags0
+    n_changed = int(changed.sum())
+    flags_ok = bool((flags0[changed] == FLAG_FLUID).all() & (flags1[changed] == FLAG_WALL).all()
+                    & st.binding_mask[changed].all())
+    # mass over the nodes fluid at the end and the wall nodes next to them,
+    # which hold the populations that bounce back into them (a hardened
+    # node keeps its populations and bounces them back)
+    fluid1 = flags1 == FLAG_FLUID
+    near = torch.as_tensor(boundary_neighbor_mask(flags1.cpu().numpy()) > 0, device=dev)
+    keep = fluid1 | near
+    n_fluid = int(fluid1.sum())
+    dmass = abs(float(st.f.double()[:, keep].sum() - f0.double()[:, keep].sum())) / n_fluid
+    dmass_fluid = abs(float(st.f.double()[:, fluid1].sum()
+                            - f0.double()[:, fluid1].sum())) / n_fluid
+    dmass_all = abs(float(st.f.double().sum() - f0.double().sum())) / N
+    del f0
+    hardened, kept, wall_removed = int(hardened), int(kept), int(wall_removed)
+    # each raycast against the geometry (the cells' own interiors against
+    # their enclosed volume), and the field the step left against the
+    # raycast on every node the membrane sweep of the same step cannot
+    # touch (none of the 8 nodes around a live vertex)
+    box = int(np.ceil(2 * np.ptp(hc.cell_types[0].mesh.vertices, axis=0).max()))
+    shape_t = torch.tensor(hc.shape, device=dev)
+    corners = torch.tensor([(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)],
+                           device=dev)
+    interior = []
+    for pos, alive, field in raycasts:
+        union, own, volume = raycast_check(pos, alive, tri, hc.shape, box)
+        nodes = torch.remainder(torch.floor(pos[alive]).long().reshape(-1, 1, 3) + corners,
+                                shape_t).reshape(-1, 3)
+        swept = torch.zeros(hc.shape, dtype=torch.bool, device=dev)
+        swept[nodes[:, 0], nodes[:, 1], nodes[:, 2]] = True
+        want = torch.full(hc.shape, float(hc.omega), dtype=field.dtype,
+                          device=dev).masked_fill(union, hc.cell_types[0].omega_interior)
+        interior.append((int((field == om_int).sum()), int(union.sum()), own, volume,
+                         int((field != want)[~swept].sum()), int(swept.sum())))
+    del raycasts
+    print(f"[21] cells {n0} -> {n1} | max|u| {umax:.4e} | PLT tagged and hardened {hardened}, "
+          f"removed by wall contact {wall_removed} | {n_changed} nodes turned from fluid to "
+          f"wall | mass drift per fluid node over the fluid and its walls {dmass:.3e} (over "
+          f"the fluid nodes alone {dmass_fluid:.3e}; per node over the whole box "
+          f"{dmass_all:.3e}) | launches {launches} | plain calls {plain}", flush=True)
+    print("[21] after each raycast step, nodes at omega_interior / in the union of the "
+          "raycast / counted cell by cell / RBC enclosed volume (lu^3) / field nodes off the "
+          "raycast outside the swept nodes (of the swept): "
+          + ", ".join(f"{c}/{u}/{o}/{v:.1f}/{off} ({sw})" for c, u, o, v, off, sw in interior),
+          flush=True)
+    expected = dict.fromkeys(KERNEL_ORDER, 0)
+    expected.update({"stream_collide": ITERATIONS, "spread": ITERATIONS,
+                     "interp": ITERATIONS // hc.particle_every,
+                     "wall_hit_cells": ITERATIONS})
+    checks = {
+        "finite state": finite,
+        "max|u| < 0.1": umax < 0.1,
+        ">= 90% of RBC alive": n1[0] >= 0.9 * n0[0],
+        "launch counts": launches == expected,
+        "no plain version on the main path": not any(plain.values()),
+        "each raycast: the cells' interiors within 10% of their enclosed volume, and the "
+        "field equal to the raycast away from the membrane sweep":
+            len(interior) == ITERATIONS // 100
+            and all(abs(o - v) <= 0.1 * v and off == 0 for _, _, o, v, off, _ in interior),
+        "flags change only from fluid to wall, on binding sites": flags_ok,
+        "walls appear only with hardened PLT": (n_changed > 0) == (hardened > 0),
+        "every tagged PLT hardened and was removed at its solidify step": kept == 0,
+        "removed PLT = hardened + removed by wall contact":
+            n0[1] - n1[1] == hardened + wall_removed,
+        "mass conserved (drift per fluid node < 1e-6)": dmass < 1e-6,
+    }
+    for name, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"pipeflow30 with interior viscosity and solidify: {name} "
+                                 f"(expected launches {expected})")
+    return launches, dt * 1e6 / ITERATIONS
+
+
+def phase_small_features():
+    """cellcollision --interior-viscosity (64x40x40, 2 RBC, raycast every 10
+    steps) and the solidify chamber of cases/solidify_example (24^3, 3 PLT,
+    one on the binding wall: tagged at step 0, hardened at step 10), 41
+    steps on the card and with the plain versions on the CPU from the same
+    state: the same omega field, runtime flags, binding sites, alive and
+    tagged cells; populations 1e-6, positions 1e-4 lu (phase 5's)."""
+    import torch
+
+    from hemocell_tpu_torch.cases import cellcollision, solidify_example
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_features_")
+    cases = {
+        "cellcollision --interior-viscosity": lambda dev: cellcollision.build(
+            os.path.join(d, "cc"), interior_viscosity=True, device=dev),
+        "solidify chamber": lambda dev: solidify_example.build(os.path.join(d, "sol"),
+                                                               device=dev),
+    }
+
+    def same(a, b):
+        return (a is None and b is None) or (a is not None and b is not None
+                                             and torch.equal(a.cpu(), b))
+
+    try:
+        for name, build in cases.items():
+            runs = []
+            for device in ("cuda", "cpu"):
+                hc = build(device)
+                hc.iterate(41)
+                hc.block()
+                runs.append(hc.state)
+            gpu, cpu = runs
+            err_f = float((gpu.f.cpu() - cpu.f).abs().max())
+            err_pos = max(float((a.pos.cpu() - b.pos).abs().max())
+                          for a, b in zip(gpu.cells, cpu.cells))
+            equal = {"omega field": same(gpu.omega_field, cpu.omega_field),
+                     "flags": same(gpu.flags_state, cpu.flags_state),
+                     "binding sites": same(gpu.binding_mask, cpu.binding_mask),
+                     "alive": all(same(a.alive, b.alive) for a, b in zip(gpu.cells, cpu.cells)),
+                     "tagged": all(same(a.solidify, b.solidify)
+                                   for a, b in zip(gpu.cells, cpu.cells))}
+            if cpu.omega_field is not None:
+                acted = int((cpu.omega_field == hc.cell_types[0].omega_interior).sum())
+                what = f"{acted} nodes at omega_interior"
+            else:
+                hardened = int((cpu.flags_state != hc.flags).sum())
+                removed = int((~cpu.cells[0].alive).sum())
+                acted = hardened * removed
+                what = f"{hardened} nodes hardened, {removed} PLT removed"
+            print(f"[22] {name}, 41 steps, card vs plain CPU: max|df| {err_f:.3e} (tol 1e-6) "
+                  f"| max|dpos| {err_pos:.3e} lu (tol 1e-4) | equal {equal} | {what}",
+                  flush=True)
+            if not (err_f <= 1e-6 and err_pos <= 1e-4 and all(equal.values()) and acted > 0):
+                raise AssertionError(f"{name} disagrees with the plain CPU path, or its "
+                                     "feature did not act")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1757,6 +2220,7 @@ def main() -> int:
     rows.update(rows_k567)
     by_path["suspension128"] = phase_suspension(susp, smi)
     by_path["leesedwards128"] = phase_lees_edwards(susp, smi)
+    susp_pos = susp["cells"][0].pos.reshape(-1, 3).clone()
     del susp
     torch.cuda.empty_cache()
     phase_small_box()
@@ -1783,19 +2247,44 @@ def main() -> int:
             dist.destroy_process_group()
         shutil.rmtree(pg_dir, ignore_errors=True)
 
+    t0 = time.time()
+    workdir = tempfile.mkdtemp(prefix="pipeflow30_")
+    try:
+        hc = build_pipeflow30(device="cuda", workdir=workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"[21] pipeflow30 packed again in {time.time() - t0:.1f} s: {hc.alive_count(0)} RBC + "
+          f"{hc.alive_count(1)} PLT", flush=True)
+    pipe_pos = torch.cat([cs.pos.reshape(-1, 3) for cs in hc.cell_states]).contiguous()
+    rows_static, rows128_static, by_path["standalone"] = phase_static_kernels(pipe_pos,
+                                                                              susp_pos)
+    rows.update(rows_static)
+    rows128.update(rows128_static)
+    del pipe_pos, susp_pos
+    by_path["pipeflow30 interior viscosity + solidify"], wall_us_per_it = \
+        phase_pipeflow_features(hc, smi)
+    phase_profile("[21]", hc.iterate, wall_us_per_it)
+    del hc
+    torch.cuda.empty_cache()
+    phase_small_features()
+
     # ``launches`` is the count of the first full-size path that runs the
-    # kernel; ``launches_by_path`` has every path's; K1-K3 carry their
-    # comparison at the suspension's shapes under ``at_128``
+    # kernel (K11 and K12, which no path runs: phase 20's comparisons, the
+    # path "standalone"); ``launches_by_path`` has every path's; K1-K3, K11
+    # and K12 carry their comparison at the suspension's shapes under
+    # ``at_128``
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     more = ("with_force_extra", "launch_alone_ms", "bitwise", "k", "ms_per_step",
             "k1_ms_per_step", "k1_ms", "k10_ms", "at_pipe", "by_k", "with_force_field",
-            "shape", "at_128")
+            "shape", "at_128", "with_omega_field", "capacity", "largest_slab", "overflow")
     kernels_line = {"kernels": []}
     for name in KERNEL_ORDER:
         per_path = {path: counts[name] for path, counts in by_path.items()}
+        launches = next((c for c in per_path.values() if c > 0), 0)
+        if launches == 0:
+            return fail(f"{name}: no path launched the kernel ({per_path})")
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
-                 "replaces": REPLACES[name],
-                 "launches": next(c for c in per_path.values() if c > 0),
+                 "replaces": REPLACES[name], "launches": launches,
                  "launches_by_path": per_path}
         entry.update({k: v for k, v in rows[name].items() if k in keys + more})
         if name in rows128:

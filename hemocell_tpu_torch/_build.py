@@ -48,6 +48,8 @@ SIGNATURES = {
                                _P, _P, _I, _I, _I, _P],
     "hc_stream_collide_2d_halo": [_P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _I, _F,
                                   _P, _I, _I, _I, _P],
+    "hc_spread_static": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
+    "hc_interp_static": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -123,15 +125,18 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def cuda_arg(t, name: str, dtype, shape):
+def cuda_arg(t, name: str, dtype, shape, strict: bool = False):
     """``t`` made contiguous, after checking that it is a CUDA tensor of
-    ``dtype`` and ``shape`` (what the kernels take)."""
+    ``dtype`` and ``shape`` (what the kernels take); with ``strict`` a
+    tensor that is not contiguous raises instead of being copied."""
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_cuda:
         raise ValueError(f"{name} must be on the CUDA device")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if strict and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
     return t.contiguous()
 
 

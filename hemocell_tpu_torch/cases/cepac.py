@@ -2,11 +2,11 @@
 CEPAC advection-diffusion field fed by a Dirichlet concentration patch on
 the floor.
 
-The port's counterpart of ``examples/cepac.py``.  Solidification is not
-ported yet: ``--solidify`` raises.
+The port's counterpart of ``examples/cepac.py``.  ``--solidify`` lets the
+platelets bind to the walls and solidify every 50 steps.
 
 Usage: python -m hemocell_tpu_torch.cases.cepac [--iterations 2000]
-           [--device cuda]
+           [--solidify] [--device cuda]
        torchrun --nproc-per-node N -m hemocell_tpu_torch.cases.cepac --distribute
 """
 
@@ -51,9 +51,6 @@ CONFIG_XML = """<?xml version="1.0" ?>
 
 
 def build(workdir: str, solidify: bool = False, device="cuda") -> HemoCell:
-    if solidify:
-        raise NotImplementedError(
-            "solidification is not ported yet (ROADMAP Queue 1 item 9.5)")
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(workdir, "config.xml"), "w") as f:
         f.write(CONFIG_XML)
@@ -77,6 +74,8 @@ def build(workdir: str, solidify: bool = False, device="cuda") -> HemoCell:
     mask[1:5, 14:18, 1:3] = 1
     value = np.full(shape, 0.05, np.float32)
     hc.enable_cepac(diffusivity_lbm=1.0 / 6.0, dirichlet_mask=mask, dirichlet_value=value)
+    if solidify:
+        hc.enable_solidify(0, every=50)
     return hc
 
 

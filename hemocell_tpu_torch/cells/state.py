@@ -13,6 +13,8 @@ Per cell type:
   restime    [NC] int32    iterations alive (residence time)
   vel_prev   [NC, NV, 3]   previous velocity for Adams-Bashforth
                            integration; None under the default Euler scheme
+  solidify   [NC] bool     tagged for solidification at the next solidify
+                           step (a platelet near a binding site under shear)
 
 ``place_cells``, ``filter_wall_overlaps`` and ``load_pos_file`` are numpy
 copies of the reference package's placement functions.
@@ -36,6 +38,7 @@ class CellTypeState(NamedTuple):
     alive: torch.Tensor
     restime: torch.Tensor
     vel_prev: Optional[torch.Tensor] = None
+    solidify: Optional[torch.Tensor] = None
 
 
 def make_cell_state(positions, dtype=torch.float32, device="cuda",
@@ -54,6 +57,7 @@ def make_cell_state(positions, dtype=torch.float32, device="cuda",
         alive=torch.ones(nc, dtype=torch.bool, device=device),
         restime=torch.zeros(nc, dtype=torch.int32, device=device),
         vel_prev=torch.zeros_like(pos) if adams_bashforth else None,
+        solidify=torch.zeros(nc, dtype=torch.bool, device=device),
     )
 
 

@@ -16,14 +16,17 @@ from .mechanics import MODEL_REGISTRY, topology_from_arrays
 
 def state_from_numpy(f, it, cells: Sequence[Mapping], dtype=torch.float64,
                      device="cuda", cepac=None, le_displacement=None,
-                     body_force_state=None) -> SimState:
+                     body_force_state=None, omega_field=None, flags_state=None,
+                     binding_mask=None) -> SimState:
     """SimState from numpy arrays: ``f [19,X,Y,Z]``, the iteration count and
     per cell type a mapping with ``pos``, ``vel``, ``force`` [NC,NV,3],
     ``alive`` [NC] and optionally ``force_repulsion``, ``vel_prev``
-    [NC,NV,3] and ``restime`` [NC]; optionally the CEPAC populations
-    ``cepac [19,X,Y,Z]``, the Lees-Edwards displacement (a scalar, kept
-    on the host) and the dynamic body-force override ``[3]`` (kept on the
-    host)."""
+    [NC,NV,3], ``restime`` [NC] and ``solidify`` [NC] bool; optionally the
+    CEPAC populations ``cepac [19,X,Y,Z]``, the Lees-Edwards displacement
+    (a scalar, kept on the host), the dynamic body-force override ``[3]``
+    (kept on the host), the interior-viscosity ``omega_field [X,Y,Z]``
+    and the solidify ``flags_state`` (uint8) and ``binding_mask`` (bool),
+    both [X,Y,Z]."""
     device = resolve_device(device)
 
     def fl(a):
@@ -39,18 +42,26 @@ def state_from_numpy(f, it, cells: Sequence[Mapping], dtype=torch.float64,
         pos = fl(c["pos"])
         frep = c.get("force_repulsion")
         vel_prev = c.get("vel_prev")
+        sol = c.get("solidify")
         states.append(CellTypeState(
             pos=pos, vel=fl(c["vel"]), force=fl(c["force"]),
             force_repulsion=torch.zeros_like(pos) if frep is None else fl(frep),
             alive=alive, restime=restime,
-            vel_prev=None if vel_prev is None else fl(vel_prev)))
+            vel_prev=None if vel_prev is None else fl(vel_prev),
+            solidify=(torch.zeros_like(alive) if sol is None else
+                      torch.tensor(np.asarray(sol, dtype=bool), device=device))))
     return SimState(
         f=fl(f), it=int(it), cells=tuple(states),
         cepac=None if cepac is None else fl(cepac),
         le_displacement=(None if le_displacement is None else
                          torch.tensor(float(le_displacement), dtype=dtype)),
         body_force_state=(None if body_force_state is None else
-                          torch.tensor(np.asarray(body_force_state), dtype=dtype)))
+                          torch.tensor(np.asarray(body_force_state), dtype=dtype)),
+        omega_field=None if omega_field is None else fl(omega_field),
+        flags_state=(None if flags_state is None else
+                     torch.tensor(np.asarray(flags_state, dtype=np.uint8), device=device)),
+        binding_mask=(None if binding_mask is None else
+                      torch.tensor(np.asarray(binding_mask, dtype=bool), device=device)))
 
 
 def fluid_config_from_numpy(flags, omega, body_force=None, fluid_2x=None, fluid_k=None,
@@ -71,15 +82,19 @@ def fluid_config_from_numpy(flags, omega, body_force=None, fluid_2x=None, fluid_
 
 def type_from_numpy(name: str, model: str, topo_arrays: Mapping, material: Mapping,
                     material_every: int = 1, dtype=torch.float64,
-                    device="cuda") -> TypeConfig:
+                    device="cuda", **options) -> TypeConfig:
     """TypeConfig from a topology given as numpy arrays (the keys of
-    ``topology_device_arrays``) and a material dict of floats."""
+    ``topology_device_arrays``) and a material dict of floats; ``options``
+    are the TypeConfig's feature fields (``omega_interior``,
+    ``interior_box``, ``solidify``, ``distance_threshold``,
+    ``shear_threshold``)."""
     return TypeConfig(
         name=name,
         model_fn=MODEL_REGISTRY[model],
         topo=topology_from_arrays(topo_arrays, dtype=dtype, device=device),
         material={k: float(v) for k, v in material.items()},
         material_every=int(material_every),
+        **options,
     )
 
 
@@ -99,4 +114,7 @@ def state_to_numpy(state: SimState) -> dict:
         "le_displacement": (None if state.le_displacement is None
                             else float(state.le_displacement)),
         "body_force_state": to_np(state.body_force_state),
+        "omega_field": to_np(state.omega_field),
+        "flags_state": to_np(state.flags_state),
+        "binding_mask": to_np(state.binding_mask),
     }

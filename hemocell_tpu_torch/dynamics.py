@@ -9,11 +9,19 @@ reference package's phase order:
      recomputes the carried per-vertex force is spread every step;
   2. spread the capped constitutive forces plus the uncapped repulsion
      force (kernel K2) and add the body force;
+ 2b. interior viscosity: the omega field of the fluid step, from a full
+     raycast of the membranes every ``interior_entire_every`` steps (or
+     ``interior_every`` when that is 0) and the cheap membrane sweep every
+     ``interior_every`` steps in between;
   3. fluid collide + stream (kernel K1, or K7 with Lees-Edwards wrapping
      across the z faces), then the CEPAC advection-diffusion lattice
      (kernel K6) driven by the new fluid velocity;
   4. every ``particle_every`` steps, interpolate the Guo-shifted fluid
      velocity to the vertices (kernel K3);
+ 4b. every ``solidify_every`` steps, solidify: the cells tagged last round
+     harden (their interior nodes become walls and binding sites, the cell
+     is removed), then cells with a vertex near a binding site under Tresca
+     shear are tagged; the runtime flags feed K1-K4 from then on;
   5. advance (Euler or Adams-Bashforth), then delete every cell with a
      vertex whose nearest node is not fluid, on the post-advance positions
      (kernel K4);
@@ -25,8 +33,7 @@ host scalar, so the timescale gates and the plane shifts cost no device
 sync, and the runner is a plain Python loop over ``step``.  A run with no
 vertices at all (the cell-free warm-up of a vessel case) leaves that loop:
 ``build_runner`` advances it k iterations per launch through the fused
-fluid kernels (K9, or K8 for two steps).  Interior viscosity, solidify and
-preInlet are not ported yet.
+fluid kernels (K9, or K8 for two steps).  PreInlet is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,15 +43,18 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 
-from ._device import resolve_device
+from ._device import constant, resolve_device
 from .cells import repulsion as rep
+from .cells.interior import interior_mask, membrane_omega_update
 from .cells.state import CellTypeState
+from .config.defaults import FLAG_FLUID, FLAG_WALL
 from .fluid import advection_diffusion as ad
 from .fluid import lbm
 from .fluid.lees_edwards import le_stream_collide
 from .fluid.stream_collide import stream_collide
 from .fluid.stream_collide_2x import stream_collide_2x
 from .fluid.stream_collide_kx import SUPPORTED_K, stream_collide_kx
+from .fluid.tresca import tresca_field
 from .ibm import kernels
 
 
@@ -59,6 +69,12 @@ class SimState(NamedTuple):
     # dynamic uniform body force [3] overriding cfg.body_force (the adaptive
     # preInlet drive): a host tensor, as the kernels take it by value
     body_force_state: Any = None
+    # per-node relaxation frequency [X, Y, Z] (interior viscosity)
+    omega_field: Any = None
+    # runtime node flags uint8 [X, Y, Z] and binding sites bool [X, Y, Z]
+    # (solidify: hardened platelets turn fluid nodes into walls)
+    flags_state: Any = None
+    binding_mask: Any = None
 
 
 @dataclass
@@ -70,6 +86,14 @@ class TypeConfig:
     topo: dict  # tensors from topology_device_arrays
     material: dict  # float coefficients
     material_every: int = 1  # stepMaterialEvery
+    # interior viscosity (None = off): omega inside this type's membranes
+    omega_interior: Optional[float] = None
+    interior_box: int = 24  # local raycast box edge (>= cell diameter + 3)
+    # solidify (platelet binding; material XML distanceThreshold and
+    # shearThreshold)
+    solidify: bool = False
+    distance_threshold: float = 0.0
+    shear_threshold: float = 0.0
 
 
 @dataclass
@@ -103,6 +127,12 @@ class StepConfig:
     # vertex integration: 1 = Euler, 2 = Adams-Bashforth
     # (pos += 1.5 v - 0.5 v_prev; needs CellTypeState.vel_prev)
     material_integration: int = 1
+    # interior viscosity: membrane-sweep period (0 = off) and full-raycast
+    # period (0 = raycast at interior_every, no membrane sweep)
+    interior_every: int = 0
+    interior_entire_every: int = 0
+    # solidify period (0 = off)
+    solidify_every: int = 0
     # fused multi-step fluid kernels for cell-free runs: True turns them on
     # (on the CPU their plain versions run through the same dispatch); None
     # and False keep the one-step loop, which is the faster of the two on the
@@ -134,7 +164,8 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
         return None if t is None else torch.as_tensor(t).to(device, dt)
 
     flags = _dev(cfg.flags, torch.uint8)
-    has_boundaries = bool(flags.any())
+    # solidify may create walls in a domain that has none
+    has_boundaries = bool(flags.any()) or bool(cfg.solidify_every)
     omega = cfg.omega.to(device, dtype) if torch.is_tensor(cfg.omega) else float(cfg.omega)
     bc_velocity = _dev(cfg.bc_velocity, dtype)
     bf_cfg = bf_cfg_host = None
@@ -147,6 +178,8 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
     cepac_mask = _dev(cfg.cepac_dirichlet_mask, torch.uint8)
     cepac_value = _dev(cfg.cepac_dirichlet_value, dtype)
     le_u = cfg.lees_edwards_velocity
+    fshape = torch.tensor([float(s) for s in shape], dtype=dtype, device=device)
+    shape_i = torch.tensor(shape, dtype=torch.long, device=device)
     cell_ids = {}
 
     def _cell_ids(counts):
@@ -158,9 +191,64 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
             cell_ids[counts] = ids.repeat_interleave(nv_per_cell).to(device)
         return cell_ids[counts]
 
+    def omega_raycast(cells):
+        """The omega field from a full raycast of the membranes."""
+        om = torch.full(shape, float(cfg.omega), dtype=dtype, device=device)
+        for tc, cs in zip(cfg.types, cells):
+            if tc.omega_interior is not None:
+                m = interior_mask(cs.pos, tc.topo["tri"], cs.alive, shape, tc.interior_box)
+                om = om.masked_fill(m, tc.omega_interior)
+        return om
+
+    def omega_membrane(om, cells):
+        """The membrane sweep of the omega field."""
+        for tc, cs in zip(cfg.types, cells):
+            if tc.omega_interior is not None:
+                om = membrane_omega_update(om, cs.pos, tc.topo["tri"], cs.alive,
+                                           tc.omega_interior, cfg.omega,
+                                           tc.topo["edge_mean_eq"], shape)
+        return om
+
+    def solidify(cells, flags_s, binding, f_new, force_view, omega):
+        """Harden the cells tagged last round, then tag the cells with a
+        vertex within ``distance_threshold`` of a binding site whose Tresca
+        stress |tresca / 1e-7| exceeds ``shear_threshold``."""
+        for k, (tc, cs) in enumerate(zip(cfg.types, cells)):
+            if not tc.solidify:
+                continue
+            tagged = cs.solidify if cs.solidify is not None else torch.zeros_like(cs.alive)
+            marked = tagged & cs.alive
+            interior = interior_mask(cs.pos, tc.topo["tri"], marked, shape, tc.interior_box)
+            interior = interior & (flags_s == FLAG_FLUID)
+            flags_s = flags_s.masked_fill(interior, FLAG_WALL)
+            binding = binding | interior
+            cells[k] = cs._replace(alive=cs.alive & ~marked, solidify=tagged & ~marked)
+        tresca = torch.abs(tresca_field(f_new, force_view, omega) / 1e-7)
+        nbr = constant(rep._NBR, torch.long, device)
+        for k, (tc, cs) in enumerate(zip(cfg.types, cells)):
+            if not tc.solidify:
+                continue
+            nc, nv = cs.pos.shape[:2]
+            p = torch.remainder(cs.pos.reshape(-1, 3), fshape)
+            node = torch.remainder(torch.floor(p + 0.5).long(), shape_i)
+            nn = torch.remainder(node[:, None, :] + nbr[None], shape_i)  # [P, 27, 3]
+            b = binding[nn[..., 0], nn[..., 1], nn[..., 2]]
+            t = tresca[nn[..., 0], nn[..., 1], nn[..., 2]]
+            dv = p[:, None, :] - nn.to(dtype)
+            dv = dv - torch.round(dv / fshape) * fshape
+            dist = torch.linalg.vector_norm(dv, dim=-1)
+            hit = b & (dist <= tc.distance_threshold) & (t > tc.shear_threshold)
+            cell_hit = hit.any(dim=1).reshape(nc, nv).any(dim=1) & cs.alive
+            cells[k] = cs._replace(solidify=cs.solidify | cell_hit)
+        return flags_s, binding
+
     def step(state: SimState) -> SimState:
         it = state.it
         cells = list(state.cells)
+        # node flags: the runtime ones while solidify mutates them
+        flags_now = flags
+        if cfg.solidify_every and state.flags_state is not None:
+            flags_now = state.flags_state
         counts = tuple((cs.pos.shape[0], cs.pos.shape[1]) for cs in cells)
         n_cells = sum(nc for nc, _ in counts)
         have_vertices = sum(nc * nv for nc, nv in counts) > 0
@@ -213,13 +301,25 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                 pos_lat = torch.stack([x_eff, pos_flat[:, 1], pos_flat[:, 2]], dim=1)
             f_vert = torch.cat([cs.force.reshape(-1, 3) for cs in cells])
             # total = constitutive (capped) + repulsion (uncapped)
-            force = kernels.spread(pos_lat, f_vert, active, flags, cfg.f_limit,
+            force = kernels.spread(pos_lat, f_vert, active, flags_now, cfg.f_limit,
                                    force_extra=frep)
             if bf is not None:
                 force = force + bf
             force_arg = force_view = force
         else:
             force_arg, force_view = bf_host, bf  # uniform [3] / [3,1,1,1] or None
+
+        # ---- 2b: interior viscosity omega field ---------------------------
+        omega_now = omega
+        omega_field_new = state.omega_field
+        if cfg.interior_every and state.omega_field is not None:
+            entire = cfg.interior_entire_every or cfg.interior_every
+            if it % entire == 0:
+                omega_field_new = omega_raycast(cells)
+            if (cfg.interior_entire_every and entire != cfg.interior_every
+                    and it % cfg.interior_every == 0):
+                omega_field_new = omega_membrane(omega_field_new, cells)
+            omega_now = omega_field_new
 
         # ---- 3: fluid collide + stream -----------------------------------
         le_disp_new = state.le_displacement
@@ -229,13 +329,13 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                 force_field = torch.zeros((3,) + shape, dtype=dtype, device=device)
                 if bf is not None:
                     force_field = force_field + bf
-            f_new = le_stream_collide(state.f, force_field, omega,
+            f_new = le_stream_collide(state.f, force_field, omega_now,
                                       state.le_displacement, le_u)
             # wrap by X: only disp mod X enters the image shift and the
             # particle mapping, and an unbounded accumulator loses precision
             le_disp_new = torch.remainder(state.le_displacement + le_u, shape[0])
         else:
-            f_new = stream_collide(state.f, force_arg, omega, flags, bc_velocity,
+            f_new = stream_collide(state.f, force_arg, omega_now, flags_now, bc_velocity,
                                    cfg.bc_density)
 
         u_new = None
@@ -254,7 +354,7 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
 
         # ---- 4: interpolate the fluid velocity to the vertices -----------
         if have_vertices and it % cfg.particle_every == 0:
-            vel_flat = kernels.interp(velocity(), pos_lat, active, flags)
+            vel_flat = kernels.interp(velocity(), pos_lat, active, flags_now)
             if le_u is not None:
                 # Galilean frame shift of the wrapped image, inside the
                 # interp step only: the carried velocity already holds its
@@ -262,6 +362,14 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                 vel_flat[:, 0] += le_w * le_u
             for k, part in enumerate(_split(vel_flat, counts)):
                 cells[k] = cells[k]._replace(vel=part)
+
+        # ---- 4b: solidify -------------------------------------------------
+        flags_new, binding_new = state.flags_state, state.binding_mask
+        if (cfg.solidify_every and state.flags_state is not None
+                and it % cfg.solidify_every == 0):
+            flags_new, binding_new = solidify(cells, state.flags_state, state.binding_mask,
+                                              f_new, force_view, omega_now)
+            flags_now = flags_new
 
         # ---- 5: advance + wall-contact deletion --------------------------
         new_pos = []
@@ -275,7 +383,7 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
         if has_boundaries and have_vertices:
             hits = kernels.wall_hit_cells(
                 torch.cat([p.reshape(-1, 3) for p in new_pos]),
-                _cell_ids(counts), flags, n_cells)
+                _cell_ids(counts), flags_now, n_cells)
         off = 0
         for k, (cs, (nc, _)) in enumerate(zip(cells, counts)):
             alive = cs.alive
@@ -295,7 +403,8 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
             cells[k] = cs._replace(force=ft)
 
         return state._replace(f=f_new, it=it + 1, cells=tuple(cells), cepac=cepac_new,
-                              le_displacement=le_disp_new)
+                              le_displacement=le_disp_new, omega_field=omega_field_new,
+                              flags_state=flags_new, binding_mask=binding_new)
 
     return step
 
@@ -309,8 +418,8 @@ def build_runner(cfg: StepConfig) -> Callable[[SimState, int], SimState]:
 
     # The fused kernels advance a run whose only change per iteration is
     # {f, it}, within their own scope: scalar omega, uniform or no body
-    # force, bounce-back walls only, no Lees-Edwards, no CEPAC.  (Interior
-    # viscosity and solidify join these conditions when they are ported.)
+    # force, bounce-back walls only, no Lees-Edwards, no CEPAC, no interior
+    # viscosity and no solidify.
     k_fluid = 4 if cfg.fluid_k is None else int(cfg.fluid_k)
     if k_fluid != 1 and k_fluid not in SUPPORTED_K:
         raise ValueError(f"fluid_k must be 1 or one of {SUPPORTED_K}, got {cfg.fluid_k}")
@@ -321,6 +430,8 @@ def build_runner(cfg: StepConfig) -> Callable[[SimState, int], SimState]:
         and cfg.cepac_tau is None
         and cfg.bc_velocity is None
         and cfg.bc_density is None
+        and not cfg.interior_every
+        and not cfg.solidify_every
         and not (torch.is_tensor(cfg.omega) and cfg.omega.dim() > 0)
     )
     flags = torch.as_tensor(cfg.flags).to(device, torch.uint8)
@@ -352,11 +463,11 @@ def build_runner(cfg: StepConfig) -> Callable[[SimState, int], SimState]:
 
     def pure_fluid(state: SimState) -> bool:
         # no vertices of any cell type, and no state the fused kernels ignore
-        # (a per-node omega field and mutable flags join with interior
-        # viscosity and solidify)
+        # (CEPAC, a per-node omega field, runtime flags)
         vertices = sum(cs.pos.shape[0] * cs.pos.shape[1] for cs in state.cells)
         bfs = state.body_force_state
         return (fused and vertices == 0 and state.cepac is None
+                and state.omega_field is None and state.flags_state is None
                 and (bfs is None or torch.as_tensor(bfs).dim() == 1))
 
     def run(state: SimState, n: int) -> SimState:
@@ -381,5 +492,24 @@ def initial_sim_state(cfg: StepConfig, cell_states: Sequence[CellTypeState],
     le_disp = None
     if cfg.lees_edwards_velocity is not None:
         le_disp = torch.zeros((), dtype=cfg.dtype)
-    return SimState(f=f, it=0, cells=tuple(cell_states), cepac=cepac,
-                    le_displacement=le_disp)
+    state = SimState(f=f, it=0, cells=tuple(cell_states), cepac=cepac,
+                     le_displacement=le_disp)
+    return with_feature_fields(cfg, state)
+
+
+def with_feature_fields(cfg: StepConfig, state: SimState) -> SimState:
+    """``state`` with the fields of the features ``cfg`` turns on, where it
+    lacks them, as they start: the omega field of interior viscosity filled
+    with ``cfg.omega``; solidify's runtime flags (``cfg.flags``) and binding
+    sites (the wall nodes next to the fluid)."""
+    device = resolve_device(cfg.device)
+    if cfg.interior_every and state.omega_field is None:
+        state = state._replace(omega_field=torch.full(
+            tuple(cfg.shape), float(cfg.omega), dtype=cfg.dtype, device=device))
+    if cfg.solidify_every and state.flags_state is None:
+        flags_np = torch.as_tensor(cfg.flags).cpu().numpy()
+        state = state._replace(
+            flags_state=torch.as_tensor(flags_np, dtype=torch.uint8, device=device),
+            binding_mask=torch.as_tensor(rep.boundary_neighbor_mask(flags_np) > 0,
+                                         device=device))
+    return state

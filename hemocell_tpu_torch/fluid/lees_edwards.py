@@ -126,6 +126,8 @@ def _corrected_planes(f, force, omega, displacement, shear_velocity):
     Z = f.shape[3]
     f2 = torch.stack([f[:, :, :, Z - 1], f[:, :, :, 0]], dim=-1)
     force2 = torch.stack([force[:, :, :, Z - 1], force[:, :, :, 0]], dim=-1)
+    if torch.is_tensor(omega) and omega.dim() > 0:  # the two planes of the field
+        omega = torch.stack([omega[:, :, Z - 1], omega[:, :, 0]], dim=-1)
     post2 = collide(f2, force2, omega, _zero_flags(f, 2))
     return corrected_planes_from_pair(post2[:, :, :, 0], post2[:, :, :, 1],
                                       displacement, shear_velocity)
@@ -140,16 +142,12 @@ def corrected_planes_from_pair(post_top, post_bot, displacement, shear_velocity)
 
 def le_stream_collide(f, force, omega, displacement, shear_velocity):
     """One Lees-Edwards step of ``f [19,X,Y,Z]`` on an all-fluid box with the
-    force field ``force [3,X,Y,Z]``.  On CUDA tensors omega must be a
-    scalar: the per-node omega of interior viscosity is not ported to the
-    kernel path yet and raises ``NotImplementedError``."""
+    force field ``force [3,X,Y,Z]``; omega is a float or the per-node
+    ``[X,Y,Z]`` field of interior viscosity, which the corrected planes and
+    the kernel both take."""
     if not f.is_cuda:
         le_stream_collide.plain_calls += 1
         return le_stream_collide_plain(f, force, omega, displacement, shear_velocity)
-    if torch.is_tensor(omega) and omega.dim() > 0:
-        raise NotImplementedError(
-            "Lees-Edwards with a per-node omega (interior viscosity) is not "
-            "ported to the CUDA path yet (ROADMAP Queue 1 item 9.4)")
     planes = _corrected_planes(f, force, omega, displacement, shear_velocity)
     out = _launch_k1(f, force, omega, None, le_planes=planes)
     le_stream_collide.launches += 1

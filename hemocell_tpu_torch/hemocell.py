@@ -2,8 +2,8 @@
 ``hemocell_tpu/hemocell.py``.
 
 Construct from an XML config, initialise the lattice, add cell types, load
-or set cells, set the body force, enable repulsion, boundary repulsion or
-the CEPAC field, iterate, and read observables.  The
+or set cells, set the body force, enable repulsion, boundary repulsion, the
+CEPAC field, interior viscosity or solidify, iterate, and read observables.  The
 facade runs on ``device="cuda"`` unless the caller passes ``device="cpu"``,
 and raises when CUDA is asked for and absent.
 
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .cells.interior import interior_tau
 from .cells.repulsion import boundary_neighbor_mask
 from .cells.state import (
     CellTypeState,
@@ -34,7 +35,8 @@ from .cells.state import (
 )
 from .config import Config, Parameters
 from .config.defaults import FLAG_FLUID
-from .dynamics import SimState, StepConfig, TypeConfig, build_runner, initial_sim_state
+from .dynamics import (SimState, StepConfig, TypeConfig, build_runner, initial_sim_state,
+                       with_feature_fields)
 from .fluid import lbm
 from .fluid.advection_diffusion import tau_from_diffusivity
 from .mechanics import (
@@ -66,6 +68,11 @@ class CellType:
     material: dict
     timescale: int = 1  # stepMaterialEvery
     minimum_distance_from_solid_um: float = 0.0
+    material_cfg: object = None  # the <MaterialModel> block of <name>.xml
+    omega_interior: Optional[float] = None  # interior viscosity (None = off)
+    solidify: bool = False
+    distance_threshold: float = 0.0
+    shear_threshold: float = 0.0
 
 
 class HemoCell:
@@ -93,6 +100,10 @@ class HemoCell:
         self.boundary_repulsion_cutoff = 0.0
         self.boundary_repulsion_every = 1
         self.cepac_tau = None
+        self.interior_every = 0  # interiorViscosityTimescale (0 = off)
+        self.interior_entire_every = 0  # interiorViscosityEntireGrid
+        self.solidify_every = 0  # solidifyTimescale (0 = off)
+        self._binding_sites = None
         self._cepac0 = None
         self._cepac_mask = None
         self._cepac_value = None
@@ -147,11 +158,21 @@ class HemoCell:
             timescale=self._default_material_every,
             minimum_distance_from_solid_um=mat_cfg.get("minimumDistanceFromSolid",
                                                        float, 0.0),
+            material_cfg=mat_cfg,
         )
         self.cell_types.append(ct)
         self.cell_states.append(make_cell_state(
             np.zeros((0, mesh.num_vertices, 3)), dtype=self.dtype, device=self.device))
         self._dirty = True
+        # <enableInteriorViscosity> in the material XML, with the two
+        # timescales from the config's <sim> block
+        if mat_cfg.get("enableInteriorViscosity", int, 0):
+            every, entire = 10, 0
+            if "sim" in self.cfg:
+                every = self.cfg["sim"].get("interiorViscosity", int, 10)
+                entire = self.cfg["sim"].get("interiorViscosityEntireGrid", int, 0)
+            self.enable_interior_viscosity(len(self.cell_types) - 1, every=every,
+                                           entire_every=entire)
         return ct
 
     def load_particles(self, pos_dir: Optional[str] = None):
@@ -198,6 +219,42 @@ class HemoCell:
         self.boundary_repulsion_every = int(every)
         self._dirty = True
 
+    def enable_interior_viscosity(self, type_index: int, every: int = 10,
+                                  viscosity_ratio: Optional[float] = None,
+                                  entire_every: int = 0):
+        """Per-node omega raised inside this type's membranes.  ``every``:
+        the membrane-sweep cadence; ``entire_every``: the full-raycast
+        cadence (0 raycasts at ``every`` with no sweep).  The ratio defaults
+        to the material XML's viscosityRatio (else 5)."""
+        ct = self.cell_types[type_index]
+        if viscosity_ratio is None:
+            viscosity_ratio = ct.material_cfg.get("viscosityRatio", float, 5.0)
+        ct.omega_interior = 1.0 / interior_tau(viscosity_ratio, self.params.tau)
+        self.interior_every = int(every)
+        self.interior_entire_every = int(entire_every)
+        self._dirty = True
+
+    def enable_solidify(self, type_index: int, every: int = 10,
+                        distance_threshold: Optional[float] = None,
+                        shear_threshold: Optional[float] = None):
+        """Platelet binding and solidification; the thresholds default to
+        the material XML's distanceThreshold (else 1 lu) and shearThreshold
+        (else 0)."""
+        ct = self.cell_types[type_index]
+        ct.solidify = True
+        ct.distance_threshold = (distance_threshold if distance_threshold is not None
+                                 else ct.material_cfg.get("distanceThreshold", float, 1.0))
+        ct.shear_threshold = (shear_threshold if shear_threshold is not None
+                              else ct.material_cfg.get("shearThreshold", float, 0.0))
+        self.solidify_every = int(every)
+        self._dirty = True
+
+    def populate_binding_sites(self, mask):
+        """Restrict the binding sites to ``mask`` [X,Y,Z]: nodes outside it
+        bind nothing even when they are wall nodes next to the fluid."""
+        self._binding_sites = np.asarray(mask) > 0
+        self._dirty = True
+
     def enable_cepac(self, diffusivity_lbm: float = 1.0 / 6.0,
                      dirichlet_mask=None, dirichlet_value=None, init: float = 0.0):
         """CEPAC scalar advection-diffusion field; ``init`` is the initial
@@ -213,6 +270,10 @@ class HemoCell:
     # running
 
     def _build(self):
+        # the raycast box of a type with interior viscosity or solidify
+        # covers twice its template's extent
+        boxes = [max(12, int(np.ceil(2 * np.ptp(ct.mesh.vertices, axis=0).max())))
+                 if ct.omega_interior or ct.solidify else 24 for ct in self.cell_types]
         bmask = None
         if self.boundary_repulsion_constant > 0.0:
             bmask = boundary_neighbor_mask(self._flags_np)
@@ -223,8 +284,11 @@ class HemoCell:
             types=[
                 TypeConfig(name=ct.name, model_fn=MODEL_REGISTRY[ct.model_name],
                            topo=ct.topo_dev, material=ct.material,
-                           material_every=ct.timescale)
-                for ct in self.cell_types
+                           material_every=ct.timescale, omega_interior=ct.omega_interior,
+                           interior_box=box, solidify=ct.solidify,
+                           distance_threshold=ct.distance_threshold,
+                           shear_threshold=ct.shear_threshold)
+                for ct, box in zip(self.cell_types, boxes)
             ],
             bc_velocity=self.bc_velocity,
             body_force=self.body_force,
@@ -240,6 +304,9 @@ class HemoCell:
             cepac_tau=self.cepac_tau,
             cepac_dirichlet_mask=self._cepac_mask,
             cepac_dirichlet_value=self._cepac_value,
+            interior_every=self.interior_every,
+            interior_entire_every=self.interior_entire_every,
+            solidify_every=self.solidify_every,
             dtype=self.dtype,
             device=self.device,
         )
@@ -270,8 +337,15 @@ class HemoCell:
 
                 self._state = shard_state(self._state, self._mesh)
         else:
-            # keep fluid + iteration, adopt (possibly new) cell states
-            self._state = self._state._replace(cells=tuple(self.cell_states))
+            # keep fluid + iteration, adopt (possibly new) cell states; a
+            # feature enabled since the state was made gets its fields
+            self._state = with_feature_fields(
+                cfg, self._state._replace(cells=tuple(self.cell_states)))
+        if self._binding_sites is not None and self._state.binding_mask is not None:
+            # binding only on wall nodes next to the fluid inside the mask
+            self._state = self._state._replace(
+                binding_mask=self._state.binding_mask
+                & torch.as_tensor(self._binding_sites, device=self.device))
         self._dirty = False
 
     def distribute(self, mesh=None):
@@ -354,6 +428,17 @@ class HemoCell:
 
     # ------------------------------------------------------------------
     # reference-style camelCase aliases
+
+    def setInteriorViscosityTimeScaleSeperation(self, separation: int,  # sic (reference)
+                                                separation_entire_grid: int):
+        """The membrane sweep every ``separation`` steps, the full raycast
+        every ``separation_entire_grid``."""
+        self.interior_every = int(separation)
+        self.interior_entire_every = int(separation_entire_grid)
+        self._dirty = True
+
+    def populateBindingSites(self, mask):
+        return self.populate_binding_sites(mask)
 
     def setRepulsion(self, k_rep_si: float, cutoff_lu: float):
         self.enable_repulsion(k_rep_si / self.params.df, cutoff_lu)

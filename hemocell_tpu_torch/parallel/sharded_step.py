@@ -60,7 +60,12 @@ def sharded_unsupported_reason(cfg: StepConfig, mesh=None) -> Optional[str]:
     if cfg.lees_edwards_velocity is not None:
         return "Lees-Edwards shear (distributed Lees-Edwards is not ported)"
     if torch.is_tensor(cfg.omega) and cfg.omega.dim() > 0:
-        return "a per-node omega field (interior viscosity is not ported)"
+        return "a per-node omega field (distributed interior viscosity is not ported)"
+    if cfg.interior_every:
+        return ("interior viscosity (distributed interior viscosity is not ported, "
+                "ROADMAP Queue 1 item 10c)")
+    if cfg.solidify_every:
+        return "solidify (distributed solidify is not ported, ROADMAP Queue 1 item 10c)"
     if cfg.body_force is not None and np.asarray(cfg.body_force).ndim != 1:
         return "a field body force (only a uniform [3] body force is sharded)"
     if mesh is not None and int(cfg.shape[0]) % mesh.size:

@@ -224,13 +224,16 @@ def test_entry_points_need_cuda_unless_cpu_asked(case_dir, setup, monkeypatch):
         build_pipeflow30(workdir=os.path.join(case_dir, "p30"))
     # every other entry point of the port: the preset and the cases
     from hemocell_tpu_torch import presets
-    from hemocell_tpu_torch.cases import cellcollision, cepac, fluid_only, leesedwards
+    from hemocell_tpu_torch.cases import (cellcollision, cepac, fluid_only, leesedwards,
+                                          solidify_example)
 
     entry_points = {
         "presets.rbc_suspension": lambda: presets.rbc_suspension(shape=(8, 8, 8), n_cells=0),
         "cases.cellcollision.build": lambda: cellcollision.build(
             os.path.join(case_dir, "cc")),
         "cases.cepac.build": lambda: cepac.build(os.path.join(case_dir, "cepac")),
+        "cases.solidify_example.build": lambda: solidify_example.build(
+            os.path.join(case_dir, "solidify"), n=8),
         "cases.leesedwards.build": lambda: leesedwards.build(shape=(8, 8, 8), n_cells=0),
         "cases.fluid_only.build": lambda: fluid_only.build((8, 8, 8)),
         "cases.fluid_only.build pipe": lambda: fluid_only.build((8, 12, 12), walls="pipe"),
