@@ -10,24 +10,31 @@ Phases, in order; any failure exits non-zero and prints no result:
      its uncapped extra force; K1 also with the omega field of interior
      viscosity from a raycast of the packed RBCs), and time kernel, plain
      version and, where one exists, the single PyTorch call computing the
-     same function;
+     same function; K2 also: two launches bitwise equal, its tile bins equal
+     to the plain ones, the binning's own time, and its time (binning
+     included, with and without the extra force) against index_add_ with
+     precomputed weights (a speed gate, reported);
   4. pipeflow30 at full size (248x56x56, radius 25, 30% hematocrit, packed by
      tools/packcells): 1000 coupled iterations through K1-K4 with the launch
      counts read around the run, MLUPS, and the physical checks; then a
      torch.profiler window of 100 more iterations (device time by kernel and
-     the device's idle share);
+     the device's idle share); 4b. 200 more iterations twice from one state:
+     the end states bitwise equal;
   5. a small walled pipe with 2 RBC + 1 PLT run on the card and with the
      plain versions on the CPU from the same state, compared after 41 steps;
   6. hold K5 (repulsion), K6 (CEPAC) and K7 (Lees-Edwards, with a scalar
      omega and with a per-node omega field) against their plain versions at
      the shapes of the 128^3 suspension (872 RBC, 559,824 vertices; one node
      overfull with vertices of several cells, 5% of the cells dead), and K1,
-     K2 (without and with its extra force) and K3 once more at these shapes;
+     K2 (without and with its extra force, with phase 3's K2 checks and
+     speed gate) and K3 once more at these shapes;
   7. the suspension at full size: presets.rbc_suspension 128^3, 872 RBC (30%
      hematocrit), repulsion every step, CEPAC with a Dirichlet slab, 500
      iterations through K1, K2, K3, K5, K6, with launch counts, MLUPS, the
      physical checks, the repulsion of one further step held against the
-     plain version on the evolved positions, and a profiler window;
+     plain version on the evolved positions, and a profiler window; 7b. the
+     box with repulsion (K2's extra force on), 100 iterations twice from one
+     state: the end states bitwise equal;
   8. the same box under Lees-Edwards shear of 100/s from the linear
      profile, 500 iterations through K7, K2, K3, K5, the fitted shear slope
      and the accumulated displacement; and the empty box, 200 iterations,
@@ -91,7 +98,10 @@ interior viscosity and solidify:
      with no vertex; at suspension128's (559,824 vertices) at the next power
      of two above the largest slab; and at capacity 256, where slabs
      overflow: the overflow counts, the dropped deposits and the zero rows
-     must match; timed beside the plain version and the library call;
+     must match, the slab binning on the card must equal a stable torch.sort
+     and searchsorted bit for bit, and two K11 launches must be bitwise
+     equal; timed beside the plain version, the library call and the
+     binning alone, K11 against index_add_ (a speed gate, reported);
  21. pipeflow30 with interior viscosity (RBC, ratio 5, membrane sweep every
      10 steps, raycast every 100) and solidify (PLT every 10 steps, binding
      sites on the wall nodes next to the fluid): 1000 iterations through K1
@@ -105,8 +115,9 @@ interior viscosity and solidify:
      cases/solidify_example, on the card and with the plain versions on the
      CPU from the same state.
 
-Then the ``kernels`` JSON line (all fourteen: the twelve kernels and the two
-halo modes), the card, and as the last line ``{"ok": true, "device": {...}}``.
+Then the speed gates in sum, the ``kernels`` JSON line (all fourteen: the
+twelve kernels and the two halo modes; with the speed gates), the card, and
+as the last line ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (from the repository root, one GPU)
 """
@@ -205,6 +216,111 @@ def bound_ms(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+SPEED_GATES = []  # (what, kernel ms, library ms): the binned spreads against index_add_
+
+
+def speed_gate(what, ms, library_ms):
+    """Record one speed gate of the binned spreads: the wrapper, binning
+    included, below index_add_ with precomputed weights in the same call."""
+    SPEED_GATES.append((what, ms, library_ms))
+    print(f"{what}: wrapper {ms:.4f} ms against index_add_ {library_ms:.4f} ms: "
+          f"{'below' if ms < library_ms else 'NOT below'}", flush=True)
+
+
+def clone_state(state):
+    """A deep copy of a SimState (every tensor cloned)."""
+    import torch
+
+    def cl(v):
+        if torch.is_tensor(v):
+            return v.clone()
+        if isinstance(v, tuple):
+            return type(v)(*[cl(x) for x in v]) if hasattr(v, "_fields") else tuple(
+                cl(x) for x in v)
+        return v
+
+    return cl(state)
+
+
+def states_equal(a, b):
+    """Every tensor of two SimStates equal bit for bit (and the rest equal)."""
+    import torch
+
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        return (torch.is_tensor(a) and torch.is_tensor(b) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    if isinstance(a, tuple) and isinstance(b, tuple):
+        return len(a) == len(b) and all(states_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def repeat_run(tag, name, run, state, n):
+    """Run ``n`` iterations twice from copies of one state: the two end
+    states must be equal bit for bit (no float atomics on the path)."""
+    import torch
+
+    t0 = time.perf_counter()
+    first = run(clone_state(state), n)
+    second = run(clone_state(state), n)
+    torch.cuda.synchronize()
+    equal = states_equal(first, second)
+    moved = float((first.f - state.f).abs().max())
+    print(f"{tag} {name}: {n} iterations twice from one state ({time.perf_counter() - t0:.1f} "
+          f"s): end states bitwise equal {equal} (the populations moved by up to "
+          f"{moved:.3e})", flush=True)
+    if not (equal and moved > 0.0):
+        raise AssertionError(f"{name}: a repeated run from one state differs")
+
+
+def tile_bins_check(tag, pos, force, active, flags, f_lim):
+    """K2's tile bins on the card against the plain ones: the tile starts
+    equal, each tile's list the same set of vertices (the kernels place a
+    tile's vertices in the order of their atomics, which the integer sums
+    do not see).  Returns the binning's own time in ms."""
+    import torch
+
+    from hemocell_tpu_torch import _build
+    from hemocell_tpu_torch.ibm import binned, kernels
+
+    shape = tuple(flags.shape)
+    X, Y, Z = shape
+    P = pos.shape[0]
+    tiles = binned.gather_tiles(shape)
+    T = int(np.prod([-(-a // b) for a, b in zip(shape, tiles)]))
+    ints, _ = kernels.scratch("hc_tile_bins_ints", pos.device, P, shape, 2 * P)
+    rec = torch.empty(8 * P, device=pos.device)
+    starts = torch.empty(T + 1, dtype=torch.int32, device=pos.device)
+    lists = torch.empty(8 * P, dtype=torch.int32, device=pos.device)
+    lib = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def bins():
+        _build.check(lib.hc_bin_tiles(pos.data_ptr(), force.data_ptr(), active.data_ptr(),
+                                      flags.data_ptr(), float(f_lim), rec.data_ptr(),
+                                      starts.data_ptr(), lists.data_ptr(), ints.data_ptr(), P,
+                                      X, Y, Z, stream), "hc_bin_tiles")
+
+    bins()
+    ids = binned.stencil_tiles(pos, shape, tiles)
+    ids = torch.where((active != 0)[:, None], ids, torch.full_like(ids, -1)).reshape(-1)
+    live = ids >= 0
+    ref_starts = torch.cat([torch.zeros(1, dtype=torch.long, device=pos.device),
+                            torch.cumsum(torch.bincount(ids[live], minlength=T), 0)])
+    ref = torch.sort(ids[live] * P + torch.nonzero(live).squeeze(1) // 8).values
+    M = int(starts[-1])
+    got_tile = torch.repeat_interleave(torch.arange(T, device=pos.device),
+                                       (starts[1:] - starts[:-1]).long())
+    got = torch.sort(got_tile * P + lists[:M].long()).values
+    ok = torch.equal(starts.long(), ref_starts) and torch.equal(got, ref)
+    ms = time_ms(bins, 50)
+    print(f"{tag} spread's tile bins ({T} tiles of {tiles}, {M} entries for "
+          f"{int((active != 0).sum())} live vertices): equal to the plain bins {ok}; the "
+          f"binning alone {ms:.4f} ms", flush=True)
+    if not ok:
+        raise AssertionError("K2's tile bins differ from the plain ones")
+    return ms
+
+
 def phase_card():
     import torch
 
@@ -262,9 +378,11 @@ def compare_fluid_ibm(tag, f, pos, force, active, flags, f_lim, omega, bf):
     """K2 (without and with its uncapped extra force), K1 on the spread
     field plus the body force, and K3 on the resulting velocity, each
     against its plain version on the same inputs, timed.  Tolerances: K2
-    1e-5 of the largest field value (f32 atomics in run-dependent order),
-    K1 and K3 1e-6.  Returns the rows of K2, K1, K3 and the count of nodes
-    the stencils touch."""
+    1e-5 of the largest field value (64-bit fixed-point sums, not
+    index_add_'s order), K1 and K3 1e-6.  K2 also: two launches bitwise
+    equal, its tile bins against the plain ones, and its time (binning
+    included) against index_add_ with precomputed weights.  Returns the rows
+    of K2, K1, K3."""
     import torch
 
     from hemocell_tpu_torch.fluid import lbm
@@ -277,9 +395,10 @@ def compare_fluid_ibm(tag, f, pos, force, active, flags, f_lim, omega, bf):
     P = pos.shape[0]
     rows = []
 
-    # K2 spread: f32 atomics in run-dependent order vs index_add_
+    # K2 spread: 64-bit fixed-point sums vs index_add_; repeats bit for bit
     field = kernels.spread(pos, force, active, flags, f_lim)
     field_ref = coupling.spread_forces(pos, force, active, flags, f_lim)
+    bitwise = torch.equal(field, kernels.spread(pos, force, active, flags, f_lim))
     scale = float(field_ref.abs().max())
     err = float((field - field_ref).abs().max())
     tol = 1e-5 * scale
@@ -290,31 +409,43 @@ def compare_fluid_ibm(tag, f, pos, force, active, flags, f_lim, omega, bf):
     contrib = (w[..., None] * coupling.cap_force(force, f_lim)[:, None, :]).reshape(-1, 3)
     acc = torch.zeros((N, 3), device=dev)
     lib = time_ms(lambda: acc.zero_().index_add_(0, flat, contrib), 50)
-    del acc, contrib, field_ref
+    del contrib, field_ref
     b, by = bound_ms(P * 28 + touched * 1 + 3 * N * 4, P * 120)
+    bins_ms = tile_bins_check(tag, pos, force, active, flags, f_lim)
     # again with the uncapped extra force (what repulsion adds after the cap):
     # twice the cap, so a kernel capping the sum would disagree
     g = torch.Generator(device="cpu").manual_seed(1)
     extra = (2.0 * f_lim * torch.randn((P, 3), generator=g)).to(dev)
     field_x = kernels.spread(pos, force, active, flags, f_lim, force_extra=extra)
     ref_x = coupling.spread_forces(pos, force, active, flags, f_lim, extra)
+    bitwise_x = torch.equal(field_x, kernels.spread(pos, force, active, flags, f_lim,
+                                                    force_extra=extra))
     err_x = float((field_x - ref_x).abs().max())
     scale_x = float(ref_x.abs().max())
     tol_x = 1e-5 * scale_x
     del field_x, ref_x
-    print(f"{tag} spread with force_extra: max_abs_err {err_x:.3e} (tol {tol_x:.3e}); "
-          f"max|field| {scale_x:.3e} vs {scale:.3e} without", flush=True)
+    print(f"{tag} spread: two launches bitwise equal {bitwise}, with force_extra {bitwise_x}; "
+          f"with force_extra: max_abs_err {err_x:.3e} (tol {tol_x:.3e}); max|field| "
+          f"{scale_x:.3e} vs {scale:.3e} without", flush=True)
+    if not (bitwise and bitwise_x):
+        raise AssertionError("spread: two launches on the same inputs differ")
     if not (err_x <= tol_x and scale_x > 1.5 * scale):
         raise AssertionError("spread with force_extra disagrees with its plain version")
+    contrib_x = (w[..., None] * (coupling.cap_force(force, f_lim) + extra)[:, None, :]
+                 ).reshape(-1, 3)
+    lib_x = time_ms(lambda: acc.zero_().index_add_(0, flat, contrib_x), 50)
+    del contrib_x, acc
     ms_x = time_ms(lambda: kernels.spread(pos, force, active, flags, f_lim,
                                           force_extra=extra), 50)
-    print(f"{tag} spread with force_extra: kernel {ms_x:.4f} ms", flush=True)
-    rows.append(dict(name="spread", tol=tol, max_abs_err=err,
-                     ms=time_ms(lambda: kernels.spread(pos, force, active, flags, f_lim), 50),
+    ms = time_ms(lambda: kernels.spread(pos, force, active, flags, f_lim), 50)
+    speed_gate(f"{tag} spread", ms, lib)
+    speed_gate(f"{tag} spread with force_extra", ms_x, lib_x)
+    rows.append(dict(name="spread", tol=tol, max_abs_err=err, ms=ms,
                      plain_ms=time_ms(
                          lambda: coupling.spread_forces(pos, force, active, flags, f_lim), 10),
-                     bound_ms=b, bound_by=by, library_ms=lib,
-                     with_force_extra=dict(max_abs_err=err_x, tol=tol_x, ms=ms_x)))
+                     bound_ms=b, bound_by=by, library_ms=lib, bitwise=bitwise, bins_ms=bins_ms,
+                     with_force_extra=dict(max_abs_err=err_x, tol=tol_x, ms=ms_x,
+                                           library_ms=lib_x, bitwise=bitwise_x)))
 
     # K1 stream-collide with the spread force field + body force
     force_field = field + bf
@@ -965,6 +1096,16 @@ def phase_suspension(susp, smi, tag="[7]", mesh=None):
 
     phase_profile(tag, advance, wall_us)
     return launches
+
+
+def phase_suspension_repeat(susp):
+    """The suspension box with repulsion (K2 with its extra force), 100
+    iterations twice from one state: bitwise equal end states."""
+    from hemocell_tpu_torch.dynamics import build_runner, initial_sim_state
+
+    cfg = susp["cfg"]
+    repeat_run("[7b]", "suspension128 with repulsion", build_runner(cfg),
+               initial_sim_state(cfg, list(susp["cells"])), 100)
 
 
 def phase_lees_edwards(susp, smi):
@@ -1847,9 +1988,12 @@ def phase_small_distributed(mesh):
 def static_compare(name, pos, shape, capacity, g):
     """K11 and K12 (1 to 4 channels) against their plain versions on the
     vertex set ``pos [P,3]`` at ``capacity``: the field to 1e-5 of its
-    largest value (f32 atomics in run-dependent order), the rows to 1e-6 of
-    max|u|, the overflow counts equal to the bins', the rows of the dropped
-    vertices exactly 0.  Returns the inputs for ``static_times``."""
+    largest value (64-bit fixed-point sums, not index_add_'s order) and
+    bitwise equal on two launches, the rows to 1e-6 of max|u|, the overflow
+    counts equal to the bins', the rows of the dropped vertices exactly 0;
+    the slab binning on the card equal to the plain one (a stable
+    torch.sort and searchsorted) bit for bit.  Returns the inputs for
+    ``static_times``."""
     import torch
 
     from hemocell_tpu_torch.ibm import static
@@ -1862,11 +2006,15 @@ def static_compare(name, pos, shape, capacity, g):
     counts = bins.starts[1:] - bins.starts[:-1]
     overflow = int(bins.overflow)
     dropped = bins.order[~bins.valid]
+    pos_s, order, starts, ov_bins = static._cuda_bins(pos, shape, capacity)
+    bins_equal = (torch.equal(order.long(), bins.order) and torch.equal(starts.long(), bins.starts)
+                  and torch.equal(pos_s, bins.pos) and int(ov_bins) == overflow)
 
     def err_of(a, b):
         return float((a - b).abs().max()) if a.numel() else 0.0
 
     field, ov = static.spread_static(pos, force, shape, capacity)
+    bitwise = torch.equal(field, static.spread_static(pos, force, shape, capacity)[0])
     ref, ov_ref = static.spread_static_plain(pos, force, shape, capacity)
     err11, tol11 = err_of(field, ref), 1e-5 * float(ref.abs().max())
     ok = int(ov) == int(ov_ref) == overflow and err11 <= tol11 and (P == 0 or tol11 > 0)
@@ -1880,24 +2028,27 @@ def static_compare(name, pos, shape, capacity, g):
         ok = (ok and int(ov) == int(ov_ref) == overflow and tuple(vals.shape) == (P, nch)
               and not bool(vals[dropped].any()) and not bool(ref[dropped].any()))
     print(f"[20] {name} {tuple(shape)}, {P} vertices, capacity {capacity}: largest slab "
-          f"{int(counts.max())}, {int((counts == 0).sum())} empty slabs, overflow {overflow} "
-          f"| spread_static max_abs_err {err11:.3e} (tol {tol11:.3e}) | interp_static, 1 to "
-          f"4 channels, max_abs_err {err12:.3e} (tol {tol12:.3e}); the {dropped.numel()} "
-          f"dropped rows are 0", flush=True)
-    if not (ok and err12 <= tol12):
-        raise AssertionError(f"K11/K12 disagree with their plain versions: {name}")
+          f"{int(counts.max()) if P else 0}, {int((counts == 0).sum())} empty slabs, overflow "
+          f"{overflow} | slab bins equal to torch.sort and searchsorted bit for bit "
+          f"{bins_equal} | spread_static max_abs_err {err11:.3e} (tol {tol11:.3e}), two "
+          f"launches bitwise equal {bitwise} | interp_static, 1 to 4 channels, max_abs_err "
+          f"{err12:.3e} (tol {tol12:.3e}); the {dropped.numel()} dropped rows are 0", flush=True)
+    if not (ok and err12 <= tol12 and bins_equal and bitwise):
+        raise AssertionError(f"K11/K12 disagree with their plain versions, their bins with "
+                             f"the plain bins, or K11 with itself: {name}")
     return dict(pos=pos, force=force, u=u[:3].contiguous(), bins=bins, capacity=capacity,
-                largest_slab=int(counts.max()), overflow=overflow, errs=(err11, tol11, err12,
-                                                                         tol12))
+                largest_slab=int(counts.max()) if P else 0, overflow=overflow,
+                errs=(err11, tol11, err12, tol12), bitwise=bitwise)
 
 
 def static_times(case, shape):
     """The rows of K11 and K12 (3 channels) on a case of ``static_compare``:
-    the wrapper (binning included), the launch alone on the binned input,
-    the plain version, the library call (``index_add_`` with precomputed
-    weights; a CSR ``torch.sparse.mm``) and the bound: each vertex's
-    position and force (or position and row) once, the field written once
-    (or the nodes the kept vertices touch read once)."""
+    the wrapper (binning included), the slab binning alone, K12's launch
+    alone on the binned input, the plain version, the library call
+    (``index_add_`` with precomputed weights; a CSR ``torch.sparse.mm``) and
+    the bound: each vertex's position and force (or position and row)
+    once, the field written once (or the nodes the kept vertices touch read
+    once)."""
     import torch
 
     from hemocell_tpu_torch import _build
@@ -1909,16 +2060,8 @@ def static_times(case, shape):
     N, P = X * Y * Z, pos.shape[0]
     lib = _build.lib()
     stream = torch.cuda.current_stream().cuda_stream
-    pos_s, starts = bins.pos.contiguous(), bins.starts.to(torch.int32)
-    force_s, order = force[bins.order].contiguous(), bins.order.to(torch.int32)
-    field = torch.zeros((3, X, Y, Z), device=pos.device)
+    pos_s, order, starts, _ = static._cuda_bins(pos, shape, C)
     vals = torch.empty((P, 3), device=pos.device)
-
-    def k11_alone():
-        field.zero_()
-        _build.check(lib.hc_spread_static(pos_s.data_ptr(), force_s.data_ptr(),
-                                          starts.data_ptr(), C, field.data_ptr(), X, Y, Z,
-                                          stream), "hc_spread_static")
 
     def k12_alone():
         _build.check(lib.hc_interp_static(u.data_ptr(), pos_s.data_ptr(), order.data_ptr(),
@@ -1928,19 +2071,19 @@ def static_times(case, shape):
     idx, w = static._corners(bins, shape)
     flat = idx.reshape(-1)
     touched = int(torch.unique(flat[w.reshape(-1) != 0]).numel())
-    contrib = (w[:, :, None] * force_s[:, None, :]).reshape(-1, 3)
+    contrib = (w[:, :, None] * force[bins.order][:, None, :]).reshape(-1, 3)
     acc = torch.zeros((N, 3), device=pos.device)
     W = torch.sparse_coo_tensor(torch.stack([bins.order.repeat_interleave(8), flat]),
                                 w.reshape(-1), (P, N)).coalesce().to_sparse_csr()
     uT = u.reshape(3, N).T.contiguous()
     b11, by11 = bound_ms(P * 24 + 3 * N * 4, P * 80)
     b12, by12 = bound_ms(P * 24 + touched * 12, P * 80)
-    extra = dict(capacity=C, largest_slab=case["largest_slab"], overflow=case["overflow"])
+    extra = dict(capacity=C, largest_slab=case["largest_slab"], overflow=case["overflow"],
+                 bins_ms=time_ms(lambda: static._cuda_bins(pos, shape, C), 20))
     rows = {
         "spread_static": dict(
-            extra, tol=tol11, max_abs_err=err11,
+            extra, tol=tol11, max_abs_err=err11, bitwise=case["bitwise"],
             ms=time_ms(lambda: static.spread_static(pos, force, shape, C), 20),
-            launch_alone_ms=time_ms(k11_alone, 50),
             plain_ms=time_ms(lambda: static.spread_static_plain(pos, force, shape, C), 10),
             bound_ms=b11, bound_by=by11,
             library_ms=time_ms(lambda: acc.zero_().index_add_(0, flat, contrib), 50)),
@@ -1953,9 +2096,11 @@ def static_times(case, shape):
             library_ms=time_ms(lambda: torch.sparse.mm(W, uT), 50)),
     }
     check_rows(f"[20] {tuple(shape)}, capacity {C}:", [dict(r, name=n) for n, r in rows.items()])
-    for n, r in rows.items():
-        print(f"[20]   {n}: the launch alone on the binned input {r['launch_alone_ms']:.4f} ms",
-              flush=True)
+    print(f"[20]   the slab binning alone {extra['bins_ms']:.4f} ms; interp_static's launch "
+          f"alone on the binned input {rows['interp_static']['launch_alone_ms']:.4f} ms",
+          flush=True)
+    speed_gate(f"[20] {tuple(shape)}, capacity {C}: spread_static",
+               rows["spread_static"]["ms"], rows["spread_static"]["library_ms"])
     return rows
 
 
@@ -2211,6 +2356,7 @@ def main() -> int:
     by_path = {}
     by_path["pipeflow30"], wall_us_per_it = phase_pipeflow(hc, smi)
     phase_profile("[4]", hc.iterate, wall_us_per_it)
+    repeat_run("[4b]", "pipeflow30", hc._runner, hc.local_state, 200)
     phase_small_reference()
     del hc
     torch.cuda.empty_cache()
@@ -2219,6 +2365,7 @@ def main() -> int:
     rows_k567, rows128 = phase_suspension_kernels(susp)
     rows.update(rows_k567)
     by_path["suspension128"] = phase_suspension(susp, smi)
+    phase_suspension_repeat(susp)
     by_path["leesedwards128"] = phase_lees_edwards(susp, smi)
     susp_pos = susp["cells"][0].pos.reshape(-1, 3).clone()
     del susp
@@ -2274,7 +2421,7 @@ def main() -> int:
     # and K12 carry their comparison at the suspension's shapes under
     # ``at_128``
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    more = ("with_force_extra", "launch_alone_ms", "bitwise", "k", "ms_per_step",
+    more = ("with_force_extra", "launch_alone_ms", "bitwise", "bins_ms", "k", "ms_per_step",
             "k1_ms_per_step", "k1_ms", "k10_ms", "at_pipe", "by_k", "with_force_field",
             "shape", "at_128", "with_omega_field", "capacity", "largest_slab", "overflow")
     kernels_line = {"kernels": []}
@@ -2290,6 +2437,13 @@ def main() -> int:
         if name in rows128:
             entry["at_128"] = {k: v for k, v in rows128[name].items() if k in keys + more}
         kernels_line["kernels"].append(entry)
+    # the speed gates of the binned spreads: reported, one line each above
+    # and here in sum, beside the kernels (see PERF.md section 6)
+    kernels_line["speed_gates"] = [dict(what=w, ms=ms, library_ms=lib, below=ms < lib)
+                                   for w, ms, lib in SPEED_GATES]
+    missed = [w for w, ms, lib in SPEED_GATES if not ms < lib]
+    print(f"speed gates: {len(SPEED_GATES) - len(missed)} of {len(SPEED_GATES)} binned "
+          f"spreads below index_add_; not below: {missed}", flush=True)
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

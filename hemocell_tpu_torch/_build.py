@@ -33,7 +33,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "hc_stream_collide": [_P, _P, _P, _I, _F, _F, _F, _P, _F, _P, _P, _I, _F,
                           _P, _I, _I, _I, _P],
-    "hc_spread": [_P, _P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P],
+    "hc_spread": [_P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_interp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_wall_hit_cells": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_repulsion": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P],
@@ -48,8 +48,17 @@ SIGNATURES = {
                                _P, _P, _I, _I, _I, _P],
     "hc_stream_collide_2d_halo": [_P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _I, _F,
                                   _P, _I, _I, _I, _P],
-    "hc_spread_static": [_P, _P, _P, _I, _P, _I, _I, _I, _P],
+    "hc_spread_static": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_interp_static": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+    # the binning on the card (csrc/bin_vertices.cu)
+    "hc_bin_slabs": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hc_bin_tiles": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+# entries that return a count of int32 scratch words, not a CUDA error
+SIZES = {
+    "hc_tile_bins_ints": [_I, _I, _I, _I],
+    "hc_slab_bins_ints": [_I, _I],
+    "hc_static_scratch_ints": [_I, _I, _I, _I],
 }
 
 _lib = None
@@ -121,6 +130,10 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(loaded, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in SIZES.items():
+                fn = getattr(loaded, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_longlong
             _lib = loaded
     return _lib
 

@@ -7,38 +7,37 @@
 //   interp_static_plain of hemocell_tpu_torch/ibm/static.py, the plain
 //   versions: pure periodic trilinear weights (no wall mask, no
 //   renormalisation, no cap) of the vertices that lie within the capacity C
-//   of their x-slab.
+//   of their x-slab, the first C of the slab in vertex order.
 //
-// Input layout (built in PyTorch by ibm/static.build_bins): the wrapped
-//   positions sorted by slab, stably, and starts[X+1]; slab g holds the
-//   sorted rows starts[g] .. starts[g+1]-1, and the first C of them are its
-//   slots.  A vertex past its slab's capacity has no slot: K11 drops it and
-//   K12 writes it a zero row (the TPU kernel's un-bin reads another
-//   vertex's row for it; the port defines it as zero).
+// Bound on the H100: bytes.  K11 reads 24 B per vertex (position and
+//   force) and writes the [3, X, Y, Z] field once.  K12 reads 12 B
+//   (position) and 4 B (its original index) per vertex and NCH x 4 B of each
+//   node it touches, and writes NCH x 4 B per vertex.
 //
-// Bound on the H100: bytes.  K11 reads 24 B per kept vertex (position and
-//   force, in slab order) and writes the [3, X, Y, Z] field; each vertex
-//   makes 24 f32 atomicAdds into L2.  K12 reads 12 B (position) and 4 B
-//   (its original index) per vertex and NCH x 4 B of each node it touches,
-//   and writes NCH x 4 B per vertex.
+// K11's design: K2's deterministic binned spread (binned.cuh) with the slab
+//   bins in front.  One entry makes every launch: the slab bins rank each
+//   vertex in its slab in vertex order, so rank < C is the kept mask, and
+//   write the records (activity 1 if kept, else 0; the force as it is);
+//   then the tile count and placement of the kept vertices and the tile
+//   gather of csrc/spread.cu with pure weights, which sums in fixed point
+//   and writes each node of the field once.  No float atomics, no zeroing
+//   pass, no empty slots: the field repeats bit for bit.  The overflow is
+//   the sum over slabs of the count past C.
 //
-// Design: one thread per slot (g, c), X * C threads.  A slot past its
-//   slab's count returns at once.  The x planes are the slab g and
-//   (g + 1) mod X (the periodic wrap of the last slab), y and z wrap by
-//   index, as the reference's one-hot rows do.  K11 atomically adds the 8 x
-//   3 deposits into a zeroed field, so the last bits of the field vary from
-//   run to run.  K12 gathers 8 corners x NCH channels and writes the row of
-//   the vertex's original index (through `order`): no atomics, so it is
+// K12's layout (the slab bins of csrc/bin_vertices.cu, hc_bin_slabs): the
+//   wrapped positions sorted by slab, stably, order[P] and starts[X+1];
+//   slab g holds the sorted rows starts[g] .. starts[g+1]-1, and the first
+//   C of them are its slots.  A vertex past its slab's capacity has no
+//   slot: K12 writes it a zero row (the TPU kernel's un-bin reads another
+//   vertex's row for it; the port defines it as zero).  One thread per slot
+//   (g, c), X * C threads; a slot past its slab's count returns at once.
+//   The x planes are the slab g and (g + 1) mod X, y and z wrap by index, as
+//   the reference's one-hot rows do.  K12 gathers 8 corners x NCH channels
+//   and writes the row of the vertex's original index (through `order`):
 //   deterministic; the last slot of an overfull slab writes the zero rows
 //   of that slab's dropped vertices.
-//
-// Later work (the K2 redesign shares it): with the vertices binned by
-//   slab, one CTA per slab (or (x, y) tile) can accumulate its two planes
-//   in shared memory and write them once, with no global atomics, and K12
-//   can stage its two planes of u in shared memory instead of gathering
-//   through L2.
 
-#include "ibm_stencil.cuh"
+#include "binned.cuh"
 
 namespace {
 
@@ -64,30 +63,6 @@ __device__ __forceinline__ void static_corners(const float* __restrict__ p3, int
     const int a = (k >> 2) & 1, b = (k >> 1) & 1, c = k & 1;
     s.node[k] = ((long long)ix[a] * Y + iy[b]) * Z + iz[c];
     s.w[k] = wx[a] * wy[b] * wz[c];
-  }
-}
-
-__global__ void spread_static_kernel(const float* __restrict__ pos_s,
-                                     const float* __restrict__ force_s,
-                                     const int* __restrict__ starts, int C,
-                                     float* __restrict__ out, int X, int Y, int Z) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)X * C) return;
-  const int g = (int)(t / C), c = (int)(t % C);
-  const int r = starts[g] + c;
-  if (r >= starts[g + 1]) return;  // an empty slot
-  Corners s;
-  static_corners(pos_s + 3 * (long long)r, g, X, Y, Z, s);
-  const float fx = force_s[3 * (long long)r], fy = force_s[3 * (long long)r + 1],
-              fz = force_s[3 * (long long)r + 2];
-  const long long N = (long long)X * Y * Z;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float w = s.w[k];
-    if (w == 0.f) continue;
-    atomicAdd(out + s.node[k], w * fx);
-    atomicAdd(out + N + s.node[k], w * fy);
-    atomicAdd(out + 2 * N + s.node[k], w * fz);
   }
 }
 
@@ -127,18 +102,27 @@ int blocks_for(long long threads, int per_block) {
 
 }  // namespace
 
-// pos_s / force_s [P, 3] f32 in slab order, starts [X + 1] int32; out a
-// zeroed [3, X, Y, Z] f32.
-extern "C" int hc_spread_static(const void* pos_s, const void* force_s, const void* starts,
-                                int C, void* out, int X, int Y, int Z, void* stream) {
-  const long long slots = (long long)X * C;
-  if (slots > 0) {
-    const int threads = 256;
-    spread_static_kernel<<<blocks_for(slots, threads), threads, 0, (cudaStream_t)stream>>>(
-        (const float*)pos_s, (const float*)force_s, (const int*)starts, C, (float*)out, X, Y,
-        Z);
-  }
-  return (int)cudaGetLastError();
+// pos / force [P, 3] f32 (positions unwrapped); out [3, X, Y, Z] f32 (every
+// node written); overflow int64; scratch hc_static_scratch_ints(P, X, Y, Z)
+// int32 words, zero before the first call (and left so by every call);
+// rec [2 * P] float4.
+extern "C" long long hc_static_scratch_ints(int P, int X, int Y, int Z) {
+  return hc::slab_bins_ints(P, X) + hc::tile_bins_ints(P, X, Y, Z);
+}
+
+extern "C" int hc_spread_static(const void* pos, const void* force, int C, void* out,
+                                void* overflow, void* scratch, void* rec, int P, int X, int Y,
+                                int Z, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const hc::SlabBins sb = hc::slab_bins_carve((int*)scratch, P, X);
+  const hc::TileBins tb =
+      hc::tile_bins_carve((int*)scratch + hc::slab_bins_ints(P, X), P, X, Y, Z);
+  int err = hc::slab_bins((const float*)pos, (const float*)force, P, X, Y, Z, C, sb,
+                          (long long*)overflow, nullptr, nullptr, (float4*)rec, s);
+  if (!err) err = hc::tile_bins_count_records((const float4*)rec, P, X, Y, Z, tb, s);
+  if (!err) err = hc::tile_bins_place(tb, (const float4*)rec, P, X, Y, Z, s);
+  if (!err) err = hc::tile_gather((const float4*)rec, tb, (float*)out, X, Y, Z, s);
+  return err;
 }
 
 // u [NCH, X, Y, Z] f32 (1 <= NCH <= 4); pos_s [P, 3] f32 in slab order; order

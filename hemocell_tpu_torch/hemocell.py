@@ -136,6 +136,10 @@ class HemoCell:
         """Read ``<name>.xml`` next to the config and build the template."""
         base = self.cfg.directory
         mat_cfg = Config(os.path.join(base, name + ".xml"))["MaterialModel"]
+        if mat_cfg.get("StlFile", str, None):
+            raise NotImplementedError(
+                f"{name}.xml names an <StlFile>: meshes from STL files are not ported yet "
+                "(ROADMAP Queue 1 item 3); the template would not be the STL's mesh")
         radius_lu = mat_cfg["radius"].read(float) / self.params.dx
         min_tri = mat_cfg.get("minNumTriangles", int, 600)
         aspect = mat_cfg.get("aspectRatio", float, 0.3)

@@ -4,7 +4,9 @@ the counterpart of ``hemocell_tpu/ibm/pallas_ibm.py``.
 Each wrapper runs its plain version from ``ibm/coupling.py`` on CPU
 tensors.  On CUDA tensors it launches its kernel (``csrc/spread.cu``,
 ``csrc/interp.cu``, ``csrc/wall_hit.cu``) or raises for what the kernel
-does not take.  All take positions unwrapped; the kernels wrap them.
+does not take.  All take positions unwrapped; the kernels wrap them.  K2
+is the deterministic binned spread of ``csrc/binned.cuh``, whose indexing
+``ibm/binned.py`` repeats in plain PyTorch for the tests.
 """
 
 from __future__ import annotations
@@ -19,11 +21,37 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_SCRATCH = {}
+
+
+def scratch(entry, device, P, shape, n_records=0):
+    """The scratch of a binned kernel call, allocated once per entry,
+    device and shape and kept: int32 words (``_build``'s size entry
+    ``entry``), zero at first and left zero by every call, and float4
+    records (as f32 [4 * n_records])."""
+    key = (entry, device, P, tuple(shape))
+    found = _SCRATCH.get(key)
+    if found is None:
+        n = getattr(_build.lib(), entry)(P, *shape)
+        found = (torch.zeros(n, dtype=torch.int32, device=device),
+                 torch.empty(4 * max(n_records, 1), dtype=torch.float32, device=device))
+        _SCRATCH[key] = found
+    return found
+
+
+def check_nodes(shape, name):
+    """The kernels index nodes with int32."""
+    if shape[0] * shape[1] * shape[2] >= 2**31 - 1:
+        raise ValueError(f"{name}: {tuple(shape)} has too many nodes for int32 indices")
+
+
 def spread(pos, force, active, flags, f_limit, force_extra=None):
     """Spread vertex forces [P,3] (capped at ``f_limit``, scaled by the
-    activity ``active [P]``) at unwrapped positions [P,3] onto a zeroed
+    activity ``active [P]``) at unwrapped positions [P,3] onto a
     [3,X,Y,Z] field with boundary-aware trilinear weights.  ``force_extra``
-    [P,3] (the repulsion force) is added uncapped, after the cap."""
+    [P,3] (the repulsion force) is added uncapped, after the cap.  On the
+    card one call bins the vertices by tile and sums each tile of the
+    field in fixed point: the result repeats bit for bit."""
     if not pos.is_cuda:
         spread.plain_calls += 1
         return coupling.spread_forces(pos, force, active, flags, f_limit, force_extra)
@@ -38,10 +66,13 @@ def spread(pos, force, active, flags, f_limit, force_extra=None):
         force_extra = _build.cuda_arg(force_extra, "spread: force_extra",
                                       torch.float32, (P, 3))
         extra_ptr = force_extra.data_ptr()
-    out = torch.zeros((3, X, Y, Z), dtype=torch.float32, device=pos.device)
+    check_nodes((X, Y, Z), "spread")
+    ints, rec = scratch("hc_tile_bins_ints", pos.device, P, (X, Y, Z), 2 * P)
+    out = torch.empty((3, X, Y, Z), dtype=torch.float32, device=pos.device)
     err = _build.lib().hc_spread(
         pos.data_ptr(), force.data_ptr(), extra_ptr, active.data_ptr(), flags.data_ptr(),
-        float(f_limit), out.data_ptr(), P, X, Y, Z, _stream(pos))
+        float(f_limit), out.data_ptr(), ints.data_ptr(), rec.data_ptr(), P, X, Y, Z,
+        _stream(pos))
     _build.check(err, "hc_spread")
     spread.launches += 1
     return out

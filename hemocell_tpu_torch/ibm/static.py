@@ -12,10 +12,12 @@ them as zero.)
 
 ``spread_static`` and ``interp_static`` are the wrappers: on CPU tensors
 they run the plain versions ``spread_static_plain`` and
-``interp_static_plain``; on CUDA tensors they bin in PyTorch and launch
-K11 / K12 (``csrc/ibm_static.cu``), or raise for what the kernels do not
-take.  No path of the step calls them, as no path of the reference calls
-its static-binned kernels.
+``interp_static_plain``; on CUDA tensors they bin on the card
+(``csrc/bin_vertices.cu``) and launch K11 / K12 (``csrc/ibm_static.cu``),
+or raise for what the kernels do not take.  K11 is one call: the slab
+ranks give the capacity, then K2's deterministic binned spread with pure
+weights.  No path of the step calls them, as no path of the reference
+calls its static-binned kernels.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from .. import _build
 from .._device import constant
+from . import kernels
 
 _OFFSETS = [(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)]
 
@@ -45,8 +48,7 @@ class Bins(NamedTuple):
 
 def build_bins(pos, shape, capacity) -> Bins:
     """Sort ``pos [P,3]`` (unwrapped) by x-slab into fixed-capacity bins."""
-    if int(capacity) < 1:
-        raise ValueError(f"capacity must be >= 1, got {capacity}")
+    _check_capacity(capacity)
     X = int(shape[0])
     fshape = constant(tuple(float(s) for s in shape), pos.dtype, pos.device)
     p = torch.remainder(pos, fshape[None, :])
@@ -109,13 +111,30 @@ def _check_channels(u, shape) -> int:
     return int(u.shape[0])
 
 
-def _cuda_bins(name, pos, shape, capacity):
-    """Check ``pos`` for the kernels and bin it: (bins, sorted rows [P,3]
-    f32, starts [X+1] int32)."""
+def _cuda_bins(pos, shape, capacity):
+    """The slab bins of ``pos`` on the card (K12's layout): the wrapped
+    positions in slab order [P,3] f32, ``order`` [P] int32 (sorted row ->
+    vertex), ``starts`` [X+1] int32 and the overflow (0-dim int64)."""
+    X, Y, Z = (int(s) for s in shape)
     P = pos.shape[0]
-    pos = _build.cuda_arg(pos, f"{name}: pos", torch.float32, (P, 3), strict=True)
-    bins = build_bins(pos, shape, capacity)
-    return bins, bins.pos.contiguous(), bins.starts.to(torch.int32)
+    _check_capacity(capacity)
+    kernels.check_nodes((X, Y, Z), "interp_static")
+    ints, _ = kernels.scratch("hc_slab_bins_ints", pos.device, P, (X,))
+    dev = pos.device
+    pos_s = torch.empty((P, 3), dtype=torch.float32, device=dev)
+    order = torch.empty(P, dtype=torch.int32, device=dev)
+    starts = torch.empty(X + 1, dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.int64, device=dev)
+    err = _build.lib().hc_bin_slabs(
+        pos.data_ptr(), int(capacity), order.data_ptr(), pos_s.data_ptr(), starts.data_ptr(),
+        overflow.data_ptr(), ints.data_ptr(), P, X, Y, Z, kernels._stream(pos))
+    _build.check(err, "hc_bin_slabs")
+    return pos_s, order, starts, overflow
+
+
+def _check_capacity(capacity):
+    if int(capacity) < 1:
+        raise ValueError(f"capacity must be >= 1, got {capacity}")
 
 
 def spread_static(pos, forces, shape, capacity=2048):
@@ -126,17 +145,20 @@ def spread_static(pos, forces, shape, capacity=2048):
         return spread_static_plain(pos, forces, shape, capacity)
     X, Y, Z = (int(s) for s in shape)
     P = pos.shape[0]
+    _check_capacity(capacity)
+    kernels.check_nodes((X, Y, Z), "spread_static")
+    pos = _build.cuda_arg(pos, "spread_static: pos", torch.float32, (P, 3), strict=True)
     forces = _build.cuda_arg(forces, "spread_static: forces", torch.float32, (P, 3),
                              strict=True)
-    bins, pos_s, starts = _cuda_bins("spread_static", pos, shape, capacity)
-    forces_s = forces[bins.order].contiguous()
-    out = torch.zeros((3, X, Y, Z), dtype=torch.float32, device=pos.device)
+    ints, rec = kernels.scratch("hc_static_scratch_ints", pos.device, P, (X, Y, Z), 2 * P)
+    out = torch.empty((3, X, Y, Z), dtype=torch.float32, device=pos.device)
+    overflow = torch.empty((), dtype=torch.int64, device=pos.device)
     err = _build.lib().hc_spread_static(
-        pos_s.data_ptr(), forces_s.data_ptr(), starts.data_ptr(), int(capacity),
-        out.data_ptr(), X, Y, Z, torch.cuda.current_stream(pos.device).cuda_stream)
+        pos.data_ptr(), forces.data_ptr(), int(capacity), out.data_ptr(), overflow.data_ptr(),
+        ints.data_ptr(), rec.data_ptr(), P, X, Y, Z, kernels._stream(pos))
     _build.check(err, "hc_spread_static")
     spread_static.launches += 1
-    return out, bins.overflow
+    return out, overflow
 
 
 def interp_static(pos, u, shape, capacity=2048):
@@ -148,16 +170,16 @@ def interp_static(pos, u, shape, capacity=2048):
     X, Y, Z = (int(s) for s in shape)
     nch = _check_channels(u, shape)
     u = _build.cuda_arg(u, "interp_static: u", torch.float32, (nch, X, Y, Z), strict=True)
-    bins, pos_s, starts = _cuda_bins("interp_static", pos, shape, capacity)
-    order = bins.order.to(torch.int32)
+    pos = _build.cuda_arg(pos, "interp_static: pos", torch.float32, (pos.shape[0], 3),
+                          strict=True)
+    pos_s, order, starts, overflow = _cuda_bins(pos, shape, capacity)
     out = torch.empty((pos.shape[0], nch), dtype=torch.float32, device=pos.device)
     err = _build.lib().hc_interp_static(
         u.data_ptr(), pos_s.data_ptr(), order.data_ptr(), starts.data_ptr(),
-        int(capacity), nch, out.data_ptr(), X, Y, Z,
-        torch.cuda.current_stream(pos.device).cuda_stream)
+        int(capacity), nch, out.data_ptr(), X, Y, Z, kernels._stream(pos))
     _build.check(err, "hc_interp_static")
     interp_static.launches += 1
-    return out, bins.overflow
+    return out, overflow
 
 
 for _fn in (spread_static, interp_static):

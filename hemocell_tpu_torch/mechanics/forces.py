@@ -3,9 +3,12 @@
 Counterpart of ``hemocell_tpu/mechanics/forces.py``.  Where the reference
 package evaluates one cell and ``vmap``s it, these functions take positions
 and velocities ``[NC, NV, 3]`` with the cell batch written out, gather over
-the topology's index arrays and segment-sum with ``index_add`` along the
-vertex dimension.  Force terms, nonlinearities and stability clamps are the
-same formulas.  WBC and malaria models are not ported yet.
+the topology's index arrays and segment-sum along the vertex dimension.
+The segment sums gather through per-vertex incidence tables built once per
+topology and add in a fixed order: no float ``index_add`` (atomics on
+CUDA), so a force evaluation on the card repeats bit for bit.  Force terms,
+nonlinearities and stability clamps are the same formulas.  WBC and
+malaria models are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,6 +68,36 @@ def topology_from_arrays(arrays: dict, dtype=torch.float32, device="cuda") -> di
     return t
 
 
+def _with_segments(t) -> dict:
+    """``t`` with the incidence table of every index column the force terms
+    segment-sum over, as ``t["seg_<column>"]``: built on first use (one
+    copy of the index arrays to the host) and kept in ``t``."""
+    if "seg_tri0" not in t:
+        cols = {f"tri{k}": t["tri"][:, k] for k in range(3)}
+        for key in ("edges", "bend_outer", "inner_edges"):
+            cols.update({f"{key}{k}": t[key][:, k] for k in range(2)})
+        cols["ring"] = t["ring"].reshape(-1)
+        for name, index in cols.items():
+            t["seg_" + name] = torch.tensor(
+                incidence_table(index.cpu().numpy(), t["num_vertices"]), device=index.device)
+    return t
+
+
+def incidence_table(index, num_vertices) -> np.ndarray:
+    """int64 [num_vertices, D]: row v lists, in increasing order, the
+    positions j with ``index[j] == v``, padded with ``len(index)`` (a zero
+    row appended to the source) to the largest degree D."""
+    index = np.asarray(index, dtype=np.int64)
+    m = len(index)
+    order = np.argsort(index, kind="stable")
+    counts = np.bincount(index, minlength=num_vertices)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(m) - starts[index[order]]
+    table = np.full((num_vertices, max(int(counts.max(initial=0)), 1)), m, dtype=np.int64)
+    table[index[order], rank] = order
+    return table
+
+
 def topology_device_arrays(topo, dtype=torch.float32, device="cuda") -> dict:
     """Topology tensors from a ``CellTopology``."""
     arrays = {k: getattr(topo, k) for k in _INDEX_KEYS[1:] + _FLOAT_KEYS}
@@ -85,9 +118,11 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
-def _add(out, index, src):
-    """out[:, index[j]] += src[:, j] (segment sum over the vertex dim)."""
-    return out.index_add(1, index, src)
+def _add(out, table, src):
+    """out[:, v] += sum of src[:, j] over the positions j of the vertex's
+    incidence row (``incidence_table``), in that row's order."""
+    pad = torch.cat([src, src.new_zeros((src.shape[0], 1) + src.shape[2:])], dim=1)
+    return out + pad[:, table].sum(dim=2)
 
 
 def _triangle_geometry(pos, tri):
@@ -112,18 +147,18 @@ def _area_volume_forces(pos, t, k_area, k_volume, fa, fv):
         + area_ratio / torch.abs(MAX_CELL_SURFACE_AREA_CHANGE - area_ratio * area_ratio)
     )
     centroid = (v0 + v1 + v2) / 3.0
-    fa = _add(fa, tri[:, 0], afm[..., None] * (centroid - v0))
-    fa = _add(fa, tri[:, 1], afm[..., None] * (centroid - v1))
-    fa = _add(fa, tri[:, 2], afm[..., None] * (centroid - v2))
+    fa = _add(fa, t["seg_tri0"], afm[..., None] * (centroid - v0))
+    fa = _add(fa, t["seg_tri1"], afm[..., None] * (centroid - v1))
+    fa = _add(fa, t["seg_tri2"], afm[..., None] * (centroid - v2))
 
     volume_frac = (volume - t["volume_eq"]) / t["volume_eq"]
     volume_force = -k_volume * volume_frac / torch.abs(
         MAX_CELL_VOLUMETRIC_CHANGE - volume_frac * volume_frac
     )
     local_vf = (volume_force[:, None, None] * normal) * (area / t["area_mean_eq"])[..., None]
-    fv = _add(fv, tri[:, 0], local_vf)
-    fv = _add(fv, tri[:, 1], local_vf)
-    fv = _add(fv, tri[:, 2], local_vf)
+    fv = _add(fv, t["seg_tri0"], local_vf)
+    fv = _add(fv, t["seg_tri1"], local_vf)
+    fv = _add(fv, t["seg_tri2"], local_vf)
     return fa, fv, volume
 
 
@@ -137,8 +172,8 @@ def _link_visc_forces(pos, vel, t, k_link, eta_m, fl, fviz):
     frac = (el - t["edge_len_eq"]) / t["edge_len_eq"]
     efs = k_link * (frac + frac / torch.abs(MAX_CELL_PERSISTENCE_LENGTH - frac * frac))
     force = uv * efs[..., None]
-    fl = _add(fl, e[:, 0], force)
-    fl = _add(fl, e[:, 1], -force)
+    fl = _add(fl, t["seg_edges0"], force)
+    fl = _add(fl, t["seg_edges1"], -force)
 
     rel_vel = vel[:, e[:, 1]] - vel[:, e[:, 0]]
     proj = _dot(rel_vel, uv)[..., None] * uv
@@ -146,8 +181,8 @@ def _link_visc_forces(pos, vel, t, k_link, eta_m, fl, fviz):
     mag = _norm(fvm, keepdim=True)
     fvm = torch.where(mag > _VISC_CLAMP,
                       fvm * (_VISC_CLAMP / torch.clamp(mag, min=1e-30)), fvm)
-    fviz = _add(fviz, e[:, 0], fvm)
-    fviz = _add(fviz, e[:, 1], -fvm)
+    fviz = _add(fviz, t["seg_edges0"], fvm)
+    fviz = _add(fviz, t["seg_edges1"], -fvm)
     return fl, fviz
 
 
@@ -173,7 +208,7 @@ def _patch_bending_forces(pos, t, k_bend, fb):
     fb = fb + bf
     # reaction: -bf/n distributed over the ring members
     neg = -(bf / ring_n[:, None])[:, :, None, :] * mask[..., None]
-    return _add(fb, ring.reshape(-1), neg.reshape(NC, -1, 3))
+    return _add(fb, t["seg_ring"], neg.reshape(NC, -1, 3))
 
 
 def _dihedral_bending_forces(pos, t, k_bend, fb):
@@ -194,10 +229,10 @@ def _dihedral_bending_forces(pos, t, k_bend, fb):
     frac = angle - t["edge_angle_eq"]
     mag = k_bend * (frac + frac / torch.abs(MAX_PLT_BENDING_ANGLE - frac * frac))
     bf = mag[..., None] * (n1 + n2) * 0.5
-    fb = _add(fb, e[:, 0], bf)
-    fb = _add(fb, e[:, 1], bf)
-    fb = _add(fb, outer[:, 0], -bf)
-    fb = _add(fb, outer[:, 1], -bf)
+    fb = _add(fb, t["seg_edges0"], bf)
+    fb = _add(fb, t["seg_edges1"], bf)
+    fb = _add(fb, t["seg_bend_outer0"], -bf)
+    fb = _add(fb, t["seg_bend_outer1"], -bf)
     return fb
 
 
@@ -212,8 +247,8 @@ def _inner_link_forces(pos, t, k, fi, linear_scale=5.0):
     uv = ev / el[..., None]
     frac = (el - t["inner_edge_len_eq"]) / t["inner_edge_len_eq"]
     force = uv * (k * linear_scale * frac)[..., None]
-    fi = _add(fi, ie[:, 0], force)
-    fi = _add(fi, ie[:, 1], -force)
+    fi = _add(fi, t["seg_inner_edges0"], force)
+    fi = _add(fi, t["seg_inner_edges1"], -force)
     return fi
 
 
@@ -223,6 +258,7 @@ def _pack(fa, fv, fl, fb, fviz, fi):
 
 def rbc_ho_forces(pos, vel, t, mc) -> ForceTerms:
     """RbcHighOrderModel over a batch of cells: pos, vel [NC, NV, 3]."""
+    t = _with_segments(t)
     z = torch.zeros_like(pos)
     fa, fv, _ = _area_volume_forces(pos, t, mc["k_area"], mc["k_volume"], z, z)
     fb = _patch_bending_forces(pos, t, mc["k_bend"], z)
@@ -232,6 +268,7 @@ def rbc_ho_forces(pos, vel, t, mc) -> ForceTerms:
 
 def plt_simple_forces(pos, vel, t, mc) -> ForceTerms:
     """PltSimpleModel over a batch of cells: pos, vel [NC, NV, 3]."""
+    t = _with_segments(t)
     z = torch.zeros_like(pos)
     fa, fv, _ = _area_volume_forces(pos, t, mc["k_area"], mc["k_volume"], z, z)
     fl, fviz = _link_visc_forces(pos, vel, t, mc["k_link"], mc["eta_m"], z, z)
