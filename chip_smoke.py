@@ -27,7 +27,12 @@ Phases, in order; any failure exits non-zero and prints no result:
      the shapes of the 128^3 suspension (872 RBC, 559,824 vertices; one node
      overfull with vertices of several cells, 5% of the cells dead), and K1,
      K2 (without and with its extra force, with phase 3's K2 checks and
-     speed gate) and K3 once more at these shapes;
+     speed gate) and K3 once more at these shapes; K5 also: its node bins
+     on the card equal to a stable torch.sort and searchsorted and to the
+     plain node_bins bit for bit, two launches bitwise equal, the error
+     against the plain version in its own summation order, and the times of
+     the binning alone, the pair kernel alone, each of its kernels
+     (profiler) and each piece of the PyTorch binning it replaced;
   7. the suspension at full size: presets.rbc_suspension 128^3, 872 RBC (30%
      hematocrit), repulsion every step, CEPAC with a Dirichlet slab, 500
      iterations through K1, K2, K3, K5, K6, with launch counts, MLUPS, the
@@ -803,6 +808,110 @@ def build_suspension():
                 mask=mask, value=value)
 
 
+def kernel_times(fn, n):
+    """Device time of each kernel that ``n`` calls of fn() launch, in us a
+    call (torch.profiler), by the kernel's short name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            name = name.split("::")[-1].split(" ")[-1] or e.key[:40]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / n
+    return out
+
+
+def repulsion_bins_check(pos, gid, active, shape, k_rep, cutoff):
+    """K5's node bins on the card against a stable torch.sort and
+    searchsorted and against the plain ``node_bins``, bit for bit; two
+    launches of the wrapper bitwise equal; the wrapper against the plain
+    version in the kernel's summation order.  Times (ms): the wrapper, the
+    binning alone, the pair kernel alone, and each piece of the PyTorch
+    binning K5's wrapper had before (elementwise ops, stable sort,
+    searchsorted with its arange, int32 casts).  Returns them in a dict."""
+    import torch
+
+    from hemocell_tpu_torch import _build
+    from hemocell_tpu_torch.cells import repulsion as rep
+    from hemocell_tpu_torch.ibm import kernels
+
+    X, Y, Z = shape
+    N = X * Y * Z
+    P = pos.shape[0]
+    dev = pos.device
+    lib = _build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    ints, _ = kernels.scratch("hc_node_bins_ints", dev, P, shape)
+    order = torch.empty(P, dtype=torch.int32, device=dev)
+    starts = torch.empty(N + 1, dtype=torch.int32, device=dev)
+    out = torch.empty((P, 3), dtype=torch.float32, device=dev)
+
+    def bins(o=None, s=None):
+        _build.check(lib.hc_bin_nodes(pos.data_ptr(), gid.data_ptr(), active.data_ptr(), o, s,
+                                      ints.data_ptr(), P, X, Y, Z, stream), "hc_bin_nodes")
+
+    def pairs():
+        _build.check(lib.hc_repulsion_pairs(active.data_ptr(), out.data_ptr(), float(k_rep),
+                                            float(cutoff), rep.BIN_CAPACITY, ints.data_ptr(),
+                                            P, X, Y, Z, stream), "hc_repulsion_pairs")
+
+    def wrapper():
+        return rep.repulsion(pos, gid, active, shape, k_rep, cutoff)
+
+    bins(order.data_ptr(), starts.data_ptr())
+    _, _, bin_id, _ = rep._bin_vertices(pos, active, shape)
+    sorted_bins, ref_order = torch.sort(bin_id, stable=True)
+    ref_start = torch.searchsorted(sorted_bins, torch.arange(N + 1, dtype=torch.long,
+                                                             device=dev))
+    plain_order, plain_start, _ = rep.node_bins(pos, active, shape)
+    as_sort = torch.equal(order.long(), ref_order) and torch.equal(starts.long(), ref_start)
+    as_plain = torch.equal(order.long(), plain_order) and torch.equal(starts.long(), plain_start)
+    first = wrapper()
+    bitwise = torch.equal(first, wrapper())
+    ordered = rep.repulsion_forces_binned(pos, gid, active, shape, k_rep, cutoff)
+    err_ordered = float((first - ordered).abs().max())
+    del ordered
+    torch.cuda.empty_cache()
+    t = dict(
+        ms=time_ms(wrapper, 50),
+        bins_ms=time_ms(bins, 50),
+        pairs_ms=time_ms(pairs, 50),
+        pytorch_binning=dict(
+            elementwise=time_ms(lambda: rep._bin_vertices(pos, active, shape), 50),
+            sort=time_ms(lambda: torch.sort(bin_id, stable=True), 50),
+            searchsorted=time_ms(lambda: torch.searchsorted(
+                sorted_bins, torch.arange(N + 1, dtype=torch.long, device=dev)), 50),
+            casts=time_ms(lambda: (ref_start.to(torch.int32), bin_id.to(torch.int32),
+                                   ref_order.to(torch.int32)), 50)))
+    t["pytorch_binning"]["total"] = sum(t["pytorch_binning"].values())
+    t["kernels_us"] = kernel_times(wrapper, 20)
+    occ = torch.bincount(bin_id, minlength=N + 1)[:N]
+    print(f"[6] repulsion's node bins ({int((occ > 0).sum())} of {N} nodes occupied, the "
+          f"largest run {int(occ.max())}, {int((bin_id == N).sum())} dead vertices): equal "
+          f"to torch.sort + searchsorted {as_sort}, to the plain node_bins {as_plain}; two "
+          f"launches bitwise equal {bitwise}; against the plain version in the kernel's "
+          f"order max_abs_err {err_ordered:.3e}", flush=True)
+    print(f"[6] repulsion: wrapper {t['ms']:.4f} ms = binning alone {t['bins_ms']:.4f} + "
+          f"pairs alone {t['pairs_ms']:.4f}; by kernel (profiler, us a call) "
+          f"{json.dumps(t['kernels_us'])}; the PyTorch binning it replaces "
+          f"{json.dumps(t['pytorch_binning'])}", flush=True)
+    if not (as_sort and as_plain):
+        raise AssertionError("K5's node bins differ from the stable sort")
+    if not bitwise:
+        raise AssertionError("repulsion: two launches on the same inputs differ")
+    t.update(bitwise=bitwise, max_abs_err_kernel_order=err_ordered)
+    return t
+
+
 def phase_suspension_kernels(susp):
     """K5, K6, K7 against their plain versions at the suspension's shapes,
     and K1, K2, K3 again at these shapes (phase 3 holds them at pipeflow30's).
@@ -873,10 +982,9 @@ def phase_suspension_kernels(susp):
                        2, warmup=0)
     del ref
     torch.cuda.empty_cache()
-    rows.append(dict(name="repulsion", tol=tol, max_abs_err=err,
-                     ms=time_ms(lambda: rep.repulsion(pos, gid, active, shape, k_rep,
-                                                      cutoff), 20),
-                     plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None))
+    rows.append(dict(name="repulsion", tol=tol, max_abs_err=err, plain_ms=plain_ms,
+                     bound_ms=b, bound_by=by, library_ms=None,
+                     **repulsion_bins_check(pos, gid, active, shape, k_rep, cutoff)))
 
     # ---- K6: a CEPAC field around concentration 0.02 advected by a sheared,
     # noisy velocity, with the Dirichlet slab
@@ -2421,7 +2529,8 @@ def main() -> int:
     # and K12 carry their comparison at the suspension's shapes under
     # ``at_128``
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    more = ("with_force_extra", "launch_alone_ms", "bitwise", "bins_ms", "k", "ms_per_step",
+    more = ("with_force_extra", "launch_alone_ms", "bitwise", "bins_ms", "pairs_ms",
+            "pytorch_binning", "kernels_us", "max_abs_err_kernel_order", "k", "ms_per_step",
             "k1_ms_per_step", "k1_ms", "k10_ms", "at_pipe", "by_k", "with_force_field",
             "shape", "at_128", "with_omega_field", "capacity", "largest_slab", "overflow")
     kernels_line = {"kernels": []}

@@ -36,7 +36,10 @@ SIGNATURES = {
     "hc_spread": [_P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_interp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_wall_hit_cells": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "hc_repulsion": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P],
+    # K5 and its node bins (csrc/repulsion.cu, csrc/bin_nodes.cu)
+    "hc_repulsion": [_P, _P, _P, _P, _F, _F, _I, _P, _I, _I, _I, _I, _P],
+    "hc_bin_nodes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hc_repulsion_pairs": [_P, _P, _F, _F, _I, _P, _I, _I, _I, _I, _P],
     "hc_ad_stream_collide": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
     "hc_stream_collide_kx": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _I, _P],
     "hc_stream_collide_2x": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _P],
@@ -59,6 +62,7 @@ SIZES = {
     "hc_tile_bins_ints": [_I, _I, _I, _I],
     "hc_slab_bins_ints": [_I, _I],
     "hc_static_scratch_ints": [_I, _I, _I, _I],
+    "hc_node_bins_ints": [_I, _I, _I, _I],
 }
 
 _lib = None

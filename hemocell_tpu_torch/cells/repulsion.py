@@ -15,9 +15,12 @@ of its 27 surrounding bins.  Dead vertices go to a virtual bin past the
 lattice and form no pair.
 
 ``repulsion`` is the wrapper: on CPU tensors it runs the plain
-``repulsion_forces``; on CUDA tensors it bins and sorts with PyTorch (as the
-reference package sorts outside its kernel) and launches K5, which does the
-pair search and the force sum, or raises for what the kernel does not take.
+``repulsion_forces``; on CUDA tensors it makes one call into the kernel
+library (``csrc/bin_nodes.cu`` bins the vertices by node with a stable
+counting sort on the card, K5 sums the pairs) or raises for what the
+kernels do not take.  ``node_bins`` and ``repulsion_forces_binned`` repeat
+the kernels' indexing and summation order in plain PyTorch, for the tests
+and ``chip_smoke.py``.
 
 Boundary repulsion needs no particle list: wall nodes adjacent to fluid are
 a precomputed mask and every vertex checks its 27 surrounding nodes
@@ -32,6 +35,7 @@ import torch
 from .. import _build
 from .._device import constant
 from ..config.defaults import FLAG_FLUID, FLAG_WALL
+from ..ibm import binned, kernels
 
 # 27-neighbourhood offsets
 _NBR = tuple((i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1))
@@ -98,36 +102,73 @@ def repulsion_forces(pos_flat, cell_gid, active, shape, k_rep, cutoff,
     return force * active[:, None]
 
 
+def node_bins(pos_flat, active, shape):
+    """The node bins K5's kernels build, in plain PyTorch: the stable
+    counting sort of the vertices by bin id (``_bin_vertices``; the dead in
+    the virtual bin X*Y*Z, after every live vertex).  Returns (order [P]
+    int64, sorted rank -> vertex; bin_start [X*Y*Z + 1] int64, the first
+    rank of each bin, bin_start[X*Y*Z] that of the dead; bin_id [P]).
+    Equal to ``torch.sort(bin_id, stable=True)`` and ``searchsorted``."""
+    X, Y, Z = (int(s) for s in shape)
+    _, _, bin_id, _ = _bin_vertices(pos_flat, active, shape)
+    order, starts, _ = binned.bin_vertices_plain(bin_id, X * Y * Z + 1)
+    return order, starts[:X * Y * Z + 1], bin_id
+
+
+def repulsion_forces_binned(pos_flat, cell_gid, active, shape, k_rep, cutoff,
+                            bin_capacity=BIN_CAPACITY):
+    """``repulsion_forces`` through ``node_bins``, summed as K5 sums: each
+    vertex adds its candidates one by one, bins in the order ox, oy, oz,
+    then rank within the bin."""
+    X, Y, Z = (int(s) for s in shape)
+    P = pos_flat.shape[0]
+    device = pos_flat.device
+    pos_w, node, _, shp = _bin_vertices(pos_flat, active, shape)
+    order, bin_start, _ = node_bins(pos_flat, active, shape)
+    nbr = constant(_NBR, torch.long, device)
+    nbr_nodes = torch.remainder(node[:, None, :] + nbr[None, :, :], shp[None, None, :])
+    nbr_bins = (nbr_nodes[..., 0] * Y + nbr_nodes[..., 1]) * Z + nbr_nodes[..., 2]
+    start = bin_start[nbr_bins]
+    end = torch.minimum(bin_start[nbr_bins + 1], start + bin_capacity)
+    rank = start[:, :, None] + torch.arange(bin_capacity, dtype=torch.long, device=device)
+    valid = rank < end[:, :, None]  # [P,27,C]
+    cand = order[torch.clamp(rank, max=max(P - 1, 0))]
+    dv = pos_w[:, None, None, :] - pos_w[cand]
+    fshp = shp.to(pos_flat.dtype)
+    dv = dv - torch.round(dv / fshp) * fshp
+    d2 = dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1] + dv[..., 2] * dv[..., 2]
+    d = torch.sqrt(torch.clamp(d2, min=1e-30))
+    ok = (valid & (cell_gid[cand] != cell_gid[:, None, None]) & (d < cutoff)
+          & (active > 0)[:, None, None])
+    mag = torch.where(ok, k_rep * (cutoff / d) / d, torch.zeros_like(d))
+    term = (mag[..., None] * dv).reshape(P, 27 * bin_capacity, 3)
+    force = torch.zeros_like(pos_w)
+    for k in range(term.shape[1]):
+        force = force + term[:, k]
+    return force * active[:, None]
+
+
 def repulsion(pos_flat, cell_gid, active, shape, k_rep, cutoff):
     """Kernel K5 wrapper: ``repulsion_forces`` with ``BIN_CAPACITY``
     candidates per bin.  pos_flat [P,3] f32 unwrapped, cell_gid [P] int32,
-    active [P] f32 -> [P,3] f32."""
+    active [P] f32 -> [P,3] f32.  On the card: one call, the node bins and
+    the pair sums, with scratch kept per shape; the result repeats bit for
+    bit.  The output is a new tensor (the step keeps it in its state)."""
     if not pos_flat.is_cuda:
         repulsion.plain_calls += 1
         return repulsion_forces(pos_flat, cell_gid, active, shape, k_rep, cutoff)
     X, Y, Z = (int(s) for s in shape)
     P = pos_flat.shape[0]
-    nbins = X * Y * Z
-    if nbins + 1 >= 2 ** 31 or P >= 2 ** 31:
+    if X * Y * Z + 1 >= 2 ** 31 or P >= 2 ** 31:
         raise ValueError("repulsion: the kernel indexes bins and vertices with int32")
     pos_flat = _build.cuda_arg(pos_flat, "repulsion: pos", torch.float32, (P, 3))
     cell_gid = _build.cuda_arg(cell_gid, "repulsion: cell_gid", torch.int32, (P,))
     active = _build.cuda_arg(active, "repulsion: active", torch.float32, (P,))
-    # binning and the stable sort stay in PyTorch; the kernel takes the
-    # sorted order and the start of every bin's run
-    pos_w, _, bin_id, _ = _bin_vertices(pos_flat, active, shape)
-    sorted_bins, order = torch.sort(bin_id, stable=True)
-    bin_start = torch.searchsorted(
-        sorted_bins, torch.arange(nbins + 1, dtype=torch.long, device=pos_flat.device)
-    ).to(torch.int32)
-    pos_w = pos_w.contiguous()
-    bin32 = bin_id.to(torch.int32)
-    order32 = order.to(torch.int32)
+    ints, _ = kernels.scratch("hc_node_bins_ints", pos_flat.device, P, (X, Y, Z))
     out = torch.empty((P, 3), dtype=torch.float32, device=pos_flat.device)
     err = _build.lib().hc_repulsion(
-        pos_w.data_ptr(), cell_gid.data_ptr(), active.data_ptr(), bin32.data_ptr(),
-        order32.data_ptr(), bin_start.data_ptr(), out.data_ptr(),
-        float(k_rep), float(cutoff), BIN_CAPACITY, P, X, Y, Z,
+        pos_flat.data_ptr(), cell_gid.data_ptr(), active.data_ptr(), out.data_ptr(),
+        float(k_rep), float(cutoff), BIN_CAPACITY, ints.data_ptr(), P, X, Y, Z,
         torch.cuda.current_stream(pos_flat.device).cuda_stream)
     _build.check(err, "hc_repulsion")
     repulsion.launches += 1

@@ -20,39 +20,8 @@
 namespace hc {
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
-
 __device__ __forceinline__ int slab_of(float x, int X) {
   return wrap_idx((int)floorf(wrap_pos(x, X)), X);
-}
-
-// Exclusive scan of one int per thread over the block; *total gets the
-// block's sum.  `sh` holds one int per warp.
-__device__ int block_exclusive_scan(int v, int* sh, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) sh[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nwarps ? sh[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < nwarps) sh[lane] = w;
-  }
-  __syncthreads();
-  const int res = (warp ? sh[warp - 1] : 0) + x - v;
-  *total = sh[nwarps - 1];
-  __syncthreads();
-  return res;
 }
 
 // ---- tile bins -----------------------------------------------------------

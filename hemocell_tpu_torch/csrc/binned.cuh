@@ -42,6 +42,21 @@
 //   __popc(peers & lanemask_lt) on top of its running slab offsets.  The
 //   result equals torch.sort(key, stable=True) and searchsorted's starts
 //   bit for bit.
+//
+// Node bins (csrc/bin_nodes.cu), K5's neighbour search: a stable counting
+//   sort of the vertices by their nearest node (X*Y*Z bins, the dead in
+//   the virtual bin X*Y*Z).  The count kernel writes each vertex's record
+//   (wrapped position, cell id) and takes a slot in its node with an
+//   integer atomic; two scan kernels turn the node counts into the starts
+//   of the runs (a sum per tile of nodes, then each tile adds the sums
+//   before it) and zero the counts again; the placement writes each live
+//   vertex at its slot, in the order of the atomics, and the dead in
+//   vertex order (a block scan over the block offsets the count kernel
+//   left); the rank kernel gives each live vertex its stable place, the
+//   number of vertices of its run with a smaller index (runs are a few
+//   vertices long), and writes the order; a gather writes the records in
+//   it.  The result equals torch.sort(bin, stable=True) and searchsorted's
+//   starts bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -89,6 +104,27 @@ struct SlabBins {
   int* starts;       // [X + 1]
 };
 
+// Scratch of the node bins, carved from one int32 buffer that is zero
+// before the first call; `counts` is zero again after every call.
+struct NodeBins {
+  float4* rec;    // [P] wrapped position and cell id (bits), vertex order
+  float4* rec_s;  // [P] the records in bin order
+  int* counts;    // [N] live vertices per node (N = X*Y*Z)
+  int* starts;    // [N + 1] the start of each node's run; starts[N] that of
+                  // the dead, the virtual bin N
+  int* bin;       // [P] the node of each vertex, N for the dead
+  int* slot;      // [P] its place in its run in the order of the atomics
+  int* tmp;       // [P] the live vertices placed at their slots
+  int* order;     // [P] bin order -> vertex (stable)
+  int* tile_sum;  // [ceil(N / SCAN_TILE)]
+  int* dead;      // [ceil(P / NODE_THREADS)] dead vertices per block, then
+                  // the dead of the blocks before
+};
+
+constexpr int NODE_THREADS = 256;   // vertices a counting or placing block takes
+constexpr int SCAN_THREADS = 1024;  // threads of a scan block, 4 nodes each
+constexpr int SCAN_TILE = 4 * SCAN_THREADS;
+
 Tiles gather_tiles(int X, int Y, int Z);
 long long tile_bins_ints(int P, int X, int Y, int Z);
 TileBins tile_bins_carve(int* scratch, int P, int X, int Y, int Z);
@@ -120,11 +156,50 @@ int slab_bins(const float* pos, const float* force, int P, int X, int Y, int Z, 
 int tile_bins_count_records(const float4* rec, int P, int X, int Y, int Z, const TileBins& tb,
                             cudaStream_t s);
 
+long long node_bins_ints(int P, int X, int Y, int Z);
+NodeBins node_bins_carve(int* scratch, int P, int X, int Y, int Z);
+// The node bins of the unwrapped positions: records, starts [N + 1], the
+// stable order and the records in it.  Six launches.
+int node_bins(const float* pos, const int* gid, const float* active, int P, int X, int Y, int Z,
+              const NodeBins& nb, cudaStream_t s);
+
 // The tile gather (csrc/spread.cu) of the records' deposits.
 int tile_gather(const float4* rec, const TileBins& tb, float* out, int X, int Y, int Z,
                 cudaStream_t s);
 
 // ---- device helpers ------------------------------------------------------
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// Exclusive scan of one int per thread over the block; *total gets the
+// block's sum.  `sh` holds one int per warp.  Every thread of the block
+// calls it.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* sh, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sh[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? sh[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < nwarps) sh[lane] = w;
+  }
+  __syncthreads();
+  const int res = (warp ? sh[warp - 1] : 0) + x - v;
+  *total = sh[nwarps - 1];
+  __syncthreads();
+  return res;
+}
 
 // The tiles the stencil with base node (bx, by, bz) reaches, in corner order
 // (corner c = (c>>2 & 1, c>>1 & 1, c & 1)), -1 where an earlier corner has
@@ -140,6 +215,12 @@ __device__ __forceinline__ void stencil_tiles(int bx, int by, int bz, int X, int
     const bool fresh = (!a || x1 != x0) && (!b || y1 != y0) && (!cc || z1 != z0);
     ids[c] = fresh ? ((a ? x1 : x0) * t.ny + (b ? y1 : y0)) * t.nz + (cc ? z1 : z0) : -1;
   }
+}
+
+// The nearest node along one axis of a wrapped coordinate in [0, L]:
+// remainder(floor(p + 0.5), L), as cells/repulsion.py computes it.
+__device__ __forceinline__ int nearest_node(float p, int L) {
+  return wrap_idx((int)floorf(p + 0.5f), L);
 }
 
 // The base node of the stencil at a wrapped position (in [0, n]: n is 0).
