@@ -25,7 +25,13 @@ Phases, in order; any failure exits non-zero and prints no result:
   6. hold K5 (repulsion), K6 (CEPAC) and K7 (Lees-Edwards, with a scalar
      omega and with a per-node omega field) against their plain versions at
      the shapes of the 128^3 suspension (872 RBC, 559,824 vertices; one node
-     overfull with vertices of several cells, 5% of the cells dead), and K1,
+     overfull with vertices of several cells, 5% of the cells dead); K7's
+     planes kernel against the plain planes at seven displacements (none,
+     integer, fractional, negative, beyond the box, a fraction within 1e-7
+     of 1) with both omega kinds, timed alone beside the K1 launch alone and
+     the wrapper; in 20 calls the profiler sees each of its two kernels
+     within one event of the wrappers' exact counts (20 each), and no other;
+     and K1,
      K2 (without and with its extra force, with phase 3's K2 checks and
      speed gate) and K3 once more at these shapes; K5 also: its node bins
      on the card equal to a stable torch.sort and searchsorted and to the
@@ -41,9 +47,10 @@ Phases, in order; any failure exits non-zero and prints no result:
      box with repulsion (K2's extra force on), 100 iterations twice from one
      state: the end states bitwise equal;
   8. the same box under Lees-Edwards shear of 100/s from the linear
-     profile, 500 iterations through K7, K2, K3, K5, the fitted shear slope
-     and the accumulated displacement; and the empty box, 200 iterations,
-     whose profile must stay put;
+     profile, 500 iterations through K7 (its planes kernel and K1 with the
+     planes, each counted), K2, K3, K5, the fitted shear slope and the
+     accumulated displacement, then a profiler window; and the empty box,
+     200 iterations, whose profile must stay put;
   9. a 32^3 box with 8 RBC with repulsion, CEPAC and Lees-Edwards on in
      turn, on the card and with the plain versions on the CPU from the same
      state, compared after 41 steps.
@@ -55,12 +62,18 @@ Then the cell-free (pure-fluid) runner and its three kernels:
      1e-6, on the periodic 128^3 box, the 248x56x56 pipe with pipeflow30's
      wall flags, an unforced box and a walled 50x30x34 box their tiles do not
      divide; times per launch and per step beside K1's;
- 11. hold K10 (the (x,y)-tiled one-step kernel) against K1 and against the
-     plain version at 256^3 with a uniform force, and with a force field,
-     walls, velocity and pressure nodes; timed beside both;
+ 11. hold K10 (the x-marching one-step kernel) against K1 bit for bit and
+     against the plain version at 256^3 with a uniform force, with none, and
+     with a force field, walls, velocity and pressure nodes; at 250x56x56
+     and 17x9x33, which its 8 x 32 tile does not divide, at the default
+     schedule and with runs of 7 planes (a ragged last run), with a uniform
+     force and with a force field, flags and bc; K10 against K1 as a
+     reported speed gate in both operand sets at 256^3;
  12. path fluid256: cases/fluid_only at 256^3, 50 iterations of the one-step
-     loop with stream_collide's dispatch of large cross-sections turned on,
-     which sends them to K10;
+     loop under stream_collide's dispatch of large cross-sections as it
+     stands (K10 only if it is on: it stays off while K10 loses to K1), then
+     50 with the dispatch the other way from the same state: the end states
+     bitwise equal;
  13. path fluid128: cases/fluid_only at 128^3, fused at the default fluid_k =
      4: 500 + 7 + 1 iterations (K9 at k = 4 and k = 3, then K1 through
      step), equal to 508 K1 launches bit for bit; the same 500 iterations
@@ -82,14 +95,17 @@ mode of K1 and K10 that carries its fluid:
      bit, and each slab its plain halo version to 1e-6; timed at the
      quarter-slab shape beside K1 on the same slab;
  17. K10 in halo mode: 256^3 as one slab and as 4 slabs of 64x256x256 in
-     phase 11's three operand sets, bitwise equal to whole-domain K1, 1e-6
-     from the plain version; timed beside K10 and K1 on the quarter slab;
+     phase 11's three operand sets, and 250x56x56 in 2 slabs and 17x9x33 in
+     one at the default schedule and with runs of 7 planes, bitwise equal
+     to whole-domain K1, 1e-6 from the plain version; timed beside K1 in halo mode (a reported speed
+     gate), K10 and K1 on the quarter slab;
  18. the distributed path at world size 1: an NCCL group of one
      (``init_process_group("nccl", init_method="file://...")``), then
      ``HemoCell.distribute()``: pipeflow30 1000 iterations under phase 4's
      gates with every fluid step a K1 halo launch, MLUPS and idle share;
      fluid128 500 iterations bitwise equal to the single-device K1 loop;
-     fluid256 20 iterations with the dispatch to K10 on (K10 halo launches);
+     fluid256 20 iterations under the dispatch as it stands and 20 the other
+     way (K1 and K10 in halo mode), bitwise equal;
      suspension128 500 iterations under phase 7's gates;
  19. a walled 32x24x24 pipe with 2 RBC + 1 PLT, distributed, on the card and
      on the CPU (a gloo group of one), compared after 41 steps as in phase 5.
@@ -120,8 +136,9 @@ interior viscosity and solidify:
      cases/solidify_example, on the card and with the plain versions on the
      CPU from the same state.
 
-Then the speed gates in sum, the ``kernels`` JSON line (all fourteen: the
-twelve kernels and the two halo modes; with the speed gates), the card, and
+Then the speed gates in sum, the ``kernels`` JSON line (all fifteen: the
+twelve kernels, K7's planes kernel and the two halo modes; with the speed
+gates), the card, and
 as the last line ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (from the repository root, one GPU)
@@ -158,6 +175,7 @@ REPLACES = {
     "repulsion": "hemocell_tpu/cells/pallas_repulsion.py:110",
     "ad_stream_collide": "hemocell_tpu/fluid/advection_diffusion.py:129",
     "le_stream_collide": "hemocell_tpu/fluid/lees_edwards.py:142",
+    "le_planes": "hemocell_tpu/fluid/lees_edwards.py:142",
     "stream_collide_2x": "hemocell_tpu/fluid/pallas_lbm_2x.py:139",
     "stream_collide_kx": "hemocell_tpu/fluid/pallas_lbm_kx.py:134",
     "stream_collide_2d": "hemocell_tpu/fluid/pallas_lbm_2d.py:201",
@@ -174,6 +192,7 @@ SOURCES = {
     "repulsion": "hemocell_tpu_torch/csrc/repulsion.cu",
     "ad_stream_collide": "hemocell_tpu_torch/csrc/ad_stream_collide.cu",
     "le_stream_collide": "hemocell_tpu_torch/csrc/stream_collide.cu",
+    "le_planes": "hemocell_tpu_torch/csrc/le_planes.cu",
     "stream_collide_2x": "hemocell_tpu_torch/csrc/stream_collide_kx.cu",
     "stream_collide_kx": "hemocell_tpu_torch/csrc/stream_collide_kx.cu",
     "stream_collide_2d": "hemocell_tpu_torch/csrc/stream_collide_2d.cu",
@@ -183,7 +202,7 @@ SOURCES = {
     "interp_static": "hemocell_tpu_torch/csrc/ibm_static.cu",
 }
 KERNEL_ORDER = ("stream_collide", "spread", "interp", "wall_hit_cells", "repulsion",
-                "ad_stream_collide", "le_stream_collide", "stream_collide_2x",
+                "ad_stream_collide", "le_stream_collide", "le_planes", "stream_collide_2x",
                 "stream_collide_kx", "stream_collide_2d", "stream_collide_halo",
                 "stream_collide_2d_halo", "spread_static", "interp_static")
 
@@ -221,15 +240,16 @@ def bound_ms(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-SPEED_GATES = []  # (what, kernel ms, library ms): the binned spreads against index_add_
+SPEED_GATES = []  # (what, kernel ms, yardstick ms, yardstick)
 
 
-def speed_gate(what, ms, library_ms):
-    """Record one speed gate of the binned spreads: the wrapper, binning
-    included, below index_add_ with precomputed weights in the same call."""
-    SPEED_GATES.append((what, ms, library_ms))
-    print(f"{what}: wrapper {ms:.4f} ms against index_add_ {library_ms:.4f} ms: "
-          f"{'below' if ms < library_ms else 'NOT below'}", flush=True)
+def speed_gate(what, ms, other_ms, other="index_add_"):
+    """Record one speed gate (reported, not enforced): a kernel's time below
+    its yardstick's in the same call; the binned spreads (binning included)
+    against index_add_ with precomputed weights, K10 against K1."""
+    SPEED_GATES.append((what, ms, other_ms, other))
+    print(f"{what}: {ms:.4f} ms against {other} {other_ms:.4f} ms: "
+          f"{'below' if ms < other_ms else 'NOT below'}", flush=True)
 
 
 def clone_state(state):
@@ -609,7 +629,7 @@ def check_rows(tag, rows):
 def counters():
     from hemocell_tpu_torch.cells.repulsion import repulsion
     from hemocell_tpu_torch.fluid.advection_diffusion import ad_stream_collide
-    from hemocell_tpu_torch.fluid.lees_edwards import le_stream_collide
+    from hemocell_tpu_torch.fluid.lees_edwards import le_planes, le_stream_collide
     from hemocell_tpu_torch.fluid.stream_collide import stream_collide, stream_collide_halo
     from hemocell_tpu_torch.fluid.stream_collide_2d import (stream_collide_2d,
                                                             stream_collide_2d_halo)
@@ -621,7 +641,7 @@ def counters():
             "stream_collide_2d_halo": stream_collide_2d_halo, "spread": kernels.spread,
             "interp": kernels.interp, "wall_hit_cells": kernels.wall_hit_cells,
             "repulsion": repulsion, "ad_stream_collide": ad_stream_collide,
-            "le_stream_collide": le_stream_collide,
+            "le_stream_collide": le_stream_collide, "le_planes": le_planes,
             "stream_collide_2x": stream_collide_2x,
             "stream_collide_kx": stream_collide_kx,
             "stream_collide_2d": stream_collide_2d,
@@ -830,6 +850,27 @@ def kernel_times(fn, n):
     return out
 
 
+def device_launches(fn, n):
+    """Kernel events on the card in n calls of fn(), by short name, counted
+    by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            name = name.split("::")[-1].split(" ")[-1] or e.key[:40]
+            out[name] = out.get(name, 0) + e.count
+    return out
+
+
 def repulsion_bins_check(pos, gid, active, shape, k_rep, cutoff):
     """K5's node bins on the card against a stable torch.sort and
     searchsorted and against the plain ``node_bins``, bit for bit; two
@@ -1015,6 +1056,35 @@ def phase_suspension_kernels(susp):
     f = f + (1e-5 * torch.randn(f.shape, generator=g)).to(dev)
     force = (1e-5 * torch.randn((3,) + shape, generator=g)).to(dev)
     disp = torch.tensor(37.3)
+    # K7 with a per-node omega field (interior viscosity under shear):
+    # omega_interior (viscosity ratio 5) on a seeded fifth of the nodes
+    om_int = 1.0 / interior_tau(5.0, 1.0 / cfg.omega)
+    om_field = torch.where(torch.rand(shape, generator=g) < 0.2, om_int, cfg.omega).to(dev)
+
+    # K7's planes kernel against the plain planes: displacements without
+    # and with a fraction, negative, beyond the box and with a fraction
+    # within 1e-7 of 1; both omega kinds
+    planes_err = 0.0
+    for om in (cfg.omega, om_field):
+        for d in (0.0, 3.0, 2.37, -5.6, X + 1.25, 4.99999996, disp):
+            got = le.le_planes(f, force, om, d, LE_VELOCITY)
+            want = le._corrected_planes(f, force, om, d, LE_VELOCITY)
+            planes_err = max(planes_err, float((got - want).abs().max()))
+            del got, want
+    print(f"[6] le_planes (the corrected planes kernel) against the plain planes, 7 "
+          f"displacements x scalar omega and omega field: max_abs_err {planes_err:.3e} "
+          f"(tol 1e-6)", flush=True)
+    planes = le.le_planes(f, force, cfg.omega, disp, LE_VELOCITY)
+    planes_ms = time_ms(lambda: le.le_planes(f, force, cfg.omega, disp, LE_VELOCITY), 50)
+    planes_plain_ms = time_ms(lambda: le._corrected_planes(f, force, cfg.omega, disp,
+                                                           LE_VELOCITY), 20)
+    # each input element read once: 19 populations and 3 force components of
+    # the two wrap planes; 38 floats a column written; two collisions and the
+    # shift per column
+    b_p, by_p = bound_ms(2 * X * Y * 22 * 4 + 38 * X * Y * 4, 2 * X * Y * 1100)
+    rows.append(dict(name="le_planes", tol=1e-6, max_abs_err=planes_err, ms=planes_ms,
+                     plain_ms=planes_plain_ms, bound_ms=b_p, bound_by=by_p, library_ms=None))
+
     out = le.le_stream_collide(f, force, cfg.omega, disp, LE_VELOCITY)
     ref = le.le_stream_collide_plain(f, force, cfg.omega, disp, LE_VELOCITY)
     err = float((out - ref).abs().max())
@@ -1026,26 +1096,28 @@ def phase_suspension_kernels(susp):
           f"z faces, {inner_diff:.3e} inside", flush=True)
     if not (face_diff > 1e-5 and inner_diff == 0.0):
         raise AssertionError("the Lees-Edwards planes did not act on the z faces only")
-    planes = le._corrected_planes(f, force, cfg.omega, disp, LE_VELOCITY)
     launch_ms = time_ms(lambda: launch_k1(f, force, cfg.omega, None, le_planes=planes), 50)
     b, by = bound_ms(N * (19 * 4 * 2 + 12), N * 600)
 
-    # The wrapper issues ~140 PyTorch launches for the two planes: few enough
-    # repetitions that the host has queued them all before the sleep kernel
-    # ends, so the reading is device time.  Two depths, which must agree if
-    # neither outran the sleep.
     def k7():
         return le.le_stream_collide(f, force, cfg.omega, disp, LE_VELOCITY)
 
-    ms5, ms3 = time_ms(k7, 5), time_ms(k7, 3)
-    print(f"[6] le_stream_collide: wrapper {ms5:.4f} ms over 5 queued calls, {ms3:.4f} ms "
-          f"over 3; the kernel launch alone {launch_ms:.4f} ms; the rest is the two "
-          f"corrected planes in PyTorch", flush=True)
+    ms = time_ms(k7, 50)
+    # the kernels on the card in 20 calls, against the wrappers' counts over
+    # the same calls; the profiler may drop an event of the window, so each
+    # kernel's events are within one of its count
+    le.le_planes.launches = le.le_stream_collide.launches = 0
+    events = device_launches(k7, 20)
+    counted = {"le_planes_kernel": le.le_planes.launches,
+               "stream_collide_kernel": le.le_stream_collide.launches}
+    print(f"[6] le_stream_collide: wrapper {ms:.4f} ms over 50 calls = the planes kernel "
+          f"alone {planes_ms:.4f} ms + the K1 launch alone {launch_ms:.4f} ms (bound "
+          f"{b:.4f} ms); plain planes {planes_plain_ms:.4f} ms; in 20 calls the profiler "
+          f"saw {events} on the card, the wrappers counted {counted}", flush=True)
+    if not (set(counted.values()) == {20} and set(events) == set(counted)
+            and all(counted[k] - 1 <= events[k] <= counted[k] for k in counted)):
+        raise AssertionError(f"20 K7 calls launched {events}, not its two kernels once each")
 
-    # K7 with a per-node omega field (interior viscosity under shear):
-    # omega_interior (viscosity ratio 5) on a seeded fifth of the nodes
-    om_int = 1.0 / interior_tau(5.0, 1.0 / cfg.omega)
-    om_field = torch.where(torch.rand(shape, generator=g) < 0.2, om_int, cfg.omega).to(dev)
     out_o = le.le_stream_collide(f, force, om_field, disp, LE_VELOCITY)
     err_o = float((out_o - le.le_stream_collide_plain(f, force, om_field, disp,
                                                       LE_VELOCITY)).abs().max())
@@ -1054,20 +1126,20 @@ def phase_suspension_kernels(susp):
     b_o, by_o = bound_ms(N * (19 * 4 * 2 + 12 + 4), N * 600)
     with_field = dict(
         max_abs_err=err_o, tol=1e-6,
-        ms=time_ms(lambda: le.le_stream_collide(f, force, om_field, disp, LE_VELOCITY), 5),
+        ms=time_ms(lambda: le.le_stream_collide(f, force, om_field, disp, LE_VELOCITY), 50),
         plain_ms=time_ms(lambda: le.le_stream_collide_plain(f, force, om_field, disp,
                                                             LE_VELOCITY), 5),
         bound_ms=b_o, bound_by=by_o, library_ms=None)
     print(f"[6] le_stream_collide with an omega field: max_abs_err {err_o:.3e} (tol 1e-6) | "
-          f"wrapper {with_field['ms']:.4f} ms over 5 queued calls | plain "
-          f"{with_field['plain_ms']:.4f} ms | differs from the scalar-omega step by "
-          f"{moved_o:.3e}", flush=True)
+          f"wrapper {with_field['ms']:.4f} ms | plain {with_field['plain_ms']:.4f} ms | "
+          f"differs from the scalar-omega step by {moved_o:.3e}", flush=True)
     if not (err_o <= 1e-6 and moved_o > 1e-6):
         raise AssertionError("K7 with an omega field disagrees with its plain version")
-    rows.append(dict(name="le_stream_collide", tol=1e-6, max_abs_err=err, ms=ms5,
+    rows.append(dict(name="le_stream_collide", tol=1e-6, max_abs_err=err, ms=ms,
                      plain_ms=time_ms(lambda: le.le_stream_collide_plain(
                          f, force, cfg.omega, disp, LE_VELOCITY), 5),
                      bound_ms=b, bound_by=by, library_ms=None, launch_alone_ms=launch_ms,
+                     planes_ms=planes_ms, events_in_20_calls=events,
                      with_omega_field=with_field))
     del planes, periodic, out, ref, om_field
 
@@ -1241,7 +1313,8 @@ def phase_lees_edwards(susp, smi):
         return {"shear slope within 10% of the imposed": abs(slope - gamma) <= 0.1 * gamma,
                 "le_displacement to f32 rounding": abs(disp - want_disp) <= 1e-4}
 
-    expected = {"le_stream_collide": n, "spread": n, "interp": n // cfg.particle_every,
+    expected = {"le_stream_collide": n, "le_planes": n, "spread": n,
+                "interp": n // cfg.particle_every,
                 "repulsion": n // cfg.repulsion_every}
     state, launches, run, wall_us = run_gated("[8]", "leesedwards128", cfg, state, n,
                                               expected, smi, le_checks)
@@ -1361,6 +1434,31 @@ def near_equilibrium(shape, flags, seed, device):
     if flags is not None:
         f = f * (flags == 0).float()
     return f
+
+
+def k10_operands(shape, device):
+    """K10's operands on ``shape`` (phases 11 and 17): populations, a
+    uniform force, a force field, and flags with walls on the y faces and
+    a bar inside, velocity nodes on the z faces and pressure nodes on the
+    plane x = 0, with their bc velocity and density."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    force_u = torch.tensor([5e-7, 2e-7, -1e-7])
+    flags = torch.zeros(shape, dtype=torch.uint8)
+    flags[:, :, 0] = 2
+    flags[:, :, -1] = 2
+    flags[0, :, 1:-1] = 3
+    flags[:, 0, :] = 1
+    flags[:, -1, :] = 1
+    flags[40:60, 100:120, 30:50] = 1
+    bc = torch.zeros((3,) + tuple(shape))
+    bc[0, :, :, -1] = 0.01
+    bc[0, :, :, 0] = -0.01
+    bc[1, :, :, -1] = 0.002
+    f = near_equilibrium(shape, None, 5, device)
+    force_field = (1e-5 * torch.randn((3,) + tuple(shape), generator=g)).to(device)
+    return f, force_u, force_field, flags.to(device), bc.to(device), 1.002
 
 
 def fused(f, force, omega, flags, k):
@@ -1497,38 +1595,24 @@ def phase_fused_kernels(smi):
 
 def phase_tiled_kernel(smi):
     """K10 against K1 and against the plain version at 256^3, the shape the
-    path fluid256 gives it."""
+    path fluid256 gives it, and at shapes its tile does not divide (the
+    default schedule and a ragged last run of x planes)."""
     import torch
 
+    import importlib
+
     from hemocell_tpu_torch.fluid import lbm
+    from hemocell_tpu_torch.fluid import stream_collide_2d as k10
     from hemocell_tpu_torch.fluid.stream_collide import launch as launch_k1
     from hemocell_tpu_torch.fluid.stream_collide_2d import stream_collide_2d
 
+    sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
     dev = torch.device("cuda")
     shape = BIG_SHAPE
     X, Y, Z = shape
     N = X * Y * Z
     omega = 1.0 / 1.16
-    g = torch.Generator(device="cpu").manual_seed(4)
-    force_u = torch.tensor([5e-7, 2e-7, -1e-7])
-    # walls on the y faces and a bar inside, velocity nodes on the z faces,
-    # pressure nodes on the plane x = 0
-    flags = torch.zeros(shape, dtype=torch.uint8)
-    flags[:, :, 0] = 2
-    flags[:, :, -1] = 2
-    flags[0, :, 1:-1] = 3
-    flags[:, 0, :] = 1
-    flags[:, -1, :] = 1
-    flags[40:60, 100:120, 30:50] = 1
-    flags = flags.to(dev)
-    bc = torch.zeros((3,) + shape)
-    bc[0, :, :, -1] = 0.01
-    bc[0, :, :, 0] = -0.01
-    bc[1, :, :, -1] = 0.002
-    bc = bc.to(dev)
-    rho0 = 1.002
-    f = near_equilibrium(shape, None, 5, dev)
-    force_field = (1e-5 * torch.randn((3,) + shape, generator=g)).to(dev)
+    f, force_u, force_field, flags, bc, rho0 = k10_operands(shape, dev)
 
     worst = 0.0
     sets = [("uniform force, all fluid", (force_u, None, None, None)),
@@ -1548,11 +1632,11 @@ def phase_tiled_kernel(smi):
         del plain
         moved = float((out - f).abs().max())
         print(f"[11] stream_collide_2d {shape}, {name}: vs K1 max_abs_err {err:.3e}, bitwise "
-              f"{same} | vs plain max_abs_err {err_plain:.3e} (tol 1e-6 both) | max|out - in| "
+              f"{same} | vs plain max_abs_err {err_plain:.3e} (tol 1e-6) | max|out - in| "
               f"{moved:.3e}", flush=True)
-        if not (err <= 1e-6 and err_plain <= 1e-6 and moved > 1e-6):
-            raise AssertionError(f"stream_collide_2d disagrees with K1 or its plain "
-                                 f"version: {name}")
+        if not (same and err_plain <= 1e-6 and moved > 1e-6):
+            raise AssertionError(f"stream_collide_2d is not K1 bit for bit or disagrees with "
+                                 f"its plain version: {name}")
         worst = max(worst, err, err_plain)
         del out
         torch.cuda.empty_cache()
@@ -1566,10 +1650,40 @@ def phase_tiled_kernel(smi):
     if not bc_diff > 1e-5:
         raise AssertionError("stream_collide_2d: velocity and pressure nodes did not act")
 
+    # shapes the 8 x 32 tile does not divide (the pipe's cross-section; 9
+    # and 33 across), with the default schedule and with runs of 7 planes,
+    # whose last run is ragged: bitwise K1, within 1e-6 of the plain version
+    for rshape in ((250, 56, 56), (17, 9, 33)):
+        rf, rfu, rff, rfl, rbc, rr0 = k10_operands(rshape, dev)
+        Xr, Yr, Zr = rshape
+        given = k10.Schedule(-(-Yr // k10.TY), -(-Zr // k10.TZ), 7, -(-Xr // 7))
+        default = k10.schedule(*rshape, k10._sms(dev.index))
+        for fo, fl, bcv, bcd, which in ((rfu, None, None, None, "uniform force"),
+                                         (rff, rfl, rbc, rr0, "force field + flags + bc")):
+            ref = launch_k1(rf, fo, omega, fl, bcv, bcd)
+            plain = lbm.stream_collide(rf, fo, omega, torch.zeros_like(rfl) if fl is None else fl,
+                                       bcv, bcd)
+            for s_name, out in (
+                    (f"default {tuple(default)}", stream_collide_2d(rf, fo, omega, fl, bcv, bcd)),
+                    (f"given {tuple(given)}", k10._launch(rf, fo, omega, fl, bcv, bcd, None,
+                                                          given))):
+                same = torch.equal(out, ref)
+                err_plain = float((out - plain).abs().max())
+                print(f"[11] stream_collide_2d {rshape}, {which}, schedule (n_y, n_z, run, "
+                      f"n_runs) {s_name}: bitwise K1 {same} | vs plain max_abs_err "
+                      f"{err_plain:.3e} (tol 1e-6)", flush=True)
+                if not (same and err_plain <= 1e-6):
+                    raise AssertionError(f"stream_collide_2d at {rshape} disagrees: {which}, "
+                                         f"schedule {s_name}")
+                worst = max(worst, err_plain)
+        del rf, rff, rfl, rbc, ref, plain, out
+    torch.cuda.empty_cache()
     ms_u = time_ms(lambda: stream_collide_2d(f, force_u, omega, None), 20)
     k1_u = time_ms(lambda: launch_k1(f, force_u, omega, None), 20)
     ms_f = time_ms(lambda: stream_collide_2d(f, force_field, omega, flags, bc, rho0), 20)
     k1_f = time_ms(lambda: launch_k1(f, force_field, omega, flags, bc, rho0), 20)
+    k1_u2 = time_ms(lambda: launch_k1(f, force_u, omega, None), 20)
+    ms_u2 = time_ms(lambda: stream_collide_2d(f, force_u, omega, None), 20)
     plain_u = time_ms(lambda: lbm.stream_collide(f, force_u, omega, all_fluid), 3, warmup=1)
     plain_f = time_ms(lambda: lbm.stream_collide(f, force_field, omega, flags, bc, rho0), 3,
                       warmup=1)
@@ -1577,15 +1691,21 @@ def phase_tiled_kernel(smi):
     # force field, flag byte; bc velocity only where a velocity node reads it
     n_vel = int((flags == 2).sum())
     b_f, by_f = bound_ms(N * (38 * 4 + 12 + 1) + n_vel * 12, 350 * N)
-    print(f"[11] {shape} on {smi}: uniform force K10 {ms_u:.4f} ms, K1 {k1_u:.4f} ms, plain "
-          f"{plain_u:.3f} ms, bound {b_u:.4f} ms ({by_u}) | force field + flags + bc K10 "
-          f"{ms_f:.4f} ms, K1 {k1_f:.4f} ms, plain {plain_f:.3f} ms, bound {b_f:.4f} ms "
-          f"({by_f})", flush=True)
+    print(f"[11] {shape} on {smi}: uniform force K10 {ms_u:.4f} ms ({ms_u2:.4f} again), K1 "
+          f"{k1_u:.4f} ms ({k1_u2:.4f} again), plain {plain_u:.3f} ms, bound {b_u:.4f} ms "
+          f"({by_u}) | force field + flags + bc K10 {ms_f:.4f} ms, K1 {k1_f:.4f} ms, plain "
+          f"{plain_f:.3f} ms, bound {b_f:.4f} ms ({by_f})", flush=True)
+    speed_gate("[11] K10 256^3, uniform force", min(ms_u, ms_u2), min(k1_u, k1_u2), "K1")
+    speed_gate("[11] K10 256^3, force field + flags + bc", ms_f, k1_f, "K1")
+    wins = min(ms_u, ms_u2) < min(k1_u, k1_u2) and ms_f < k1_f
+    print(f"[11] K10 below K1 in both operand sets: {wins}; stream_collide's dispatch of "
+          f"large cross-sections to K10: "
+          f"{'on' if sc_module.LARGE_CROSS_SECTION is not None else 'off'}", flush=True)
     del f, force_field, bc, flags, all_fluid
     torch.cuda.empty_cache()
     return {"stream_collide_2d": dict(
         tol=1e-6, max_abs_err=worst, ms=ms_u, k1_ms=k1_u, plain_ms=plain_u,
-        bound_ms=b_u, bound_by=by_u, library_ms=None,
+        bound_ms=b_u, bound_by=by_u, library_ms=None, bitwise=True,
         with_force_field=dict(ms=ms_f, k1_ms=k1_f, plain_ms=plain_f, bound_ms=b_f,
                               bound_by=by_f))}
 
@@ -1685,19 +1805,31 @@ def phase_fluid_paths(smi):
     sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
     by_path = {}
 
-    # ---- fluid256: the one-step loop with the dispatch of large
-    # cross-sections turned on, which sends 256 x 256 to K10
-    cfg, state = fluid_only.build(BIG_SHAPE)
-    state = perturbed(cfg, state, 6)
-    sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM
-    try:
-        state, by_path["fluid256"], run, wall_us = run_fluid_path(
-            "[12]", "fluid256", cfg, state, [(50, {"stream_collide_2d": 50})], smi,
-            reference=False)
-        profile_runner("[12]", run, state, wall_us)
-    finally:
-        sc_module.LARGE_CROSS_SECTION = None
-    del state, run
+    # ---- fluid256: the one-step loop under stream_collide's dispatch of
+    # large cross-sections as it stands (K10 if phase 11's gate turned it
+    # on, else K1), then with the dispatch the other way from the same
+    # state: the two end states bitwise equal
+    cfg, state0 = fluid_only.build(BIG_SHAPE)
+    state0 = perturbed(cfg, state0, 6)
+    default_on = sc_module.LARGE_CROSS_SECTION is not None
+    runs = {}
+    for on in (default_on, not default_on):
+        kernel = "stream_collide_2d" if on else "stream_collide"
+        sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM if on else None
+        try:
+            name = "fluid256" if on == default_on else f"fluid256 through {kernel}"
+            runs[on], by_path[name], run, wall_us = run_fluid_path(
+                "[12]", name, cfg, state0, [(50, {kernel: 50})], smi, reference=False)
+            if on == default_on:
+                profile_runner("[12]", run, runs[on], wall_us)
+        finally:
+            sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM if default_on else None
+    same = torch.equal(runs[True].f, runs[False].f)
+    print(f"[12] fluid256 through K10 and through K1 from one state, 50 iterations: end "
+          f"states bitwise equal {same}", flush=True)
+    if not same:
+        raise AssertionError("fluid256: the K10 and the K1 runs differ")
+    del state0, runs, run
     torch.cuda.empty_cache()
 
     # ---- fluid128: fused at the default k = 4
@@ -1888,10 +2020,13 @@ def phase_halo_split(smi):
 
 def phase_halo_tiled(smi):
     """K10 in halo mode: 256^3 as one slab and as 4 slabs of 64x256x256 in
-    phase 11's three operand sets, bitwise equal to one whole-domain K1
-    launch and within 1e-6 of the plain version.  Returns its row."""
+    phase 11's three operand sets, and 250x56x56 in 2 slabs and 17x9x33 in
+    one at the default schedule and a ragged last run, bitwise equal to one
+    whole-domain K1 launch and within 1e-6 of the plain version.  Returns
+    its row."""
     import torch
 
+    from hemocell_tpu_torch.fluid import stream_collide_2d as k10
     from hemocell_tpu_torch.fluid.halo import stream_collide_halo_plain
     from hemocell_tpu_torch.fluid.stream_collide import launch as launch_k1
     from hemocell_tpu_torch.fluid.stream_collide_2d import (stream_collide_2d,
@@ -1900,23 +2035,7 @@ def phase_halo_tiled(smi):
     dev = torch.device("cuda")
     shape = BIG_SHAPE
     omega = 1.0 / 1.16
-    g = torch.Generator(device="cpu").manual_seed(4)
-    force_u = torch.tensor([5e-7, 2e-7, -1e-7])
-    flags = torch.zeros(shape, dtype=torch.uint8)
-    flags[:, :, 0] = 2
-    flags[:, :, -1] = 2
-    flags[0, :, 1:-1] = 3
-    flags[:, 0, :] = 1
-    flags[:, -1, :] = 1
-    flags[40:60, 100:120, 30:50] = 1
-    flags = flags.to(dev)
-    bc = torch.zeros((3,) + shape)
-    bc[0, :, :, -1] = 0.01
-    bc[0, :, :, 0] = -0.01
-    bc[1, :, :, -1] = 0.002
-    bc = bc.to(dev)
-    f = near_equilibrium(shape, None, 5, dev)
-    force_field = (1e-5 * torch.randn((3,) + shape, generator=g)).to(dev)
+    f, force_u, force_field, flags, bc, _ = k10_operands(shape, dev)
     sets = [("uniform force, all fluid", (f, force_u, omega, None, None, None, None)),
             ("no force, all fluid", (f, None, omega, None, None, None, None)),
             ("force field + walls + velocity and pressure nodes",
@@ -1943,22 +2062,54 @@ def phase_halo_tiled(smi):
             del parts
             torch.cuda.empty_cache()
         del whole
+    # shapes the tile does not divide, in slabs, with the default schedule
+    # and with runs of 7 planes (a ragged last run): the slabs together
+    # bitwise equal to one whole-domain K1 launch
+    for rshape, n in (((250, 56, 56), 2), ((17, 9, 33), 1)):
+        rf, rfu, rff, rfl, rbc, rr0 = k10_operands(rshape, dev)
+        Xl, Yr, Zr = rshape[0] // n, rshape[1], rshape[2]
+        given = k10.Schedule(-(-Yr // k10.TY), -(-Zr // k10.TZ), 7, -(-Xl // 7))
+        for ops, which in (((rf, rfu, omega, None, None, None, None), "uniform force"),
+                           ((rf, rff, omega, rfl, rbc, rr0, None),
+                            "force field + flags + bc")):
+            whole = launch_k1(*ops[:6])
+            for s_name in ("default", f"given {tuple(given)}"):
+                parts, err = [], 0.0
+                for i in range(n):
+                    (fs, fo, om, fl, bcs, r0, _), halos = slab_rows(ops, i, n)
+                    out = (stream_collide_2d_halo(fs, fo, om, fl, bcs, r0, halos)
+                           if s_name == "default"
+                           else k10._launch(fs, fo, om, fl, bcs, r0, halos, given))
+                    plain = stream_collide_halo_plain(fs, fo, om, fl, bcs, r0, halos)
+                    err = max(err, float((out - plain).abs().max()))
+                    parts.append(out)
+                same = torch.equal(torch.cat(parts, dim=1), whole)
+                worst = max(worst, err)
+                print(f"[17] stream_collide_2d halo mode {rshape} in {n} slabs, {which}, "
+                      f"schedule {s_name}: bitwise equal to the whole-domain K1 launch "
+                      f"{same} | vs plain max_abs_err {err:.3e} (tol 1e-6)", flush=True)
+                if not (same and err <= 1e-6):
+                    raise AssertionError(f"K10 halo mode disagrees at {rshape}: {which}, "
+                                         f"schedule {s_name}")
+        del rf, rff, rfl, rbc, whole, parts, plain, out
     (fs, fo, om, fl, bcs, r0, _), halos = slab_rows(sets[0][1], 1, 4)
     Xl, Y, Z = fs.shape[1:]
     ms = time_ms(lambda: stream_collide_2d_halo(fs, fo, om, fl, bcs, r0, halos), 20)
+    k1_halo_ms = time_ms(lambda: launch_k1(fs, fo, om, fl, bcs, r0, halos=halos), 20)
     k10_ms = time_ms(lambda: stream_collide_2d(fs, fo, om, fl), 20)
     k1_ms = time_ms(lambda: launch_k1(fs, fo, om, fl), 20)
     plain_ms = time_ms(lambda: stream_collide_halo_plain(fs, fo, om, fl, bcs, r0, halos), 3,
                        warmup=1)
     b, by = bound_ms((Xl + 2) * Y * Z * 19 * 4 + Xl * Y * Z * 19 * 4, (Xl + 2) * Y * Z * 350)
-    print(f"[17] slab {(Xl, Y, Z)}, uniform force, on {smi}: K10 halo {ms:.4f} ms, K10 on the "
-          f"slab {k10_ms:.4f} ms, K1 {k1_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b:.4f} ms "
-          f"({by})", flush=True)
+    print(f"[17] slab {(Xl, Y, Z)}, uniform force, on {smi}: K10 halo {ms:.4f} ms, K1 halo "
+          f"{k1_halo_ms:.4f} ms, K10 on the slab {k10_ms:.4f} ms, K1 {k1_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b:.4f} ms ({by})", flush=True)
+    speed_gate(f"[17] K10 halo mode {(Xl, Y, Z)}, uniform force", ms, k1_halo_ms, "K1 halo")
     del f, force_field, bc, flags, sets
     torch.cuda.empty_cache()
     return {"stream_collide_2d_halo": dict(
         tol=1e-6, max_abs_err=worst, ms=ms, k10_ms=k10_ms, k1_ms=k1_ms, plain_ms=plain_ms,
-        bound_ms=b, bound_by=by, library_ms=None, shape=[Xl, Y, Z])}
+        k1_halo_ms=k1_halo_ms, bound_ms=b, bound_by=by, library_ms=None, shape=[Xl, Y, Z])}
 
 
 def phase_distributed(smi, mesh):
@@ -2012,18 +2163,30 @@ def phase_distributed(smi, mesh):
     del state, state0, run
     torch.cuda.empty_cache()
 
+    # fluid256 under the dispatch as it stands, then the other way: K10 and
+    # K1 in halo mode, bitwise equal end states
     sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
     cfg, state = fluid_only.build(BIG_SHAPE)
-    state = perturbed(cfg, state, 6)
-    sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM
-    try:
-        _, by_path["fluid256 distributed"], _, _ = run_fluid_path(
-            "[18]", "fluid256 distributed", cfg, shard_state(state, mesh),
-            [(20, {"stream_collide_2d_halo": 20})], smi, reference=False,
-            run=build_shardmap_runner(cfg, mesh))
-    finally:
-        sc_module.LARGE_CROSS_SECTION = None
-    del state
+    state = shard_state(perturbed(cfg, state, 6), mesh)
+    default_on = sc_module.LARGE_CROSS_SECTION is not None
+    ends = {}
+    for on in (default_on, not default_on):
+        kernel = "stream_collide_2d_halo" if on else "stream_collide_halo"
+        sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM if on else None
+        try:
+            name = ("fluid256 distributed" if on == default_on
+                    else f"fluid256 distributed through {kernel}")
+            ends[on], by_path[name], _, _ = run_fluid_path(
+                "[18]", name, cfg, state, [(20, {kernel: 20})], smi, reference=False,
+                run=build_shardmap_runner(cfg, mesh))
+        finally:
+            sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM if default_on else None
+    same = torch.equal(ends[True].f, ends[False].f)
+    print(f"[18] fluid256 distributed through K10 and through K1 in halo mode, 20 "
+          f"iterations from one state: end states bitwise equal {same}", flush=True)
+    if not same:
+        raise AssertionError("fluid256 distributed: the K10 and the K1 runs differ")
+    del state, ends
     torch.cuda.empty_cache()
 
     susp = build_suspension()
@@ -2529,9 +2692,9 @@ def main() -> int:
     # and K12 carry their comparison at the suspension's shapes under
     # ``at_128``
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    more = ("with_force_extra", "launch_alone_ms", "bitwise", "bins_ms", "pairs_ms",
+    more = ("with_force_extra", "launch_alone_ms", "planes_ms", "events_in_20_calls", "bitwise", "bins_ms", "pairs_ms",
             "pytorch_binning", "kernels_us", "max_abs_err_kernel_order", "k", "ms_per_step",
-            "k1_ms_per_step", "k1_ms", "k10_ms", "at_pipe", "by_k", "with_force_field",
+            "k1_ms_per_step", "k1_ms", "k10_ms", "k1_halo_ms", "at_pipe", "by_k", "with_force_field",
             "shape", "at_128", "with_omega_field", "capacity", "largest_slab", "overflow")
     kernels_line = {"kernels": []}
     for name in KERNEL_ORDER:
@@ -2546,13 +2709,15 @@ def main() -> int:
         if name in rows128:
             entry["at_128"] = {k: v for k, v in rows128[name].items() if k in keys + more}
         kernels_line["kernels"].append(entry)
-    # the speed gates of the binned spreads: reported, one line each above
-    # and here in sum, beside the kernels (see PERF.md section 6)
-    kernels_line["speed_gates"] = [dict(what=w, ms=ms, library_ms=lib, below=ms < lib)
-                                   for w, ms, lib in SPEED_GATES]
-    missed = [w for w, ms, lib in SPEED_GATES if not ms < lib]
-    print(f"speed gates: {len(SPEED_GATES) - len(missed)} of {len(SPEED_GATES)} binned "
-          f"spreads below index_add_; not below: {missed}", flush=True)
+    # the speed gates (the binned spreads against index_add_, K10 against
+    # K1): reported, one line each above and here in sum, beside the kernels
+    # (see PERF.md section 6)
+    kernels_line["speed_gates"] = [dict(what=w, ms=ms, against=other, against_ms=other_ms,
+                                        below=ms < other_ms)
+                                   for w, ms, other_ms, other in SPEED_GATES]
+    missed = [w for w, ms, other_ms, _ in SPEED_GATES if not ms < other_ms]
+    print(f"speed gates: {len(SPEED_GATES) - len(missed)} of {len(SPEED_GATES)} below their "
+          f"yardstick; not below: {missed}", flush=True)
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

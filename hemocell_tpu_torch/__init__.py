@@ -13,10 +13,10 @@ kernels for Hopper (``csrc/``), built with ``nvcc`` at first use
   K4  ibm/kernels.wall_hit_cells  per-cell wall-contact counts
   K5  cells/repulsion.repulsion  inter-cell repulsion (binned pair search)
   K6  fluid/advection_diffusion.ad_stream_collide  CEPAC scalar lattice
-  K7  fluid/lees_edwards.le_stream_collide  K1 with the Lees-Edwards planes
+  K7  fluid/lees_edwards.le_stream_collide  the corrected planes, then K1 with them
   K8  fluid/stream_collide_2x.py  two fused stream-collide steps (cell-free runs)
   K9  fluid/stream_collide_kx.py  k = 2..5 fused stream-collide steps
-  K10 fluid/stream_collide_2d.py  (x,y)-tiled stream-collide, large cross-sections
+  K10 fluid/stream_collide_2d.py  x-marching stream-collide, large cross-sections
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
 its kernel on CUDA tensors.  Entry points run on ``device="cuda"`` unless

@@ -40,17 +40,20 @@ SIGNATURES = {
     "hc_repulsion": [_P, _P, _P, _P, _F, _F, _I, _P, _I, _I, _I, _I, _P],
     "hc_bin_nodes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_repulsion_pairs": [_P, _P, _F, _F, _I, _P, _I, _I, _I, _I, _P],
+    # K7's corrected planes (csrc/le_planes.cu)
+    "hc_le_planes": [_P, _P, _P, _F, _I, _F, _F, _P, _I, _I, _I, _P],
     "hc_ad_stream_collide": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
     "hc_stream_collide_kx": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _I, _P],
     "hc_stream_collide_2x": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _P],
+    # K10 with its schedule (n_y, n_z, run, n_runs) before the shape
     "hc_stream_collide_2d": [_P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _I, _F,
-                             _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _I, _P],
     # the halo modes: the same arguments and the array of twelve row
     # pointers of csrc/halo_rows.cuh before the shape
     "hc_stream_collide_halo": [_P, _P, _P, _I, _F, _F, _F, _P, _F, _P, _P, _I, _F,
                                _P, _P, _I, _I, _I, _P],
     "hc_stream_collide_2d_halo": [_P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _I, _F,
-                                  _P, _I, _I, _I, _P],
+                                  _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "hc_spread_static": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_interp_static": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
     # the binning on the card (csrc/bin_vertices.cu)

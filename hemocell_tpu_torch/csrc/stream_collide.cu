@@ -28,8 +28,9 @@
 //   value for every q with c_z = +1, a node on the bottom plane z = 0 pushes
 //   planes[19 + q] for c_z = -1 (the substitution is at the source plane,
 //   before the stream).  The two corrected planes [38, X, Y] (displaced
-//   x-sample and Galilean equilibrium shift) are computed outside, as the
-//   TPU path computes them outside its kernel.  Same bound as K1 plus the
+//   x-sample and Galilean equilibrium shift) come from the launch before,
+//   le_planes.cu, as the TPU path computes them outside its kernel.  Same
+//   bound as K1 plus the
 //   planes: 38 f32 per (x, y) column, 2/Z of the population traffic.
 //
 // Halo mode (hc_stream_collide_halo): the kernel on one rank's x-slab.

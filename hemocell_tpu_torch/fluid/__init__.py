@@ -1,7 +1,7 @@
 """D3Q19 lattice-Boltzmann fluid: plain PyTorch solver (``lbm``), the
 wrapper of the fused CUDA stream-collide kernel (``stream_collide``), the
 fused multi-step kernels of cell-free runs (``stream_collide_2x``,
-``stream_collide_kx``), the (x,y)-tiled kernel for large cross-sections
+``stream_collide_kx``), the x-marching kernel for large cross-sections
 (``stream_collide_2d``), the CEPAC advection-diffusion lattice (``advection_diffusion``) and the
 Lees-Edwards sheared wrap (``lees_edwards``)."""
 

@@ -17,9 +17,10 @@ The accumulated displacement (lu) is carried by the caller as a host scalar
 (a Python float or a 0-dim CPU tensor), wrapped mod Lx.
 
 ``le_stream_collide`` is the wrapper: the plain ``le_stream_collide_plain``
-on CPU tensors; on CUDA tensors the two corrected planes are computed with
-PyTorch (2/Z of a collide, as the reference package computes them outside
-its kernel) and substituted inside the fused kernel.
+on CPU tensors; on CUDA tensors two launches, ``le_planes`` (the corrected
+planes in their own kernel, ``csrc/le_planes.cu``; the reference package
+computes them outside its kernel) and the fused kernel with the planes
+substituted.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import math
 
 import torch
 
+from .. import _build
 from . import d3q19
 from .._device import constant
 from .lbm import _consts, collide, equilibrium
@@ -45,6 +47,17 @@ def _plane_eq_shift(f_plane, du):
     return equilibrium(rho, u_shift) - equilibrium(rho, u)
 
 
+def _split_displacement(displacement, X):
+    """(i0, frac): the integer and fractional part of the displacement
+    wrapped into [0, X), from the host scalar (a float or a 0-dim CPU
+    tensor), so that no step waits for the card."""
+    if torch.is_tensor(displacement):
+        d = float(torch.remainder(displacement, X))
+    else:
+        d = float(displacement) % X
+    return int(math.floor(d)), d - math.floor(d)
+
+
 def _le_correct(top, bot, displacement, shear_velocity):
     """LE correction of the two post-collision wrap planes [19, X, Y].
 
@@ -52,15 +65,10 @@ def _le_correct(top, bot, displacement, shear_velocity):
     image BELOW (displaced -d, moving -U): sample the top plane at x + d and
     shift its equilibrium by -U.  Symmetrically, z=Z-1 receives from the
     bottom plane of the image ABOVE (+d, +U)."""
-    X = top.shape[1]
-    if torch.is_tensor(displacement):
-        d = float(torch.remainder(displacement, X))
-    else:
-        d = float(displacement) % X
-    i0 = int(math.floor(d))
+    i0, frac = _split_displacement(displacement, top.shape[1])
     # a 0-dim host tensor of the working dtype, so that 1 - frac rounds as
     # the populations do
-    frac = torch.tensor(d - math.floor(d), dtype=top.dtype)
+    frac = torch.tensor(frac, dtype=top.dtype)
 
     def sample(plane, sign):
         """g(x) = plane(x + sign*d), periodic linear interpolation."""
@@ -140,15 +148,44 @@ def corrected_planes_from_pair(post_top, post_bot, displacement, shear_velocity)
     return torch.cat([top_c, bot_c], dim=0)
 
 
+def le_planes(f, force, omega, displacement, shear_velocity):
+    """The corrected planes [38, X, Y] of ``f [19,X,Y,Z]`` on the all-fluid
+    box with the force field ``force [3,X,Y,Z]`` and omega a float or an
+    [X,Y,Z] field: ``_corrected_planes`` on CPU tensors, the kernel of
+    ``csrc/le_planes.cu`` on CUDA tensors."""
+    if not f.is_cuda:
+        le_planes.plain_calls += 1
+        return _corrected_planes(f, force, omega, displacement, shear_velocity)
+    X, Y, Z = f.shape[1:]
+    f = _build.cuda_arg(f, "le_planes: f", torch.float32, (19, X, Y, Z))
+    force = _build.cuda_arg(force, "le_planes: force", torch.float32, (3, X, Y, Z))
+    omega_ptr, omega_val = None, 0.0
+    if torch.is_tensor(omega) and omega.dim() > 0:
+        omega = _build.cuda_arg(omega, "le_planes: omega", torch.float32, (X, Y, Z))
+        omega_ptr = omega.data_ptr()
+    else:
+        omega_val = float(omega)
+    i0, frac = _split_displacement(displacement, X)
+    planes = torch.empty((38, X, Y), dtype=torch.float32, device=f.device)
+    err = _build.lib().hc_le_planes(
+        f.data_ptr(), force.data_ptr(), omega_ptr, omega_val, i0, frac,
+        float(shear_velocity), planes.data_ptr(), X, Y, Z,
+        torch.cuda.current_stream(f.device).cuda_stream)
+    _build.check(err, "hc_le_planes")
+    le_planes.launches += 1
+    return planes
+
+
 def le_stream_collide(f, force, omega, displacement, shear_velocity):
     """One Lees-Edwards step of ``f [19,X,Y,Z]`` on an all-fluid box with the
     force field ``force [3,X,Y,Z]``; omega is a float or the per-node
     ``[X,Y,Z]`` field of interior viscosity, which the corrected planes and
-    the kernel both take."""
+    the kernel both take.  On CUDA tensors: the planes kernel, then K1 with
+    the planes (two launches)."""
     if not f.is_cuda:
         le_stream_collide.plain_calls += 1
         return le_stream_collide_plain(f, force, omega, displacement, shear_velocity)
-    planes = _corrected_planes(f, force, omega, displacement, shear_velocity)
+    planes = le_planes(f, force, omega, displacement, shear_velocity)
     out = _launch_k1(f, force, omega, None, le_planes=planes)
     le_stream_collide.launches += 1
     return out
@@ -156,6 +193,8 @@ def le_stream_collide(f, force, omega, displacement, shear_velocity):
 
 le_stream_collide.launches = 0
 le_stream_collide.plain_calls = 0
+le_planes.launches = 0
+le_planes.plain_calls = 0
 
 
 def le_parameters(shear_rate_lbm: float, Z: int):

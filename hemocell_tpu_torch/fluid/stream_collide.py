@@ -28,13 +28,14 @@ from . import halo as _halo
 from ._kernel_args import fluid_args
 from .stream_collide_2d import stream_collide_2d
 
-# Cross-sections of Y*Z nodes from here on go to the (x,y)-tiled kernel K10;
-# None sends every shape to K1.  The reference decides by what fits its fast
+# Cross-sections of Y*Z nodes from here on go to kernel K10; None sends every
+# shape to K1.  The reference decides by what fits its fast
 # memory, which has no analog on the card; TILED_FROM keeps that rule's
 # outcome at the shapes the reference names: 256 x 256 goes to the tiled
 # kernel, pipeflow30's 56 x 56 and the suspension's 128 x 128 stay on K1.
-# The dispatch is off until K10 beats K1 at those shapes on the H100
-# (PERF.md, section 7); set LARGE_CROSS_SECTION = TILED_FROM to turn it on.
+# The dispatch is off until K10 beats K1 at those shapes on the H100 (it
+# does not yet: chip_smoke.py phase 11, PERF.md section 6); set
+# LARGE_CROSS_SECTION = TILED_FROM to turn it on.
 TILED_FROM = 256 * 256
 LARGE_CROSS_SECTION = None
 
