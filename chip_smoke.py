@@ -57,11 +57,15 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 Then the cell-free (pure-fluid) runner and its three kernels:
 
- 10. hold K8 (two fused steps) and K9 (k = 3, 4, 5 fused steps) against k
-     launches of K1 bit for bit, and against their plain versions at k x
-     1e-6, on the periodic 128^3 box, the 248x56x56 pipe with pipeflow30's
-     wall flags, an unforced box and a walled 50x30x34 box their tiles do not
-     divide; times per launch and per step beside K1's;
+ 10. hold K8 (two fused steps) and K9 (k = 2..5 fused steps; both the
+     x-marching, temporally blocked kernel) against k launches of K1 bit for
+     bit, and against their plain versions at k x 1e-6, on the periodic
+     128^3 box, the 248x56x56 pipe with pipeflow30's wall flags, 256^3 with a
+     uniform force, an unforced 64x48x40 box and walled 50x30x34 and 17x9x33
+     boxes their tiles do not divide; at the first three, ms per launch and
+     per step beside K1's a step and the bound (with the box kernel's time
+     before the redesign, as PERF.md records it, on the log line only), and
+     K8 and K9 at k = 4 against K1 a step as reported speed gates;
  11. hold K10 (the x-marching one-step kernel) against K1 bit for bit and
      against the plain version at 256^3 with a uniform force, with none, and
      with a force field, walls, velocity and pressure nodes; at 250x56x56
@@ -72,14 +76,16 @@ Then the cell-free (pure-fluid) runner and its three kernels:
  12. path fluid256: cases/fluid_only at 256^3, 50 iterations of the one-step
      loop under stream_collide's dispatch of large cross-sections as it
      stands (K10 only if it is on: it stays off while K10 loses to K1), then
-     50 with the dispatch the other way from the same state: the end states
-     bitwise equal;
- 13. path fluid128: cases/fluid_only at 128^3, fused at the default fluid_k =
-     4: 500 + 7 + 1 iterations (K9 at k = 4 and k = 3, then K1 through
-     step), equal to 508 K1 launches bit for bit; the same 500 iterations
-     through the default one-step loop for the second rate;
- 14. path fluidpipe: the same in the 248x56x56 pipe, 1000 iterations at
-     fluid_k = 4 and at fluid_k = 2 (K8);
+     50 with the dispatch the other way from the same state, then 50 fused
+     at fluid_k = 4 (12 K9 launches and one K8): the end states bitwise
+     equal;
+ 13. path fluid128: cases/fluid_only at 128^3, the one-step loop (K1) for
+     500 iterations, then from the same state the runner's CUDA default,
+     fused at fluid_k = 2: 500 + 7 + 1 iterations (K8, then K1 through step),
+     and fused at fluid_k = 4: 500 + 7 + 1 (K9 at k = 4 and 3, then K1), each
+     equal to 508 K1 launches bit for bit; each with a profiler window and
+     its rate and idle share beside the one-step loop's;
+ 14. path fluidpipe: the same in the 248x56x56 pipe, 1000 iterations each;
  15. a walled 24x20x16 box, 9 iterations at fluid_k = 4, on the card and with
      the plain versions on the CPU.
 
@@ -103,7 +109,8 @@ mode of K1 and K10 that carries its fluid:
      (``init_process_group("nccl", init_method="file://...")``), then
      ``HemoCell.distribute()``: pipeflow30 1000 iterations under phase 4's
      gates with every fluid step a K1 halo launch, MLUPS and idle share;
-     fluid128 500 iterations bitwise equal to the single-device K1 loop;
+     fluid128 500 iterations (the one-step loop) bitwise equal to the
+     single-device K1 loop;
      fluid256 20 iterations under the dispatch as it stands and 20 the other
      way (K1 and K10 in halo mode), bitwise equal;
      suspension128 500 iterations under phase 7's gates;
@@ -246,7 +253,8 @@ SPEED_GATES = []  # (what, kernel ms, yardstick ms, yardstick)
 def speed_gate(what, ms, other_ms, other="index_add_"):
     """Record one speed gate (reported, not enforced): a kernel's time below
     its yardstick's in the same call; the binned spreads (binning included)
-    against index_add_ with precomputed weights, K10 against K1."""
+    against index_add_ with precomputed weights, K10 against K1, K8 and K9
+    at k = 4 a step against K1."""
     SPEED_GATES.append((what, ms, other_ms, other))
     print(f"{what}: {ms:.4f} ms against {other} {other_ms:.4f} ms: "
           f"{'below' if ms < other_ms else 'NOT below'}", flush=True)
@@ -728,13 +736,14 @@ def phase_profile(tag, advance, wall_us_per_it, n=100):
     if busy == 0:
         print(f"{tag} profile: the profiler recorded no device time (not measured)",
               flush=True)
-        return
+        return None
     print(f"{tag} profile over {n} iterations: device busy {busy:.1f} us/it; wall "
           f"{wall_us_per_it:.1f} us/it unprofiled ({prof_wall_us:.1f} profiled); idle share "
           f"{1 - busy / wall_us_per_it:.3f} of the unprofiled wall", flush=True)
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:15]:
         print(f"{tag}   {us:8.2f} us/it {100 * us / busy:5.1f}%  x{count:.2f}/it  {key[:90]}",
               flush=True)
+    return busy, 1 - busy / wall_us_per_it
 
 
 SMALL_CONFIG = """<?xml version="1.0" ?>
@@ -1519,10 +1528,33 @@ def k1_contracted(f, force, omega):
         shutil.rmtree(d, ignore_errors=True)
 
 
+# The times of K8 and K9 a launch before their x-marching redesign (the box
+# kernel: a 3-D box with a k-node halo on all six faces, advanced k times in
+# place), as PERF.md section 6 records them from an earlier version of this
+# script: (case, k) -> ms.  Printed beside phase 10's times as such, never
+# as a number of this run.
+BOX_KERNEL_MS_EARLIER = {("box128", 2): 0.5287, ("box128", 3): 1.0211,
+                         ("box128", 4): 1.8527, ("box128", 5): 5.6712, ("pipe", 2): 0.2305,
+                         ("pipe", 4): 0.6839}
+
+
+def walled(shape, bar):
+    """Flags of a box with walls on both y faces and a wall bar inside."""
+    import torch
+
+    flags = torch.zeros(shape, dtype=torch.uint8)
+    flags[:, 0, :] = 1
+    flags[:, -1, :] = 1
+    flags[:, bar[0], bar[1]] = 1
+    return flags
+
+
 def phase_fused_kernels(smi):
     """K8 and K9 against k launches of K1 (bitwise) and against their plain
-    versions (k x 1e-6).  Returns the rows of K8 and K9 (K9's at k = 4, the
-    runner's default, with the other depths under ``by_k``)."""
+    versions (k x 1e-6), and timed beside K1 with K8 and K9 at k = 4 (the
+    JAX reference's depth) against K1 a step as reported speed gates.
+    Returns the rows of K8 and K9 (K9's at k = 4 with the other depths under
+    ``by_k``, the pipe's under ``at_pipe`` and 256^3's under ``at_256``)."""
     import torch
 
     from hemocell_tpu_torch.cases.pipeflow30 import pipe_flags
@@ -1532,15 +1564,14 @@ def phase_fused_kernels(smi):
     omega = 1.0 / 1.16
     force = torch.tensor([5e-7, 2e-7, -1e-7])
     pipe = torch.as_tensor(pipe_flags(PIPE_SHAPE, 25.0), device=dev)
-    odd_shape = (50, 30, 34)
-    odd = torch.zeros(odd_shape, dtype=torch.uint8)
-    odd[:, 0, :] = 1
-    odd[:, -1, :] = 1
-    odd[:, 7:11, 5:9] = 1  # a wall bar inside the box
     cases = [("box128", FLUID_SHAPE, None, force, True),
              ("pipe", PIPE_SHAPE, pipe, force, True),
+             ("box256", BIG_SHAPE, None, force, True),
              ("unforced 64x48x40", (64, 48, 40), None, None, False),
-             ("walled 50x30x34", odd_shape, odd.to(dev), force, False)]
+             ("walled 50x30x34", (50, 30, 34),
+              walled((50, 30, 34), (slice(7, 11), slice(5, 9))).to(dev), force, False),
+             ("walled 17x9x33", (17, 9, 33),
+              walled((17, 9, 33), (slice(3, 5), slice(5, 9))).to(dev), force, False)]
     rows = {}
     for name, shape, flags, frc, timed in cases:
         N = int(np.prod(shape))
@@ -1572,14 +1603,19 @@ def phase_fused_kernels(smi):
                 ms = time_ms(lambda: fused(f, frc, omega, flags, k), 20)
                 plain_ms = time_ms(lambda: plain_steps(f, frc, omega, flags, k), 3, warmup=1)
                 b, by = bound_ms(N * (38 * 4 + (1 if flags is not None else 0)), 350 * k * N)
+                box_ms = BOX_KERNEL_MS_EARLIER.get((name, k))
                 rows[(name, k)] = dict(
-                    k=k, tol=tol, max_abs_err=err, bitwise=bitwise, ms=ms,
+                    k=k, shape=list(shape), tol=tol, max_abs_err=err, bitwise=bitwise, ms=ms,
                     ms_per_step=ms / k, k1_ms_per_step=k1_ms, plain_ms=plain_ms,
                     bound_ms=b, bound_by=by, library_ms=None)
                 line += (f" | kernel {ms:.4f} ms per launch = {ms / k:.4f} per step (K1 "
                          f"{k1_ms:.4f} per step) | plain {plain_ms:.3f} ms | bound "
-                         f"{b:.4f} ms ({by})")
+                         f"{b:.4f} ms ({by}) | the box kernel's, earlier (PERF.md, not "
+                         "this run): " + (f"{box_ms:.4f} ms" if box_ms else "not measured"))
             print(line, flush=True)
+            if timed and k in (2, 4):
+                speed_gate(f"[10] {'K8' if k == 2 else 'K9 k=4'} vs K1 per step, {name}",
+                           ms / k, k1_ms, "K1")
             if not (bitwise and err <= tol and moved > 1e-6):
                 raise AssertionError(f"fused kernel k={k} on {name} disagrees with K1 or "
                                      "its plain version")
@@ -1587,9 +1623,10 @@ def phase_fused_kernels(smi):
         del f
         torch.cuda.empty_cache()
     print(f"[10] times on {smi}", flush=True)
-    k8 = dict(rows[("box128", 2)], at_pipe=rows[("pipe", 2)])
-    k9 = dict(rows[("box128", 4)], at_pipe=rows[("pipe", 4)],
-              by_k={str(k): rows[("box128", k)] for k in (3, 4, 5)})
+    k8 = dict(rows[("box128", 2)], at_pipe=rows[("pipe", 2)], at_256=rows[("box256", 2)])
+    k9 = dict(rows[("box128", 4)], at_pipe=rows[("pipe", 4)], at_256=rows[("box256", 4)],
+              by_k={str(k): {c: rows[(c, k)] for c in ("box128", "pipe", "box256")}
+                    for k in (3, 4, 5)})
     return {"stream_collide_2x": k8, "stream_collide_kx": k9}
 
 
@@ -1783,18 +1820,34 @@ def perturbed(cfg, state, seed):
 
 
 def profile_runner(tag, run, state, wall_us):
-    """phase_profile over 100 more iterations of ``run`` from ``state``."""
+    """phase_profile over 100 more iterations of ``run`` from ``state``;
+    returns its (busy us/it, idle share) or None."""
     box = [state]
 
     def advance(k):
         box[0] = run(box[0], k)
 
-    phase_profile(tag, advance, wall_us)
+    return phase_profile(tag, advance, wall_us)
+
+
+def compare_runners(tag, rates):
+    """One line a path: each runner's MLUPS, device busy us/it and idle
+    share beside the one-step loop's (the first of ``rates``, a list of
+    (name, MLUPS, profile))."""
+    base = rates[0][1]
+    parts = []
+    for name, mlups, prof in rates:
+        busy, idle = prof if prof else (float("nan"), float("nan"))
+        parts.append(f"{name} {mlups:.1f} MLUPS ({mlups / base:.3f}x), busy {busy:.1f} us/it, "
+                     f"idle {idle:.3f}")
+    print(f"{tag} " + " | ".join(parts), flush=True)
 
 
 def phase_fluid_paths(smi):
-    """The cell-free paths: fluid256 (K10), fluid128 (K9, K1), fluidpipe (K9,
-    K8), each with its one-step loop beside it where a rate is compared."""
+    """The cell-free paths: fluid256 (K1 or K10, and fused), fluid128 and
+    fluidpipe (the runner's CUDA default, fused at k = 2 through K8; K9 at k
+    = 4; the one-step loop through K1), with each runner's rate and idle
+    share beside the one-step loop's."""
     import torch
 
     import importlib
@@ -1805,11 +1858,16 @@ def phase_fluid_paths(smi):
     sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
     by_path = {}
 
+    def mlups(cfg, wall_us):
+        return float(np.prod(cfg.shape)) / wall_us
+
     # ---- fluid256: the one-step loop under stream_collide's dispatch of
     # large cross-sections as it stands (K10 if phase 11's gate turned it
     # on, else K1), then with the dispatch the other way from the same
-    # state: the two end states bitwise equal
-    cfg, state0 = fluid_only.build(BIG_SHAPE)
+    # state: the two end states bitwise equal; then 50 fused iterations at
+    # k = 4 (12 K9 launches and one K8) from the same state, bitwise equal
+    # to the K1 loop's end state
+    cfg, state0 = fluid_only.build(BIG_SHAPE, fluid_2x=False)
     state0 = perturbed(cfg, state0, 6)
     default_on = sc_module.LARGE_CROSS_SECTION is not None
     runs = {}
@@ -1829,40 +1887,76 @@ def phase_fluid_paths(smi):
           f"states bitwise equal {same}", flush=True)
     if not same:
         raise AssertionError("fluid256: the K10 and the K1 runs differ")
-    del state0, runs, run
+    cfg4, _ = fluid_only.build(BIG_SHAPE, fluid_k=4, fluid_2x=True)
+    fused4, by_path["fluid256 fused k=4"], _, _ = run_fluid_path(
+        "[12]", "fluid256 fused k=4", cfg4, state0,
+        [(50, {"stream_collide_kx": 12, "stream_collide_2x": 1})], smi, reference=False)
+    same = torch.equal(fused4.f, runs[False].f)
+    print(f"[12] fluid256 fused at k=4 and through the K1 loop from one state, 50 "
+          f"iterations: end states bitwise equal {same}", flush=True)
+    if not same:
+        raise AssertionError("fluid256: the fused run and the K1 loop differ")
+    del state0, runs, run, fused4
     torch.cuda.empty_cache()
 
-    # ---- fluid128: fused at the default k = 4
-    cfg, state0 = fluid_only.build(FLUID_SHAPE, fluid_2x=True)
+    # ---- fluid128: the runner's default (fused at k = 2 on CUDA), K9 at k =
+    # 4, and the one-step loop, each from one state
+    cfg, state0 = fluid_only.build(FLUID_SHAPE)
     state0 = perturbed(cfg, state0, 7)
-    pieces = [(500, {"stream_collide_kx": 125}),
-              (7, {"stream_collide_kx": 127}),
-              (1, {"stream_collide_kx": 127, "stream_collide": 1})]
-    state, by_path["fluid128"], run, wall_us = run_fluid_path(
-        "[13]", "fluid128 fused k=4", cfg, state0, pieces, smi)
-    profile_runner("[13] fused k=4:", run, state, wall_us)
-    cfg1, _ = fluid_only.build(FLUID_SHAPE)  # the default: the one-step loop
+    rates = []
+    cfg1, _ = fluid_only.build(FLUID_SHAPE, fluid_2x=False)
     state, _, run, wall_us = run_fluid_path(
         "[13]", "fluid128 one-step loop", cfg1, state0, [(500, {"stream_collide": 500})],
         smi, reference=False)
-    profile_runner("[13] one-step loop:", run, state, wall_us)
+    rates.append(("one-step loop", mlups(cfg, wall_us),
+                  profile_runner("[13] one-step loop:", run, state, wall_us)))
+    pieces = [(500, {"stream_collide_2x": 250}),
+              (7, {"stream_collide_2x": 253, "stream_collide": 1}),
+              (1, {"stream_collide_2x": 253, "stream_collide": 2})]
+    state, by_path["fluid128"], run, wall_us = run_fluid_path(
+        "[13]", "fluid128 fused (the default, k=2)", cfg, state0, pieces, smi)
+    rates.append(("fused k=2", mlups(cfg, wall_us),
+                  profile_runner("[13] fused k=2:", run, state, wall_us)))
+    cfg4, _ = fluid_only.build(FLUID_SHAPE, fluid_k=4, fluid_2x=True)
+    pieces = [(500, {"stream_collide_kx": 125}),
+              (7, {"stream_collide_kx": 127}),
+              (1, {"stream_collide_kx": 127, "stream_collide": 1})]
+    state, by_path["fluid128 k=4"], run, wall_us = run_fluid_path(
+        "[13]", "fluid128 fused k=4", cfg4, state0, pieces, smi)
+    rates.append(("fused k=4", mlups(cfg, wall_us),
+                  profile_runner("[13] fused k=4:", run, state, wall_us)))
+    compare_runners("[13] fluid128:", rates)
     del state, state0, run
     torch.cuda.empty_cache()
 
-    # ---- fluidpipe: pipeflow30's pipe with no cells, k = 4 and k = 2
-    cfg, state0 = fluid_only.build(walls="pipe", fluid_k=4, fluid_2x=True)
+    # ---- fluidpipe: pipeflow30's pipe with no cells, the default (k = 2),
+    # k = 4 and the one-step loop
+    cfg, state0 = fluid_only.build(walls="pipe")
     state0 = perturbed(cfg, state0, 8)
-    _, by_path["fluidpipe"], _, _ = run_fluid_path(
-        "[14]", "fluidpipe fused k=4", cfg, state0, [(1000, {"stream_collide_kx": 250})], smi)
-    cfg2, _ = fluid_only.build(walls="pipe", fluid_k=2, fluid_2x=True)
-    _, by_path["fluidpipe k=2"], _, _ = run_fluid_path(
-        "[14]", "fluidpipe fused k=2", cfg2, state0, [(1000, {"stream_collide_2x": 500})],
+    rates = []
+    cfg1, _ = fluid_only.build(walls="pipe", fluid_2x=False)
+    state, _, run, wall_us = run_fluid_path(
+        "[14]", "fluidpipe one-step loop", cfg1, state0, [(1000, {"stream_collide": 1000})],
+        smi, reference=False)
+    rates.append(("one-step loop", mlups(cfg, wall_us),
+                  profile_runner("[14] one-step loop:", run, state, wall_us)))
+    state, by_path["fluidpipe"], run, wall_us = run_fluid_path(
+        "[14]", "fluidpipe fused (the default, k=2)", cfg, state0,
+        [(1000, {"stream_collide_2x": 500})], smi)
+    rates.append(("fused k=2", mlups(cfg, wall_us),
+                  profile_runner("[14] fused k=2:", run, state, wall_us)))
+    cfg4, _ = fluid_only.build(walls="pipe", fluid_k=4, fluid_2x=True)
+    state, by_path["fluidpipe k=4"], run, wall_us = run_fluid_path(
+        "[14]", "fluidpipe fused k=4", cfg4, state0, [(1000, {"stream_collide_kx": 250})],
         smi)
-    cfg1, _ = fluid_only.build(walls="pipe")
-    run_fluid_path("[14]", "fluidpipe one-step loop", cfg1, state0,
-                   [(1000, {"stream_collide": 1000})], smi, reference=False)
-    del state0
+    rates.append(("fused k=4", mlups(cfg, wall_us),
+                  profile_runner("[14] fused k=4:", run, state, wall_us)))
+    compare_runners("[14] fluidpipe:", rates)
+    del state, state0, run
     torch.cuda.empty_cache()
+    # the kernels line takes a kernel's launches from the first path that
+    # ran it: K8's and K9's from fluid128, not from phase 12's fused check
+    by_path["fluid256 fused k=4"] = by_path.pop("fluid256 fused k=4")
     return by_path
 
 
@@ -2154,7 +2248,7 @@ def phase_distributed(smi, mesh):
     del hc
     torch.cuda.empty_cache()
 
-    cfg, state0 = fluid_only.build(FLUID_SHAPE)
+    cfg, state0 = fluid_only.build(FLUID_SHAPE, fluid_2x=False)
     state0 = perturbed(cfg, state0, 7)
     state, by_path["fluid128 distributed"], run, wall_us = run_fluid_path(
         "[18]", "fluid128 distributed", cfg, shard_state(state0, mesh),
@@ -2166,7 +2260,7 @@ def phase_distributed(smi, mesh):
     # fluid256 under the dispatch as it stands, then the other way: K10 and
     # K1 in halo mode, bitwise equal end states
     sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
-    cfg, state = fluid_only.build(BIG_SHAPE)
+    cfg, state = fluid_only.build(BIG_SHAPE, fluid_2x=False)
     state = shard_state(perturbed(cfg, state, 6), mesh)
     default_on = sc_module.LARGE_CROSS_SECTION is not None
     ends = {}
@@ -2694,7 +2788,8 @@ def main() -> int:
     keys = ("max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     more = ("with_force_extra", "launch_alone_ms", "planes_ms", "events_in_20_calls", "bitwise", "bins_ms", "pairs_ms",
             "pytorch_binning", "kernels_us", "max_abs_err_kernel_order", "k", "ms_per_step",
-            "k1_ms_per_step", "k1_ms", "k10_ms", "k1_halo_ms", "at_pipe", "by_k", "with_force_field",
+            "k1_ms_per_step", "k1_ms", "k10_ms", "k1_halo_ms", "at_pipe", "at_256", "by_k",
+            "with_force_field",
             "shape", "at_128", "with_omega_field", "capacity", "largest_slab", "overflow")
     kernels_line = {"kernels": []}
     for name in KERNEL_ORDER:

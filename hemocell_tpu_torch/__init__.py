@@ -15,7 +15,8 @@ kernels for Hopper (``csrc/``), built with ``nvcc`` at first use
   K6  fluid/advection_diffusion.ad_stream_collide  CEPAC scalar lattice
   K7  fluid/lees_edwards.le_stream_collide  the corrected planes, then K1 with them
   K8  fluid/stream_collide_2x.py  two fused stream-collide steps (cell-free runs)
-  K9  fluid/stream_collide_kx.py  k = 2..5 fused stream-collide steps
+  K9  fluid/stream_collide_kx.py  k = 2..5 fused stream-collide steps (with K8 one
+      x-marching, temporally blocked kernel)
   K10 fluid/stream_collide_2d.py  x-marching stream-collide, large cross-sections
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches

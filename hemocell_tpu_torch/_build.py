@@ -43,8 +43,11 @@ SIGNATURES = {
     # K7's corrected planes (csrc/le_planes.cu)
     "hc_le_planes": [_P, _P, _P, _F, _I, _F, _F, _P, _I, _I, _I, _P],
     "hc_ad_stream_collide": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
-    "hc_stream_collide_kx": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _I, _P],
-    "hc_stream_collide_2x": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _P],
+    # K9 (k, then its schedule n_y, n_z, run, n_runs) and K8 (the schedule)
+    # before the shape
+    "hc_stream_collide_kx": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
+    "hc_stream_collide_2x": [_P, _P, _F, _F, _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # K10 with its schedule (n_y, n_z, run, n_runs) before the shape
     "hc_stream_collide_2d": [_P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _I, _F,
                              _I, _I, _I, _I, _I, _I, _I, _P],

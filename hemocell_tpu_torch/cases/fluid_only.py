@@ -5,18 +5,20 @@ flow up before the cells go in.
 
 The box is ``presets.rbc_suspension(shape, n_cells=0, body_force=(5e-7, 0,
 0), repulsion=False)``; the pipe has pipeflow30's geometry (248x56x56,
-radius 25 lu by default) and its Poiseuille body force.  The runner takes
-one launch of the one-step fluid kernel per iteration; with ``--fused`` it
-advances ``--fluid-k`` iterations (4 unless given) per launch of the fused
-fluid kernels.  Prints the rate in MLUPS from a host clock around a
-synchronized run, and the velocity statistics over the fluid nodes.
+radius 25 lu by default) and its Poiseuille body force.  On a CUDA device
+the runner advances ``--fluid-k`` iterations (2 unless given) per launch of
+the fused fluid kernels, and ``--fluid-k 1`` takes one launch of the
+one-step kernel per iteration; on the CPU it takes the one-step loop unless
+``--fused`` asks for the fused path (``--fluid-k`` 4 unless given).  Prints
+the rate in MLUPS from a host clock around a synchronized run, and the
+velocity statistics over the fluid nodes.
 
 With ``--distribute`` (under torchrun, one rank per card) the lattice is
 cut into x-slabs and every rank runs the K1 halo-mode loop of the sharded
 runner; the fused kernels are single-device.
 
 Usage: python -m hemocell_tpu_torch.cases.fluid_only [--shape 128 128 128]
-           [--walls pipe] [--iterations 500] [--fused] [--fluid-k 4]
+           [--walls pipe] [--iterations 500] [--fused] [--fluid-k 2]
            [--device cpu]
        torchrun --nproc-per-node N -m hemocell_tpu_torch.cases.fluid_only --distribute
 """
@@ -88,7 +90,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     mesh, say = case_mesh(args)
-    cfg, state = build(args.shape, args.walls, args.fluid_k, args.fused,
+    cfg, state = build(args.shape, args.walls, args.fluid_k, True if args.fused else None,
                        device=mesh.device if mesh else args.device)
     if mesh is None:
         run = build_runner(cfg)

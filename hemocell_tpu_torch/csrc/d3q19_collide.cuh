@@ -114,16 +114,35 @@ __device__ __forceinline__ void collide_node(
   const float uF = ux * Fx + uy * Fy + uz * Fz;
   const float src = 1.0f - 0.5f * om;
   const bool pressure = (flag == kPressure) && has_rho0;
-#pragma unroll
-  for (int i = 0; i < 19; ++i) {
-    const float cu = dot_c(kCX[i], kCY[i], kCZ[i], ux, uy, uz);
-    const float cF = dot_c(kCX[i], kCY[i], kCZ[i], Fx, Fy, Fz);
-    const float poly = 3.0f * cu + 4.5f * cu * cu - 1.5f * usq;
+  // population i from a = 3 c.u, b = 4.5 (c.u)^2, its c.F and g = 9 (c.u)(c.F):
+  //   poly = 3 c.u + 4.5 (c.u)^2 - 1.5 u.u,  feq = w (drho + rho poly),
+  //   S = w (3 (c.F - u.F) + 9 (c.u)(c.F)),  res = h - om (h - feq) + src S
+  auto relax = [&](int i, float a, float b, float cF, float g) {
+    const float poly = a + b - 1.5f * usq;
     const float feq = weight(i) * (drho + rho * poly);
-    const float S = weight(i) * (3.0f * (cF - uF) + 9.0f * cu * cF);
+    const float S = weight(i) * (3.0f * (cF - uF) + g);
     float v = h[i] - om * (h[i] - feq) + src * S;
     if (pressure) v += weight(i) * (rho0 - rho) * (1.0f + poly);
     res[i] = v;
+  };
+  // The rest population, then the pairs (i, i + 1) of opposite velocities
+  // (c_{i+1} = -c_i).  Rounding is symmetric under negation, so c.u, c.F,
+  // 3 c.u of population i + 1 are exactly the negated ones of i, and its
+  // 4.5 (c.u)^2 and 9 (c.u)(c.F) exactly those of i: computing them once a
+  // pair gives the bits of computing each, with 45 multiplications and 12
+  // additions fewer a node.
+  {
+    const float cu = dot_c(kCX[0], kCY[0], kCZ[0], ux, uy, uz);
+    const float cF = dot_c(kCX[0], kCY[0], kCZ[0], Fx, Fy, Fz);
+    relax(0, 3.0f * cu, 4.5f * cu * cu, cF, 9.0f * cu * cF);
+  }
+#pragma unroll
+  for (int i = 1; i < 19; i += 2) {
+    const float cu = dot_c(kCX[i], kCY[i], kCZ[i], ux, uy, uz);
+    const float cF = dot_c(kCX[i], kCY[i], kCZ[i], Fx, Fy, Fz);
+    const float a = 3.0f * cu, b = 4.5f * cu * cu, g = 9.0f * cu * cF;
+    relax(i, a, b, cF, g);
+    relax(i + 1, -a, b, -cF, g);
   }
 }
 

@@ -32,7 +32,8 @@
 //     neighbour at -c_q, and writes it: 19 coalesced 128-byte rows a warp,
 //     where K1 pushes rows shifted by c_q;
 //   * the ring keeps a population only while the pull needs it (c_x = -1
-//     one plane, 0 two, +1 three: 38 population planes, not 57);
+//     one plane, 0 two, +1 three: 38 population planes, not 57); the
+//     staging, the ring and the pull are xmarch.cuh, shared with K8/K9;
 //   * the populations (and the force field and bc velocity where present)
 //     of plane x + 2 are staged by cp.async into a two-plane buffer while
 //     plane x + 1 collides and plane x is written; each thread stages and
@@ -64,19 +65,13 @@
 
 #include "d3q19_collide.cuh"
 #include "halo_rows.cuh"
+#include "xmarch.cuh"
 
 namespace {
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
+using xmarch::cp_async4;
+using xmarch::cp_async_commit;
+using xmarch::kRingPlanes;
 
 // The (y, z) tile: TY x 32 nodes, one block an SM (__launch_bounds__).
 // The library is built with these values; scripts/k10_tile_sweep.py
@@ -90,20 +85,6 @@ __device__ __forceinline__ void cp_async_wait1() {
 constexpr int TY = K10_TY, TZ = 32, PZ = TZ + 2;
 constexpr int kNodes = (TY + 2) * PZ;  // the padded plane
 constexpr int kThreads = (kNodes + 31) / 32 * 32;
-
-// The ring keeps each population of a collided plane only as long as the
-// pull needs it: plane x is written with the populations of c_x = +1 from
-// plane x - 1, of c_x = 0 from plane x and of c_x = -1 from plane x + 1.
-// So the c_x = -1 populations (5) of the plane just collided take one slot,
-// the c_x = 0 ones (9) two (planes x, x + 1) and the c_x = +1 ones (5)
-// three (x - 1, x, x + 1): 38 population planes where three whole planes
-// take 57.  kSub: q's index among the populations of its c_x.
-#define K10_SUB const int kSub[19] = {0, 0, 0, 1, 2, 3, 4, 1, 1, 2, 2, 3, 3, 4, 4, 5, 6, 7, 8};
-constexpr int kRingPlanes = 5 + 2 * 9 + 3 * 5;
-// the ring's population plane of population q (c_x = cx) of plane p
-__device__ __forceinline__ int ring_plane(int cx, int sub, int p) {
-  return cx < 0 ? sub : (cx == 0 ? 5 + (p & 1) * 9 + sub : 23 + (p % 3) * 5 + sub);
-}
 
 // The operands of one x plane p of the box (p may be -1 or X): the slab's
 // arrays at plane offset off with channel stride st, or in halo mode a
@@ -149,8 +130,6 @@ __global__ void __launch_bounds__(kThreads, K10_MIN_BLOCKS) stream_collide_2d_ke
     int force_mode, float fux, float fuy, float fuz, float omega,
     const uint8_t* __restrict__ flags, const float* __restrict__ bc_vel, int has_rho0,
     float rho0, HaloRows rows, int n_z, int run, int X, int Y, int Z) {
-  D3Q19_TABLES
-  K10_SUB
   constexpr int NODES = kNodes;
   extern __shared__ float smem[];
   float* ring = smem;                            // [38][NODES]
@@ -214,19 +193,17 @@ __global__ void __launch_bounds__(kThreads, K10_MIN_BLOCKS) stream_collide_2d_ke
     float res[19];
     d3q19::collide_node(h, res, flag, Fx, Fy, Fz, omega, velocity_node, bux, buy, buz,
                         has_rho0 != 0, rho0);
-    const int rp = p - x0 + 3;  // >= 2: plane p's slots by parity and mod 3
-#pragma unroll
-    for (int q = 0; q < 19; ++q) ring[ring_plane(kCX[q], kSub[q], rp) * NODES + n] = res[q];
+    xmarch::ring_store(ring, NODES, p - x0 + 3, n, res);  // >= 2: the slots by parity, mod 3
   };
 
   // planes x0 - 1 .. x1 are staged and collided in order
   uint8_t flag_a = 0, flag_b = 0;  // the flags of the next two staged planes
   fetch(x0 - 1, flag_a);
   fetch(x0, flag_b);
-  cp_async_wait1();
+  xmarch::cp_async_wait<1>();
   collide(x0 - 1, flag_a);
   fetch(x0 + 1, flag_a);
-  cp_async_wait1();
+  xmarch::cp_async_wait<1>();
   collide(x0, flag_b);
   flag_b = flag_a;
 
@@ -243,18 +220,15 @@ __global__ void __launch_bounds__(kThreads, K10_MIN_BLOCKS) stream_collide_2d_ke
     } else {
       cp_async_commit();
     }
-    cp_async_wait1();
+    xmarch::cp_async_wait<1>();
     collide(x + 1, flag_b);
     __syncthreads();  // the populations of planes x - 1 .. x + 1 are in the ring
     if (writer) {
       const long long g = (long long)x * YZ + wr;
-      const int rx = x - x0 + 3;
+      float h[19];
+      xmarch::ring_pull(ring, NODES, PZ, x - x0 + 3, wn, h);
 #pragma unroll
-      for (int q = 0; q < 19; ++q) {
-        // c_x = +1 from plane x - 1, 0 from x, -1 from x + 1
-        const int plane = ring_plane(kCX[q], kSub[q], rx - kCX[q]);
-        out[q * N + g] = ring[plane * NODES + wn - (kCY[q] * PZ + kCZ[q])];
-      }
+      for (int q = 0; q < 19; ++q) out[q * N + g] = h[q];
     }
     flag_b = flag_a;
     __syncthreads();  // the ring is read: the next plane takes its slots

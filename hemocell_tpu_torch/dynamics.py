@@ -134,12 +134,14 @@ class StepConfig:
     # solidify period (0 = off)
     solidify_every: int = 0
     # fused multi-step fluid kernels for cell-free runs: True turns them on
-    # (on the CPU their plain versions run through the same dispatch); None
-    # and False keep the one-step loop, which is the faster of the two on the
-    # H100 until the fused kernels are redesigned (PERF.md, section 7)
+    # (on the CPU their plain versions run through the same dispatch), False
+    # keeps the one-step loop; None is on for a CUDA device, where the fused
+    # kernels beat the one-step loop (PERF.md, section 6), and off on the CPU
     fluid_2x: Optional[bool] = None
-    # iterations per fused launch: None = 4; 2 takes the two-step kernel; the
-    # kernels are built for 2..5, and 1 keeps the one-step loop
+    # iterations per fused launch: None = 2 on a CUDA device (the one depth
+    # that beats the one-step loop there) and 4 elsewhere, as in the JAX
+    # reference; 2 takes the two-step kernel; the kernels are built for
+    # 2..5, and 1 keeps the one-step loop
     fluid_k: Optional[int] = None
     dtype: torch.dtype = torch.float32
     device: Any = "cuda"
@@ -415,16 +417,20 @@ def build_runner(cfg: StepConfig) -> Callable[[SimState, int], SimState]:
     launch."""
     step = build_step(cfg)
     device = resolve_device(cfg.device)
+    cuda = device.type == "cuda"
 
     # The fused kernels advance a run whose only change per iteration is
     # {f, it}, within their own scope: scalar omega, uniform or no body
     # force, bounce-back walls only, no Lees-Edwards, no CEPAC, no interior
-    # viscosity and no solidify.
-    k_fluid = 4 if cfg.fluid_k is None else int(cfg.fluid_k)
+    # viscosity and no solidify.  On the H100 they are on by default at k =
+    # 2, the one depth that beats the one-step loop in the 128^3 box and in
+    # the pipe (PERF.md, section 6: K8 against K1 a step).
+    default_k = 2 if cuda else 4
+    k_fluid = default_k if cfg.fluid_k is None else int(cfg.fluid_k)
     if k_fluid != 1 and k_fluid not in SUPPORTED_K:
         raise ValueError(f"fluid_k must be 1 or one of {SUPPORTED_K}, got {cfg.fluid_k}")
     fused = bool(
-        cfg.fluid_2x
+        (cuda if cfg.fluid_2x is None else cfg.fluid_2x)
         and k_fluid >= 2
         and cfg.lees_edwards_velocity is None
         and cfg.cepac_tau is None

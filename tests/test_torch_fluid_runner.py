@@ -126,8 +126,8 @@ def test_fused_runner_f64_matches_jax_fused_runner(walls, n, fluid_k):
 
 
 def test_default_on_the_cpu_is_the_one_step_loop():
-    """``fluid_2x=None`` keeps the one-step loop (on every device: the
-    runner does not look at it)."""
+    """``fluid_2x=None`` keeps the one-step loop on the CPU (on a CUDA
+    device it takes the fused kernels at k = 2)."""
     out, calls = _port_run(True, _f0(seed=1), 5, fluid_2x=None)
     assert calls == {"k1": 5, "2x": 0, "kx": 0} and out.it == 5
 
@@ -197,7 +197,7 @@ CONFIG_XML = """<?xml version="1.0" ?>
 
 def test_facade_cell_free_iterate_reaches_the_fused_dispatch(tmp_path, monkeypatch):
     """No facade method passes fluid_k or fluid_2x, so the runner's defaults
-    apply (the one-step loop).  Here ``build_runner`` is given
+    apply (the one-step loop on the CPU, K8 at k = 2 on CUDA).  Here ``build_runner`` is given
     ``fluid_2x=True`` in their place, as a caller's config would: 9 cell-free
     iterations are two launches at k = 4 and one step, and agree with the
     JAX facade in f32 to 1e-6 (two f32 implementations)."""
