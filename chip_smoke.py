@@ -13,13 +13,16 @@ Phases, in order; any failure exits non-zero and prints no result:
      same function; K2 also: two launches bitwise equal, its tile bins equal
      to the plain ones, the binning's own time, and its time (binning
      included, with and without the extra force) against index_add_ with
-     precomputed weights (a speed gate, reported);
+     precomputed weights (a speed gate, reported); K3 and K4 (K4 a block
+     a cell, on the cells' per-type positions) also: two launches bitwise
+     equal, K4's device launches a call, and their times before the
+     redesign as PERF.md records them (marked as earlier figures);
   4. pipeflow30 at full size (248x56x56, radius 25, 30% hematocrit, packed by
      tools/packcells): 1000 coupled iterations through K1-K4 with the launch
      counts read around the run, MLUPS, and the physical checks; then a
-     torch.profiler window of 100 more iterations (device time by kernel and
-     the device's idle share); 4b. 200 more iterations twice from one state:
-     the end states bitwise equal;
+     torch.profiler window of 100 more iterations (device time by kernel,
+     device launches an iteration and the device's idle share); 4b. 200
+     more iterations twice from one state: the end states bitwise equal;
   5. a small walled pipe with 2 RBC + 1 PLT run on the card and with the
      plain versions on the CPU from the same state, compared after 41 steps;
   6. hold K5 (repulsion), K6 (CEPAC) and K7 (Lees-Edwards, with a scalar
@@ -33,7 +36,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      within one event of the wrappers' exact counts (20 each), and no other;
      and K1,
      K2 (without and with its extra force, with phase 3's K2 checks and
-     speed gate) and K3 once more at these shapes; K5 also: its node bins
+     speed gate), K3 and K4 (walls on the z faces, the vertices moved by
+     2 lu) once more at these shapes, with phase 3's checks; K5 also: its
+     node bins
      on the card equal to a stable torch.sort and searchsorted and to the
      plain node_bins bit for bit, two launches bitwise equal, the error
      against the plain version in its own summation order, and the times of
@@ -407,6 +412,18 @@ def kernel_inputs(hc, seed=0):
     return f, pos.contiguous(), force, active, pos_adv.contiguous(), cell_id, len(nv)
 
 
+# The times of K3 and K4 before their redesign (K3 with 64-bit indices and
+# its velocity loads after its flags; K4 a thread a vertex behind a fill of
+# its counts), as PERF.md section 6 records them from earlier versions of
+# this script, by phase: printed beside this run's times as such, never as
+# a number of this run.
+INTERP_WALL_HIT_MS_EARLIER = {
+    ("interp", "[3]"): "0.0139 ms (the first port's 0.0147)",
+    ("interp", "[6]"): "0.0491 ms",
+    ("wall_hit_cells", "[3]"): "0.0057 ms (the first port's 0.0055)",
+}
+
+
 def compare_fluid_ibm(tag, f, pos, force, active, flags, f_lim, omega, bf):
     """K2 (without and with its uncapped extra force), K1 on the spread
     field plus the body force, and K3 on the resulting velocity, each
@@ -414,8 +431,8 @@ def compare_fluid_ibm(tag, f, pos, force, active, flags, f_lim, omega, bf):
     1e-5 of the largest field value (64-bit fixed-point sums, not
     index_add_'s order), K1 and K3 1e-6.  K2 also: two launches bitwise
     equal, its tile bins against the plain ones, and its time (binning
-    included) against index_add_ with precomputed weights.  Returns the rows
-    of K2, K1, K3."""
+    included) against index_add_ with precomputed weights.  K3 also: two
+    launches bitwise equal.  Returns the rows of K2, K1, K3."""
     import torch
 
     from hemocell_tpu_torch.fluid import lbm
@@ -496,8 +513,12 @@ def compare_fluid_ibm(tag, f, pos, force, active, flags, f_lim, omega, bf):
     # K3 interp of the Guo-shifted velocity
     _, u = lbm.macroscopic(out, force_field)
     v = kernels.interp(u, pos, active, flags)
+    bitwise = torch.equal(v, kernels.interp(u, pos, active, flags))
     v_ref = coupling.interp_velocity(u, pos, active, flags)
     err, tol = float((v - v_ref).abs().max()), 1e-6
+    print(f"{tag} interp: two launches bitwise equal {bitwise}", flush=True)
+    if not bitwise:
+        raise AssertionError("interp: two launches on the same inputs differ")
     nz = w.reshape(-1) != 0
     touched_u = int(torch.unique(flat[nz]).numel())
     rows_idx = torch.arange(P, device=dev).repeat_interleave(8)
@@ -506,45 +527,101 @@ def compare_fluid_ibm(tag, f, pos, force, active, flags, f_lim, omega, bf):
     uT = u.reshape(3, N).T.contiguous()
     lib = time_ms(lambda: torch.sparse.mm(W, uT), 50)
     b, by = bound_ms(P * (16 + 12) + touched * 1 + touched_u * 12, P * 80)
-    rows.append(dict(name="interp", tol=tol, max_abs_err=err,
-                     ms=time_ms(lambda: kernels.interp(u, pos, active, flags), 50),
+    ms = time_ms(lambda: kernels.interp(u, pos, active, flags), 50)
+    earlier = INTERP_WALL_HIT_MS_EARLIER.get(("interp", tag))
+    print(f"{tag} interp: {ms:.4f} ms; before the redesign, earlier (PERF.md, "
+          f"not this run): {earlier or 'not measured'}", flush=True)
+    rows.append(dict(name="interp", tol=tol, max_abs_err=err, ms=ms,
                      plain_ms=time_ms(
                          lambda: coupling.interp_velocity(u, pos, active, flags), 10),
-                     bound_ms=b, bound_by=by, library_ms=lib))
+                     bound_ms=b, bound_by=by, library_ms=lib, bitwise=bitwise))
     return rows
+
+
+def compare_wall_hits(tag, pos_adv, counts, flags, slabs=0):
+    """K4 on positions [P, 3] of the per-type layout ``counts``, handed to
+    it per type as the step holds them, against its plain version on their
+    concatenation: exact integers, two launches bitwise equal; timed, with
+    its device launches a call (profiler).  With ``slabs`` > 0 also as the
+    distributed step calls it: on each of ``slabs`` x-slabs, the
+    ``_localize``d positions with their owned mask on the slab's extended
+    flags, exactly the plain version, the slabs summing to the whole
+    domain; and the layout with an empty type between two live ones, whole
+    and on the slabs.  Returns its row."""
+    import torch
+
+    from hemocell_tpu_torch.dynamics import _split, cell_index
+    from hemocell_tpu_torch.ibm import coupling, kernels
+    from hemocell_tpu_torch.parallel.sharded_step import _localize
+
+    shape = tuple(flags.shape)
+    P = pos_adv.shape[0]
+    n_cells = sum(nc for nc, _ in counts)
+    cell_id = cell_index(tuple(counts), pos_adv.device)
+    per_type = _split(pos_adv, counts)
+    hits = kernels.wall_hit_cells(per_type, flags)
+    hits_ref = coupling.wall_hit_cells(pos_adv, cell_id, flags, n_cells)
+    err = float((hits - hits_ref).abs().max())
+    if int(hits_ref.sum()) == 0:
+        raise AssertionError("wall-hit check saw no wall contacts")
+    if not torch.equal(hits, kernels.wall_hit_cells(per_type, flags)):
+        raise AssertionError("wall_hit_cells: two launches on the same inputs differ")
+    layouts = []
+    if slabs:
+        # an empty type between the first and the rest
+        gap = (counts[0], (0, 7)) + tuple(counts[1:])
+        layouts = [(counts, per_type), (gap, per_type[:1] + [pos_adv.new_empty((0, 7, 3))]
+                                        + per_type[1:])]
+    for lay, cells in layouts:
+        cid = cell_index(tuple(lay), pos_adv.device)
+        whole = kernels.wall_hit_cells(cells, flags)
+        err = max(err, float((whole - hits_ref).abs().max()))
+        Xl = shape[0] // slabs
+        total = torch.zeros_like(whole)
+        for x0 in range(0, slabs * Xl, Xl):
+            flags_ext = flags[[(x0 + i) % shape[0] for i in range(Xl + 1)]].contiguous()
+            p_local, owned = _localize(pos_adv, x0, Xl, shape)
+            got = kernels.wall_hit_cells(_split(p_local, lay), flags_ext, owned)
+            ref = coupling.wall_hit_cells(p_local, cid, flags_ext, n_cells, owned)
+            err = max(err, float((got - ref).abs().max()))
+            total += got
+        err = max(err, float((total - hits_ref).abs().max()))
+        print(f"{tag} wall_hit_cells on {slabs} slabs with owned masks, layout {lay}: "
+              f"max |diff| {err} against the plain version, the slabs' sum "
+              f"{int(total.sum())} of {int(hits_ref.sum())}", flush=True)
+    near = torch.remainder(torch.floor(coupling.wrap_positions(pos_adv, shape) + 0.5).long(),
+                           torch.tensor(shape, device=pos_adv.device))
+    distinct = int(torch.unique((near[:, 0] * shape[1] + near[:, 1]) * shape[2]
+                                + near[:, 2]).numel())
+    b, by = bound_ms(P * 12 + distinct + n_cells * 4, P * 20)
+    ms = time_ms(lambda: kernels.wall_hit_cells(per_type, flags), 50)
+    launches = device_launches(lambda: kernels.wall_hit_cells(per_type, flags), 20)
+    earlier = INTERP_WALL_HIT_MS_EARLIER.get(("wall_hit_cells", tag))
+    print(f"{tag} wall_hit_cells: {ms:.4f} ms, {sum(launches.values()) / 20:.2f} device "
+          f"launches a call ({launches}), {int((hits_ref > 0).sum())} of {n_cells} cells "
+          f"hit; before the redesign, earlier (PERF.md, not this run): "
+          f"{earlier or 'not measured'}", flush=True)
+    return dict(name="wall_hit_cells", tol=0.0, max_abs_err=err, ms=ms,
+                plain_ms=time_ms(lambda: coupling.wall_hit_cells(pos_adv, cell_id, flags,
+                                                                 n_cells), 10),
+                bound_ms=b, bound_by=by, library_ms=None, bitwise=True,
+                device_launches_per_call=sum(launches.values()) / 20)
 
 
 def phase_kernels(hc):
     """Each kernel against its plain version on the same inputs."""
     import torch
 
-    from hemocell_tpu_torch.ibm import coupling, kernels
-
-    f, pos, force, active, pos_adv, cell_id, n_cells = kernel_inputs(hc)
+    f, pos, force, active, pos_adv, _, n_cells = kernel_inputs(hc)
     flags, shape = hc.flags, hc.shape
     N = int(np.prod(shape))
     P = pos.shape[0]
     bf = torch.tensor(hc.body_force, device=hc.device)[:, None, None, None]
+    counts = tuple((cs.pos.shape[0], cs.pos.shape[1]) for cs in hc.cell_states)
     rows = compare_fluid_ibm("[3]", f, pos, force, active, flags, hc.params.f_limit,
                              hc.omega, bf)
 
-    # K4 wall hits on displaced positions: exact integers
-    hits = kernels.wall_hit_cells(pos_adv, cell_id, flags, n_cells)
-    hits_ref = coupling.wall_hit_cells(pos_adv, cell_id, flags, n_cells)
-    err, tol = float((hits - hits_ref).abs().max()), 0.0
-    if int(hits_ref.sum()) == 0:
-        raise AssertionError("wall-hit check saw no wall contacts")
-    near = torch.remainder(torch.floor(coupling.wrap_positions(pos_adv, shape) + 0.5).long(),
-                           torch.tensor(shape, device=hc.device))
-    distinct = int(torch.unique((near[:, 0] * shape[1] + near[:, 1]) * shape[2]
-                                + near[:, 2]).numel())
-    b, by = bound_ms(P * 16 + distinct + n_cells * 4, P * 20)
-    rows.append(dict(name="wall_hit_cells", tol=tol, max_abs_err=err,
-                     ms=time_ms(lambda: kernels.wall_hit_cells(pos_adv, cell_id, flags,
-                                                               n_cells), 50),
-                     plain_ms=time_ms(lambda: coupling.wall_hit_cells(
-                         pos_adv, cell_id, flags, n_cells), 10),
-                     bound_ms=b, bound_by=by, library_ms=None))
+    rows.append(compare_wall_hits("[3]", pos_adv, counts, flags, slabs=4))
 
     check_rows("[3]", rows)
     print(f"[3] shapes: lattice {shape} ({N} nodes), {P} vertices, {n_cells} cells",
@@ -739,7 +816,8 @@ def phase_profile(tag, advance, wall_us_per_it, n=100):
         return None
     print(f"{tag} profile over {n} iterations: device busy {busy:.1f} us/it; wall "
           f"{wall_us_per_it:.1f} us/it unprofiled ({prof_wall_us:.1f} profiled); idle share "
-          f"{1 - busy / wall_us_per_it:.3f} of the unprofiled wall", flush=True)
+          f"{1 - busy / wall_us_per_it:.3f} of the unprofiled wall; "
+          f"{sum(r[2] for r in rows):.2f} device launches/it", flush=True)
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:15]:
         print(f"{tag}   {us:8.2f} us/it {100 * us / busy:5.1f}%  x{count:.2f}/it  {key[:90]}",
               flush=True)
@@ -1160,6 +1238,13 @@ def phase_suspension_kernels(susp):
     flags = torch.zeros(shape, dtype=torch.uint8, device=dev)
     bf = torch.tensor(cfg.body_force, device=dev)[:, None, None, None]
     rows128 = compare_fluid_ibm("[6]", f, pos, vforce, active, flags, f_lim, cfg.omega, bf)
+    # K4 on this vertex set moved by 2 lu of noise, with walls on the two z
+    # faces (the box itself has none)
+    walls = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    walls[:, :, :2] = 1
+    walls[:, :, -2:] = 1
+    rows128.append(compare_wall_hits(
+        "[6]", pos + (2.0 * torch.randn((P, 3), generator=g)).to(dev), ((nc, nv),), walls))
     check_rows("[6]", rows)
     check_rows("[6] at 128^3:", rows128)
     torch.cuda.empty_cache()
@@ -2790,7 +2875,8 @@ def main() -> int:
             "pytorch_binning", "kernels_us", "max_abs_err_kernel_order", "k", "ms_per_step",
             "k1_ms_per_step", "k1_ms", "k10_ms", "k1_halo_ms", "at_pipe", "at_256", "by_k",
             "with_force_field",
-            "shape", "at_128", "with_omega_field", "capacity", "largest_slab", "overflow")
+            "shape", "at_128", "with_omega_field", "capacity", "largest_slab", "overflow",
+            "device_launches_per_call")
     kernels_line = {"kernels": []}
     for name in KERNEL_ORDER:
         per_path = {path: counts[name] for path, counts in by_path.items()}

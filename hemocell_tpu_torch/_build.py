@@ -35,7 +35,9 @@ SIGNATURES = {
                           _P, _I, _I, _I, _P],
     "hc_spread": [_P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_interp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "hc_wall_hit_cells": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # K4 takes the per-type layout: host arrays (pointers, NC, NV) and the
+    # number of types
+    "hc_wall_hit_cells": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
     # K5 and its node bins (csrc/repulsion.cu, csrc/bin_nodes.cu)
     "hc_repulsion": [_P, _P, _P, _P, _F, _F, _I, _P, _I, _I, _I, _I, _P],
     "hc_bin_nodes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -1,10 +1,14 @@
 // Shared device helpers of the IBM kernels (spread.cu, interp.cu,
-// wall_hit.cu): periodic wrap of unwrapped vertex positions and the
-// boundary-aware trilinear stencil of hemocell_tpu_torch/ibm/coupling.py.
+// wall_hit.cu, the binning): periodic wrap of unwrapped vertex positions and
+// the corners of the trilinear stencil of hemocell_tpu_torch/ibm/coupling.py.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The most cell types one launch of K4 takes (its per-type table is a
+// kernel parameter; ibm/kernels.py's MAX_TYPES).
+#define HC_MAX_TYPES 8
 
 namespace hc {
 
@@ -21,41 +25,42 @@ __device__ __forceinline__ int wrap_idx(int i, int L) {
   return i < 0 ? i + L : i;
 }
 
-struct Stencil {
-  long long node[8];  // flat (x*Y + y)*Z + z indices of the 2^3 cell corners
-  float w[8];         // renormalised, fluid-masked, activity-scaled weights
+// wrap_pos without its division where p already lies in [0, L) (fmodf
+// returns such a p exactly): the same value, fewer instructions.
+__device__ __forceinline__ float wrap_pos_fast(float p, int L) {
+  return p >= 0.f && p < (float)L ? p : wrap_pos(p, L);
+}
+
+// wrap_idx for i in [0, 2L): the same value without the remainder.
+__device__ __forceinline__ int wrap_once(int i, int L) { return i >= L ? i - L : i; }
+
+// The lattice cell containing an unwrapped position (x, y, z): its corners'
+// wrapped indices and trilinear weights along each axis.  Corner k is
+// (ix[k >> 2 & 1], iy[k >> 1 & 1], iz[k & 1]), the reference package's
+// order, with weight (wx * wy) * wz.  wrap_pos lies in [0, L], so the base
+// floor(.) in [0, L] and wrap_once is wrap_idx there.
+struct Corners {
+  int ix[2], iy[2], iz[2];
+  float wx[2], wy[2], wz[2];
 };
 
-// The 8 trilinear weights of the cell containing p, zeroed on non-fluid
-// nodes, divided by max(total fluid weight, 1e-30) and multiplied by the
-// activity mask -- coupling.stencil(pos, flags, weight_mask=act).  Corner k
-// is offset (k>>2 & 1, k>>1 & 1, k & 1), the reference package's order.
-__device__ __forceinline__ void trilinear_stencil(
-    const float* __restrict__ p3, const uint8_t* __restrict__ flags,
-    int X, int Y, int Z, float act, Stencil& s) {
-  const float px = wrap_pos(p3[0], X), py = wrap_pos(p3[1], Y), pz = wrap_pos(p3[2], Z);
+__device__ __forceinline__ void corners(float x, float y, float z, int X, int Y, int Z,
+                                        Corners& c) {
+  const float px = wrap_pos_fast(x, X), py = wrap_pos_fast(y, Y), pz = wrap_pos_fast(z, Z);
   const float bx = floorf(px), by = floorf(py), bz = floorf(pz);
   const float fx = px - bx, fy = py - by, fz = pz - bz;
-  const int ix[2] = {wrap_idx((int)bx, X), wrap_idx((int)bx + 1, X)};
-  const int iy[2] = {wrap_idx((int)by, Y), wrap_idx((int)by + 1, Y)};
-  const int iz[2] = {wrap_idx((int)bz, Z), wrap_idx((int)bz + 1, Z)};
-  const float wx[2] = {1.0f - fx, fx};
-  const float wy[2] = {1.0f - fy, fy};
-  const float wz[2] = {1.0f - fz, fz};
-  float total = 0.f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int a = (k >> 2) & 1, b = (k >> 1) & 1, c = k & 1;
-    const long long node = ((long long)ix[a] * Y + iy[b]) * Z + iz[c];
-    float w = wx[a] * wy[b] * wz[c];
-    if (flags[node] != 0) w = 0.f;
-    s.node[k] = node;
-    s.w[k] = w;
-    total += w;
-  }
-  const float denom = fmaxf(total, 1e-30f);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) s.w[k] = (s.w[k] / denom) * act;
+  c.ix[0] = wrap_once((int)bx, X);
+  c.iy[0] = wrap_once((int)by, Y);
+  c.iz[0] = wrap_once((int)bz, Z);
+  c.ix[1] = wrap_once(c.ix[0] + 1, X);
+  c.iy[1] = wrap_once(c.iy[0] + 1, Y);
+  c.iz[1] = wrap_once(c.iz[0] + 1, Z);
+  c.wx[0] = 1.0f - fx;
+  c.wx[1] = fx;
+  c.wy[0] = 1.0f - fy;
+  c.wy[1] = fy;
+  c.wz[0] = 1.0f - fz;
+  c.wz[1] = fz;
 }
 
 }  // namespace hc

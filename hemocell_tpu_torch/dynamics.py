@@ -38,6 +38,7 @@ fluid kernels (K9, or K8 for two steps).  PreInlet is not ported yet.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable, NamedTuple, Optional, Sequence
 
@@ -156,6 +157,14 @@ def _split(flat, counts):
     return out
 
 
+@functools.lru_cache(maxsize=16)
+def cell_index(counts, device=None):
+    """The global cell (int32 [P]) of each vertex of the flat order of
+    ``counts``, the per-type ((NC, NV), ...) layout; cached per layout."""
+    nv = torch.tensor([nv for nc, nv in counts for _ in range(nc)], dtype=torch.long)
+    return torch.arange(len(nv), dtype=torch.int32).repeat_interleave(nv).to(device)
+
+
 def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
     """Build the single-iteration function ``step(state) -> state``."""
     device = resolve_device(cfg.device)
@@ -182,16 +191,6 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
     le_u = cfg.lees_edwards_velocity
     fshape = torch.tensor([float(s) for s in shape], dtype=dtype, device=device)
     shape_i = torch.tensor(shape, dtype=torch.long, device=device)
-    cell_ids = {}
-
-    def _cell_ids(counts):
-        """Global cell id of every flattened vertex (cached per layout)."""
-        if counts not in cell_ids:
-            nv_per_cell = torch.tensor([nv for nc, nv in counts for _ in range(nc)],
-                                       dtype=torch.long)
-            ids = torch.arange(len(nv_per_cell), dtype=torch.int32)
-            cell_ids[counts] = ids.repeat_interleave(nv_per_cell).to(device)
-        return cell_ids[counts]
 
     def omega_raycast(cells):
         """The omega field from a full raycast of the membranes."""
@@ -252,7 +251,6 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
         if cfg.solidify_every and state.flags_state is not None:
             flags_now = state.flags_state
         counts = tuple((cs.pos.shape[0], cs.pos.shape[1]) for cs in cells)
-        n_cells = sum(nc for nc, _ in counts)
         have_vertices = sum(nc * nv for nc, nv in counts) > 0
 
         # ---- 0: flatten ---------------------------------------------------
@@ -272,7 +270,7 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
         if have_vertices and (rep_on or brep_on):
             frep = torch.cat([cs.force_repulsion.reshape(-1, 3) for cs in cells])
             if rep_on and it % cfg.repulsion_every == 0:
-                frep = rep.repulsion(pos_flat, _cell_ids(counts), active, shape,
+                frep = rep.repulsion(pos_flat, cell_index(counts, device), active, shape,
                                      cfg.repulsion_constant, cfg.repulsion_cutoff)
             if brep_on and it % cfg.boundary_repulsion_every == 0:
                 fb = rep.boundary_repulsion_forces(
@@ -383,9 +381,7 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                 new_pos.append(cs.pos + cs.vel)
         hits = None
         if has_boundaries and have_vertices:
-            hits = kernels.wall_hit_cells(
-                torch.cat([p.reshape(-1, 3) for p in new_pos]),
-                _cell_ids(counts), flags_now, n_cells)
+            hits = kernels.wall_hit_cells(new_pos, flags_now)
         off = 0
         for k, (cs, (nc, _)) in enumerate(zip(cells, counts)):
             alive = cs.alive

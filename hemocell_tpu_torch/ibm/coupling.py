@@ -107,9 +107,12 @@ def interp_velocity(u, pos, active, flags):
     return interpolate(u, idx, w)
 
 
-def wall_hit_cells(pos, cell_id, flags, n_cells):
+def wall_hit_cells(pos, cell_id, flags, n_cells, owned=None):
     """Plain K4: per-cell count (int32 [n_cells]) of vertices at unwrapped
-    positions [P,3] whose nearest node is not fluid."""
+    positions [P,3] whose nearest node is not fluid; with ``owned`` (bool
+    [P]) only the vertices it marks count."""
     hit = on_boundary(wrap_positions(pos, flags.shape), flags)
+    if owned is not None:
+        hit = hit & owned.bool()
     counts = torch.zeros(n_cells, dtype=torch.int32, device=pos.device)
     return counts.index_add_(0, cell_id.long(), hit.to(torch.int32))

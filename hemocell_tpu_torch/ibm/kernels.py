@@ -6,10 +6,14 @@ tensors.  On CUDA tensors it launches its kernel (``csrc/spread.cu``,
 ``csrc/interp.cu``, ``csrc/wall_hit.cu``) or raises for what the kernel
 does not take.  All take positions unwrapped; the kernels wrap them.  K2
 is the deterministic binned spread of ``csrc/binned.cuh``, whose indexing
-``ibm/binned.py`` repeats in plain PyTorch for the tests.
+``ibm/binned.py`` repeats in plain PyTorch for the tests.  K4 takes the
+cells' per-type positions as they are and counts a cell's wall contacts
+with one block.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -78,6 +82,9 @@ def spread(pos, force, active, flags, f_limit, force_extra=None):
     return out
 
 
+MAX_TYPES = 8  # csrc/ibm_stencil.cuh's HC_MAX_TYPES
+
+
 def interp(u, pos, active, flags):
     """Interpolate the velocity u [3,X,Y,Z] to unwrapped positions [P,3]
     with boundary-aware trilinear weights scaled by ``active [P]``."""
@@ -90,6 +97,7 @@ def interp(u, pos, active, flags):
     pos = _build.cuda_arg(pos, "interp: pos", torch.float32, (P, 3))
     active = _build.cuda_arg(active, "interp: active", torch.float32, (P,))
     flags = _build.cuda_arg(flags, "interp: flags", torch.uint8, (X, Y, Z))
+    check_nodes((X, Y, Z), "interp")
     out = torch.empty((P, 3), dtype=torch.float32, device=pos.device)
     err = _build.lib().hc_interp(
         u.data_ptr(), pos.data_ptr(), active.data_ptr(), flags.data_ptr(),
@@ -99,21 +107,50 @@ def interp(u, pos, active, flags):
     return out
 
 
-def wall_hit_cells(pos, cell_id, flags, n_cells):
-    """Per-cell count (int32 [n_cells]) of vertices at unwrapped positions
-    [P,3] whose nearest lattice node is not fluid; ``cell_id [P]`` int32."""
-    if not pos.is_cuda:
+def wall_hit_cells(positions, flags, owned=None):
+    """Per-cell count (int32 [sum NC]) of vertices whose nearest lattice
+    node is not fluid.  ``positions``: the per-type unwrapped positions
+    [NC, NV, 3], as they are; ``owned``: an optional bool [sum NC*NV] mask
+    of the flat order (the vertices a rank owns), the others counting
+    nowhere.  On the card one launch covers every type, a block a cell."""
+    positions = list(positions)
+    for k, p in enumerate(positions):
+        if p.dim() != 3 or p.shape[2] != 3:
+            raise ValueError(f"wall_hit_cells: positions[{k}] must be [NC, NV, 3], "
+                             f"got {tuple(p.shape)}")
+    counts = tuple((p.shape[0], p.shape[1]) for p in positions)
+    n_cells = sum(nc for nc, _ in counts)
+    P = sum(nc * nv for nc, nv in counts)
+    types = [(nc, nv) for nc, nv in counts if nc > 0]
+    if len(types) > MAX_TYPES:
+        raise ValueError(f"wall_hit_cells: {len(types)} cell types, the kernel takes "
+                         f"{MAX_TYPES}")
+    if not flags.is_cuda:
         wall_hit_cells.plain_calls += 1
-        return coupling.wall_hit_cells(pos, cell_id, flags, n_cells)
-    P = pos.shape[0]
+        pos = torch.cat([p.reshape(-1, 3) for p in positions]) if positions else \
+            torch.zeros((0, 3))
+        nv_each = torch.tensor([nv for nc, nv in counts for _ in range(nc)], dtype=torch.long)
+        cell_id = torch.arange(n_cells).repeat_interleave(nv_each)
+        return coupling.wall_hit_cells(pos, cell_id, flags, n_cells, owned)
     X, Y, Z = flags.shape
-    pos = _build.cuda_arg(pos, "wall_hit_cells: pos", torch.float32, (P, 3))
-    cell_id = _build.cuda_arg(cell_id, "wall_hit_cells: cell_id", torch.int32, (P,))
     flags = _build.cuda_arg(flags, "wall_hit_cells: flags", torch.uint8, (X, Y, Z))
-    hits = torch.zeros(n_cells, dtype=torch.int32, device=pos.device)
+    check_nodes((X, Y, Z), "wall_hit_cells")
+    live = [_build.cuda_arg(p, f"wall_hit_cells: positions[{k}]", torch.float32, p.shape)
+            for k, p in enumerate(positions) if p.shape[0] > 0]
+    owned_ptr = None
+    if owned is not None:
+        if owned.dtype == torch.bool:
+            owned = owned.view(torch.uint8)
+        owned = _build.cuda_arg(owned, "wall_hit_cells: owned", torch.uint8, (P,))
+        owned_ptr = owned.data_ptr()
+    hits = torch.empty(n_cells, dtype=torch.int32, device=flags.device)
+    if not types:
+        return hits
+    n = len(types)
     err = _build.lib().hc_wall_hit_cells(
-        pos.data_ptr(), cell_id.data_ptr(), flags.data_ptr(), hits.data_ptr(),
-        P, X, Y, Z, _stream(pos))
+        (ctypes.c_void_p * n)(*[p.data_ptr() for p in live]),
+        (ctypes.c_int * n)(*[nc for nc, _ in types]), (ctypes.c_int * n)(*[nv for _, nv in types]),
+        n, owned_ptr, flags.data_ptr(), hits.data_ptr(), X, Y, Z, _stream(flags))
     _build.check(err, "hc_wall_hit_cells")
     wall_hit_cells.launches += 1
     return hits

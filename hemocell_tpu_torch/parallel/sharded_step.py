@@ -44,7 +44,7 @@ import torch
 
 from .._device import constant
 from ..cells import repulsion as rep
-from ..dynamics import SimState, StepConfig, _split
+from ..dynamics import SimState, StepConfig, _split, cell_index
 from ..fluid import advection_diffusion as ad
 from ..fluid import lbm
 from ..fluid import sharded_pallas as _sp
@@ -126,15 +126,6 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         cep_value = torch.cat([v_lo, lcfg.cepac_dirichlet_value, v_hi], dim=0)
     fluid_step = _sp.make_sharded_stream_collide(mesh, flags_g, cfg.bc_velocity,
                                                  cfg.bc_density, dtype=dtype)
-    cell_ids = {}
-
-    def _cell_ids(counts):
-        if counts not in cell_ids:
-            nv_per_cell = torch.tensor([nv for nc, nv in counts for _ in range(nc)],
-                                       dtype=torch.long)
-            ids = torch.arange(len(nv_per_cell), dtype=torch.int32)
-            cell_ids[counts] = ids.repeat_interleave(nv_per_cell).to(device)
-        return cell_ids[counts]
 
     def ext(fields, dims):
         """Each field joined with the previous rank's last and the next
@@ -146,7 +137,6 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         it = state.it
         cells = list(state.cells)
         counts = tuple((cs.pos.shape[0], cs.pos.shape[1]) for cs in cells)
-        n_cells = sum(nc for nc, _ in counts)
         have_vertices = sum(nc * nv for nc, nv in counts) > 0
 
         # ---- 0: flatten (replicated) ------------------------------------
@@ -162,7 +152,7 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         if have_vertices and (rep_on or brep_on):
             frep = torch.cat([cs.force_repulsion.reshape(-1, 3) for cs in cells])
             if rep_on and it % cfg.repulsion_every == 0:
-                frep = rep.repulsion(pos_flat, _cell_ids(counts), active, shape,
+                frep = rep.repulsion(pos_flat, cell_index(counts, device), active, shape,
                                      cfg.repulsion_constant, cfg.repulsion_cutoff)
             if brep_on and it % cfg.boundary_repulsion_every == 0:
                 fb = rep.boundary_repulsion_forces(
@@ -239,10 +229,9 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         if has_boundaries and have_vertices:
             p_local, owned = _localize(torch.cat([p.reshape(-1, 3) for p in new_pos]),
                                        x0, Xl, shape)
-            # vertices of other ranks count into a slot past the cells
-            ids = torch.where(owned, _cell_ids(counts), n_cells)
-            hits = kernels.wall_hit_cells(p_local, ids, flags_ext, n_cells + 1)[:n_cells]
-            hits = comm.psum(mesh, hits)
+            # the vertices of other ranks count nowhere
+            hits = comm.psum(mesh, kernels.wall_hit_cells(_split(p_local, counts), flags_ext,
+                                                          owned))
         off = 0
         for k, (cs, (nc, _)) in enumerate(zip(cells, counts)):
             alive = cs.alive

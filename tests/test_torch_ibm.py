@@ -88,8 +88,7 @@ def test_on_boundary_and_wall_hits_f64(pipe):
     np.testing.assert_array_equal(hit_t.numpy(), hit_j)
     assert 0 < hit_j.sum() < len(hit_j)
     nc, nv = 40, 10
-    cid = torch.arange(nc, dtype=torch.int32).repeat_interleave(nv)
-    counts = kernels.wall_hit_cells(_t(pos), cid, torch.as_tensor(flags), nc)
+    counts = kernels.wall_hit_cells([_t(pos).reshape(nc, nv, 3)], torch.as_tensor(flags))
     assert counts.dtype == torch.int32
     np.testing.assert_array_equal(counts.numpy(), hit_j.reshape(nc, nv).sum(1))
 
@@ -161,8 +160,7 @@ def test_wall_hits_match_pallas_interpret(pallas_case):
                           aux=jnp.asarray(cid), payload=jnp.zeros((P_pad, 3), jnp.float32))
     ref = pallas_wall_hit_cells(plan, jnp.asarray((flags != 0).astype(np.float32)), PSHAPE,
                                 cap, n_cells=nc, interpret=True)
-    out = kernels.wall_hit_cells(_t(pos, torch.float32),
-                                 torch.arange(nc, dtype=torch.int32).repeat_interleave(nv),
-                                 torch.as_tensor(flags), nc)
+    out = kernels.wall_hit_cells([_t(pos, torch.float32).reshape(nc, nv, 3)],
+                                 torch.as_tensor(flags))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref).astype(np.int32))
     assert out.sum() > 0
