@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result:
      precomputed weights (a speed gate, reported); K3 and K4 (K4 a block
      a cell, on the cells' per-type positions) also: two launches bitwise
      equal, K4's device launches a call, and their times before the
-     redesign as PERF.md records them (marked as earlier figures);
+     redesign as PERF.md records them (marked as earlier figures); K4 also
+     on four x-slabs with owned masks, with an empty type, and with nine
+     live types (a launch per group of eight), exactly;
   4. pipeflow30 at full size (248x56x56, radius 25, 30% hematocrit, packed by
      tools/packcells): 1000 coupled iterations through K1-K4 with the launch
      counts read around the run, MLUPS, and the physical checks; then a
@@ -131,10 +133,14 @@ interior viscosity and solidify:
      with no vertex; at suspension128's (559,824 vertices) at the next power
      of two above the largest slab; and at capacity 256, where slabs
      overflow: the overflow counts, the dropped deposits and the zero rows
-     must match, the slab binning on the card must equal a stable torch.sort
-     and searchsorted bit for bit, and two K11 launches must be bitwise
-     equal; timed beside the plain version, the library call and the
-     binning alone, K11 against index_add_ (a speed gate, reported);
+     must match (K12's kept rows are the stable sort's), the slab counts on
+     the card (starts, overflow) must equal a stable torch.sort and
+     searchsorted bit for bit, and two K11 launches and two K12 launches
+     must be bitwise equal; timed beside the plain version, the library call
+     and the slab counts alone, K12's device launches a call (exactly
+     three: the slab counts' two and the gather) and each kernel's device
+     time by the profiler in a process of its own, K11 against index_add_
+     (a speed gate, reported);
  21. pipeflow30 with interior viscosity (RBC, ratio 5, membrane sweep every
      10 steps, raycast every 100) and solidify (PLT every 10 steps, binding
      sites on the wall nodes next to the fluid): 1000 iterations through K1
@@ -412,6 +418,15 @@ def kernel_inputs(hc, seed=0):
     return f, pos.contiguous(), force, active, pos_adv.contiguous(), cell_id, len(nv)
 
 
+# The times of K12 before its redesign (the slab bins' sorted copy, then a
+# thread a slot of X x C), at the shapes of phase 20's timed cases, as
+# PERF.md row 15 records them from an earlier version of this script:
+# printed beside this run's times as such, never as a number of this run.
+K12_MS_EARLIER = {
+    (248, 56, 56): "wrapper 0.0383 ms, launch alone 0.0136 ms",
+    (128, 128, 128): "wrapper 0.0829 ms, launch alone 0.0415 ms",
+}
+
 # The times of K3 and K4 before their redesign (K3 with 64-bit indices and
 # its velocity loads after its flags; K4 a thread a vertex behind a fill of
 # its counts), as PERF.md section 6 records them from earlier versions of
@@ -546,8 +561,10 @@ def compare_wall_hits(tag, pos_adv, counts, flags, slabs=0):
     distributed step calls it: on each of ``slabs`` x-slabs, the
     ``_localize``d positions with their owned mask on the slab's extended
     flags, exactly the plain version, the slabs summing to the whole
-    domain; and the layout with an empty type between two live ones, whole
-    and on the slabs.  Returns its row."""
+    domain; the layout with an empty type between two live ones, and the
+    first type's cells cut into eight types (nine live types: two launches,
+    each at its offset in the flat order), whole and on the slabs.  Returns
+    its row."""
     import torch
 
     from hemocell_tpu_torch.dynamics import _split, cell_index
@@ -570,9 +587,17 @@ def compare_wall_hits(tag, pos_adv, counts, flags, slabs=0):
     if slabs:
         # an empty type between the first and the rest
         gap = (counts[0], (0, 7)) + tuple(counts[1:])
+        # nine live types: the first type's cells cut into eight
+        cut = [counts[0][0] * i // 8 for i in range(9)]
+        nine = tuple((b - a, counts[0][1]) for a, b in zip(cut, cut[1:])) + tuple(counts[1:])
+        if sum(nc > 0 for nc, _ in nine) <= kernels.MAX_TYPES:
+            raise AssertionError(f"wall-hit check: {nine} has no more than "
+                                 f"{kernels.MAX_TYPES} live types")
         layouts = [(counts, per_type), (gap, per_type[:1] + [pos_adv.new_empty((0, 7, 3))]
-                                        + per_type[1:])]
+                                        + per_type[1:]),
+                   (nine, [per_type[0][a:b] for a, b in zip(cut, cut[1:])] + per_type[1:])]
     for lay, cells in layouts:
+        n0 = kernels.wall_hit_cells.launches
         cid = cell_index(tuple(lay), pos_adv.device)
         whole = kernels.wall_hit_cells(cells, flags)
         err = max(err, float((whole - hits_ref).abs().max()))
@@ -586,9 +611,15 @@ def compare_wall_hits(tag, pos_adv, counts, flags, slabs=0):
             err = max(err, float((got - ref).abs().max()))
             total += got
         err = max(err, float((total - hits_ref).abs().max()))
+        groups = -(-sum(nc > 0 for nc, _ in lay) // kernels.MAX_TYPES)
+        n_launches = kernels.wall_hit_cells.launches - n0
         print(f"{tag} wall_hit_cells on {slabs} slabs with owned masks, layout {lay}: "
               f"max |diff| {err} against the plain version, the slabs' sum "
-              f"{int(total.sum())} of {int(hits_ref.sum())}", flush=True)
+              f"{int(total.sum())} of {int(hits_ref.sum())}, {n_launches} launches in "
+              f"{slabs + 1} calls", flush=True)
+        if n_launches != groups * (slabs + 1):
+            raise AssertionError(f"wall_hit_cells: {n_launches} launches for {slabs + 1} "
+                                 f"calls of {groups} group(s) of types")
     near = torch.remainder(torch.floor(coupling.wrap_positions(pos_adv, shape) + 0.5).long(),
                            torch.tensor(shape, device=pos_adv.device))
     distinct = int(torch.unique((near[:, 0] * shape[1] + near[:, 1]) * shape[2]
@@ -915,47 +946,44 @@ def build_suspension():
                 mask=mask, value=value)
 
 
-def kernel_times(fn, n):
-    """Device time of each kernel that ``n`` calls of fn() launch, in us a
-    call (torch.profiler), by the kernel's short name."""
+def profiled_kernels(fn, n):
+    """torch.profiler over n calls of fn(): {short kernel name: (events,
+    device us a call)}.  The calls run between two sleep kernels (left out
+    of the result), well inside the window: early in a run this made the
+    counts of phases 3 and 6 exact, where a short window without them lost
+    an event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SLEEP_CYCLES)
         for _ in range(n):
             fn()
+        torch.cuda._sleep(SLEEP_CYCLES)
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+        if e.device_type == DeviceType.CUDA and e.count > 0 and "spin_kernel" not in e.key:
             name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
             name = name.split("::")[-1].split(" ")[-1] or e.key[:40]
-            out[name] = out.get(name, 0.0) + e.self_device_time_total / n
+            count, us = out.get(name, (0, 0.0))
+            out[name] = (count + e.count, us + e.self_device_time_total / n)
     return out
+
+
+def kernel_times(fn, n):
+    """Device time of each kernel that ``n`` calls of fn() launch, in us a
+    call (torch.profiler), by the kernel's short name."""
+    fn()
+    return {k: us for k, (_, us) in profiled_kernels(fn, n).items() if us > 0}
 
 
 def device_launches(fn, n):
     """Kernel events on the card in n calls of fn(), by short name, counted
     by torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.count > 0:
-            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-            name = name.split("::")[-1].split(" ")[-1] or e.key[:40]
-            out[name] = out.get(name, 0) + e.count
-    return out
+    return {k: count for k, (count, _) in profiled_kernels(fn, n).items()}
 
 
 def repulsion_bins_check(pos, gid, active, shape, k_rep, cutoff):
@@ -2435,15 +2463,35 @@ def phase_small_distributed(mesh):
         shutil.rmtree(d, ignore_errors=True)
 
 
+def slab_starts(pos, shape, capacity):
+    """The slab counts K12 launches first (``hc_slab_starts``): starts
+    [X+1] int32 and the overflow (0-dim int64)."""
+    import torch
+
+    from hemocell_tpu_torch import _build
+    from hemocell_tpu_torch.ibm import kernels
+
+    X, P = int(shape[0]), pos.shape[0]
+    ints, _ = kernels.scratch("hc_slab_bins_ints", pos.device, P, (X,))
+    starts = torch.empty(X + 1, dtype=torch.int32, device=pos.device)
+    overflow = torch.empty((), dtype=torch.int64, device=pos.device)
+    _build.check(_build.lib().hc_slab_starts(pos.data_ptr(), int(capacity), starts.data_ptr(),
+                                             overflow.data_ptr(), ints.data_ptr(), P, X,
+                                             torch.cuda.current_stream().cuda_stream),
+                 "hc_slab_starts")
+    return starts, overflow
+
+
 def static_compare(name, pos, shape, capacity, g):
     """K11 and K12 (1 to 4 channels) against their plain versions on the
     vertex set ``pos [P,3]`` at ``capacity``: the field to 1e-5 of its
     largest value (64-bit fixed-point sums, not index_add_'s order) and
-    bitwise equal on two launches, the rows to 1e-6 of max|u|, the overflow
-    counts equal to the bins', the rows of the dropped vertices exactly 0;
-    the slab binning on the card equal to the plain one (a stable
-    torch.sort and searchsorted) bit for bit.  Returns the inputs for
-    ``static_times``."""
+    bitwise equal on two launches, the rows to 1e-6 of max|u| and bitwise
+    equal on two launches, the overflow counts equal to the bins', the rows
+    of the dropped vertices exactly 0 and the others not (K12's kept mask is
+    the stable sort's); the slab counts on the card (starts, overflow) equal
+    to the plain ones (a stable torch.sort and searchsorted) bit for bit.
+    Returns the inputs for ``static_times``."""
     import torch
 
     from hemocell_tpu_torch.ibm import static
@@ -2456,9 +2504,10 @@ def static_compare(name, pos, shape, capacity, g):
     counts = bins.starts[1:] - bins.starts[:-1]
     overflow = int(bins.overflow)
     dropped = bins.order[~bins.valid]
-    pos_s, order, starts, ov_bins = static._cuda_bins(pos, shape, capacity)
-    bins_equal = (torch.equal(order.long(), bins.order) and torch.equal(starts.long(), bins.starts)
-                  and torch.equal(pos_s, bins.pos) and int(ov_bins) == overflow)
+    kept = torch.zeros(P, dtype=torch.bool, device=dev)
+    kept[bins.order] = bins.valid
+    starts, ov_bins = slab_starts(pos, shape, capacity)
+    bins_equal = torch.equal(starts.long(), bins.starts) and int(ov_bins) == overflow
 
     def err_of(a, b):
         return float((a - b).abs().max()) if a.numel() else 0.0
@@ -2469,55 +2518,105 @@ def static_compare(name, pos, shape, capacity, g):
     err11, tol11 = err_of(field, ref), 1e-5 * float(ref.abs().max())
     ok = int(ov) == int(ov_ref) == overflow and err11 <= tol11 and (P == 0 or tol11 > 0)
     del field, ref
-    err12, tol12 = 0.0, 1e-6 * float(u.abs().max())
+    err12, tol12, bitwise12 = 0.0, 1e-6 * float(u.abs().max()), True
     for nch in (1, 2, 3, 4):
         uc = u[:nch].contiguous()
         vals, ov = static.interp_static(pos, uc, shape, capacity)
+        bitwise12 = bitwise12 and torch.equal(vals, static.interp_static(pos, uc, shape,
+                                                                         capacity)[0])
         ref, ov_ref = static.interp_static_plain(pos, uc, shape, capacity)
         err12 = max(err12, err_of(vals, ref))
         ok = (ok and int(ov) == int(ov_ref) == overflow and tuple(vals.shape) == (P, nch)
-              and not bool(vals[dropped].any()) and not bool(ref[dropped].any()))
+              and not bool(vals[dropped].any()) and not bool(ref[dropped].any())
+              and torch.equal(vals.ne(0).any(1), kept))
     print(f"[20] {name} {tuple(shape)}, {P} vertices, capacity {capacity}: largest slab "
           f"{int(counts.max()) if P else 0}, {int((counts == 0).sum())} empty slabs, overflow "
-          f"{overflow} | slab bins equal to torch.sort and searchsorted bit for bit "
-          f"{bins_equal} | spread_static max_abs_err {err11:.3e} (tol {tol11:.3e}), two "
-          f"launches bitwise equal {bitwise} | interp_static, 1 to 4 channels, max_abs_err "
-          f"{err12:.3e} (tol {tol12:.3e}); the {dropped.numel()} dropped rows are 0", flush=True)
-    if not (ok and err12 <= tol12 and bins_equal and bitwise):
-        raise AssertionError(f"K11/K12 disagree with their plain versions, their bins with "
-                             f"the plain bins, or K11 with itself: {name}")
+          f"{overflow} | slab counts (starts, overflow) equal to torch.sort and searchsorted "
+          f"bit for bit {bins_equal} | spread_static max_abs_err {err11:.3e} (tol "
+          f"{tol11:.3e}), two launches bitwise equal {bitwise} | interp_static, 1 to 4 "
+          f"channels, max_abs_err {err12:.3e} (tol {tol12:.3e}), two launches bitwise equal "
+          f"{bitwise12}; the {dropped.numel()} dropped rows are 0, the kept ones not", flush=True)
+    if not (ok and err12 <= tol12 and bins_equal and bitwise and bitwise12):
+        raise AssertionError(f"K11/K12 disagree with their plain versions, the slab counts "
+                             f"with the plain bins, or K11/K12 with themselves: {name}")
     return dict(pos=pos, force=force, u=u[:3].contiguous(), bins=bins, capacity=capacity,
                 largest_slab=int(counts.max()) if P else 0, overflow=overflow,
-                errs=(err11, tol11, err12, tol12), bitwise=bitwise)
+                errs=(err11, tol11, err12, tol12), bitwise=bitwise, bitwise12=bitwise12)
+
+
+# K12's kernels and their device launches a call with vertices: the slab
+# counts (two), then the gather
+K12_KERNELS = ("slab_hist_kernel", "slab_scan_kernel", "interp_static_kernel")
+
+
+def k12_profile(pos, u, shape, capacity, n=20):
+    """K12's kernels in ``n`` calls on these inputs, counted and timed by
+    torch.profiler in a process of its own (``--k12-profile``): {name:
+    (events, device us a call)}.  Late in this script's process the
+    profiler dropped some of the 20 events of each kernel, or all of them
+    (PERF.md section 6); a fresh process counted them all."""
+    import torch
+
+    d = tempfile.mkdtemp(prefix="k12_profile_")
+    try:
+        path = os.path.join(d, "inputs.pt")
+        torch.save(dict(pos=pos.cpu(), u=u.cpu(), shape=tuple(shape), capacity=capacity, n=n),
+                   path)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--k12-profile", path],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"the K12 profile failed:\n{res.stdout}{res.stderr}")
+        return {k: tuple(v) for k, v in json.loads(res.stdout.strip().splitlines()[-1]).items()}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def k12_profile_worker(path):
+    """The process of ``k12_profile``: prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from hemocell_tpu_torch.ibm import static
+
+    case = torch.load(path)
+    pos, u = case["pos"].cuda(), case["u"].cuda()
+
+    def k12():
+        return static.interp_static(pos, u, case["shape"], case["capacity"])
+
+    k12()
+    print(json.dumps(profiled_kernels(k12, case["n"])))
+    return 0
 
 
 def static_times(case, shape):
     """The rows of K11 and K12 (3 channels) on a case of ``static_compare``:
-    the wrapper (binning included), the slab binning alone, K12's launch
-    alone on the binned input, the plain version, the library call
+    the wrapper (binning included), the slab counts alone, K12's device
+    launches a call (exactly one each of K12_KERNELS: three) and each one's
+    device time (torch.profiler, ``k12_profile``), the plain version, the
+    library call
     (``index_add_`` with precomputed weights; a CSR ``torch.sparse.mm``) and
     the bound: each vertex's position and force (or position and row)
     once, the field written once (or the nodes the kept vertices touch read
     once)."""
     import torch
 
-    from hemocell_tpu_torch import _build
     from hemocell_tpu_torch.ibm import static
 
     pos, force, u, bins, C = (case[k] for k in ("pos", "force", "u", "bins", "capacity"))
     err11, tol11, err12, tol12 = case["errs"]
     X, Y, Z = shape
     N, P = X * Y * Z, pos.shape[0]
-    lib = _build.lib()
-    stream = torch.cuda.current_stream().cuda_stream
-    pos_s, order, starts, _ = static._cuda_bins(pos, shape, C)
-    vals = torch.empty((P, 3), device=pos.device)
 
-    def k12_alone():
-        _build.check(lib.hc_interp_static(u.data_ptr(), pos_s.data_ptr(), order.data_ptr(),
-                                          starts.data_ptr(), C, 3, vals.data_ptr(), X, Y, Z,
-                                          stream), "hc_interp_static")
+    def k12():
+        return static.interp_static(pos, u, shape, C)
 
+    prof = k12_profile(pos, u, shape, C, 20)
+    launches = {k: count for k, (count, _) in prof.items()}
+    kernels_us = {k: us for k, (_, us) in prof.items()}
+    if launches != {k: 20 for k in K12_KERNELS}:
+        raise AssertionError(f"interp_static: device launches in 20 calls {launches}, not one "
+                             f"each of {K12_KERNELS} a call")
     idx, w = static._corners(bins, shape)
     flat = idx.reshape(-1)
     touched = int(torch.unique(flat[w.reshape(-1) != 0]).numel())
@@ -2529,7 +2628,7 @@ def static_times(case, shape):
     b11, by11 = bound_ms(P * 24 + 3 * N * 4, P * 80)
     b12, by12 = bound_ms(P * 24 + touched * 12, P * 80)
     extra = dict(capacity=C, largest_slab=case["largest_slab"], overflow=case["overflow"],
-                 bins_ms=time_ms(lambda: static._cuda_bins(pos, shape, C), 20))
+                 bins_ms=time_ms(lambda: slab_starts(pos, shape, C), 20))
     rows = {
         "spread_static": dict(
             extra, tol=tol11, max_abs_err=err11, bitwise=case["bitwise"],
@@ -2538,17 +2637,21 @@ def static_times(case, shape):
             bound_ms=b11, bound_by=by11,
             library_ms=time_ms(lambda: acc.zero_().index_add_(0, flat, contrib), 50)),
         "interp_static": dict(
-            extra, tol=tol12, max_abs_err=err12,
-            ms=time_ms(lambda: static.interp_static(pos, u, shape, C), 20),
-            launch_alone_ms=time_ms(k12_alone, 50),
+            extra, tol=tol12, max_abs_err=err12, bitwise=case["bitwise12"],
+            ms=time_ms(k12, 20),
+            gather_ms=kernels_us["interp_static_kernel"] / 1e3, kernels_us=kernels_us,
+            device_launches_per_call=sum(launches.values()) / 20,
             plain_ms=time_ms(lambda: static.interp_static_plain(pos, u, shape, C), 10),
             bound_ms=b12, bound_by=by12,
             library_ms=time_ms(lambda: torch.sparse.mm(W, uT), 50)),
     }
     check_rows(f"[20] {tuple(shape)}, capacity {C}:", [dict(r, name=n) for n, r in rows.items()])
-    print(f"[20]   the slab binning alone {extra['bins_ms']:.4f} ms; interp_static's launch "
-          f"alone on the binned input {rows['interp_static']['launch_alone_ms']:.4f} ms",
-          flush=True)
+    print(f"[20]   the slab counts alone {extra['bins_ms']:.4f} ms; interp_static: "
+          f"{rows['interp_static']['device_launches_per_call']:.2f} device launches a call "
+          f"({launches}), device us a call by kernel {kernels_us}; the gather's "
+          f"{rows['interp_static']['gather_ms']:.4f} ms against the bound "
+          f"{b12:.4f} ms; before the redesign, earlier (PERF.md, not this run): "
+          f"{K12_MS_EARLIER.get(tuple(shape), 'not measured')}", flush=True)
     speed_gate(f"[20] {tuple(shape)}, capacity {C}: spread_static",
                rows["spread_static"]["ms"], rows["spread_static"]["library_ms"])
     return rows
@@ -2785,6 +2888,8 @@ def main() -> int:
         return fail("torch.cuda.is_available() is false: this script runs only on a GPU")
     if not os.path.isdir(os.path.join(HERE, "hemocell_tpu_torch")):
         return fail("run from a checkout of the repository: hemocell_tpu_torch/ is missing")
+    if sys.argv[1:2] == ["--k12-profile"]:
+        return k12_profile_worker(sys.argv[2])
     sys.path.insert(0, HERE)
 
     smi = phase_card()
@@ -2874,7 +2979,7 @@ def main() -> int:
     more = ("with_force_extra", "launch_alone_ms", "planes_ms", "events_in_20_calls", "bitwise", "bins_ms", "pairs_ms",
             "pytorch_binning", "kernels_us", "max_abs_err_kernel_order", "k", "ms_per_step",
             "k1_ms_per_step", "k1_ms", "k10_ms", "k1_halo_ms", "at_pipe", "at_256", "by_k",
-            "with_force_field",
+            "with_force_field", "gather_ms",
             "shape", "at_128", "with_omega_field", "capacity", "largest_slab", "overflow",
             "device_launches_per_call")
     kernels_line = {"kernels": []}

@@ -60,9 +60,9 @@ SIGNATURES = {
     "hc_stream_collide_2d_halo": [_P, _P, _P, _I, _F, _F, _F, _F, _P, _P, _I, _F,
                                   _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "hc_spread_static": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "hc_interp_static": [_P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P],
+    "hc_interp_static": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # the binning on the card (csrc/bin_vertices.cu)
-    "hc_bin_slabs": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hc_slab_starts": [_P, _I, _P, _P, _P, _I, _I, _P],
     "hc_bin_tiles": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 # entries that return a count of int32 scratch words, not a CUDA error

@@ -1,7 +1,7 @@
-// Binning on the card for the deterministic spread (K2, K11) and for K12:
-// counting sorts of vertex indices by an integer key with integer atomics,
-// no sort library and no float atomics.  The design is described in
-// binned.cuh.
+// Binning on the card for the deterministic spread (K2, K11) and the slab
+// counts of K11 and K12: counting sorts of vertex indices by an integer key
+// with integer atomics, no sort library and no float atomics.  The design
+// is described in binned.cuh.
 //
 // Replaces: the wrapper-side binning of hemocell_tpu_torch/ibm/static.py
 //   (torch.remainder, floor, a stable torch.sort, searchsorted and the
@@ -12,17 +12,14 @@
 //   vertex once (position, force, activity, the flags of its 8 nodes) and
 //   writes its record and its slots (64 B); the placement's blocks each
 //   read the tile counts, then each vertex's record and slots, and write
-//   1-8 list entries.  The slab bins read each position twice (count,
-//   rank) and the [X, tiles] counts three times.
+//   1-8 list entries.  The slab counts read each position once and write
+//   the [X, tiles] counts, which the scan reads and writes once; K11's rank
+//   reads each position again.
 
 #include "binned.cuh"
 
 namespace hc {
 namespace {
-
-__device__ __forceinline__ int slab_of(float x, int X) {
-  return wrap_idx((int)floorf(wrap_pos(x, X)), X);
-}
 
 // ---- tile bins -----------------------------------------------------------
 
@@ -163,28 +160,21 @@ __global__ void place_kernel(const float4* __restrict__ rec, int P, int X, int Y
 
 // ---- slab bins -----------------------------------------------------------
 
-// Each warp counts its tile's slabs in shared memory (integer atomics).
-__global__ void slab_hist_kernel(const float* __restrict__ pos, int P, int X, int nt,
-                                 int* __restrict__ tilehist) {
-  extern __shared__ int hist[];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int t = blockIdx.x * SLAB_WARPS + w;
-  if (t >= nt) return;
-  int* h = hist + w * X;
-  for (int g = lane; g < X; g += 32) h[g] = 0;
-  __syncwarp();
-  const long long base = (long long)t * SLAB_TILE;
-  int g[SLAB_ROUNDS];  // the tile's loads first, all in flight together
-#pragma unroll
-  for (int r = 0; r < SLAB_ROUNDS; ++r) {
-    const long long p = base + r * 32 + lane;
-    g[r] = p < P ? slab_of(__ldg(pos + 3 * p), X) : -1;
-  }
-#pragma unroll
-  for (int r = 0; r < SLAB_ROUNDS; ++r)
-    if (g[r] >= 0) atomicAdd(h + g[r], 1);
-  __syncwarp();
-  for (int s = lane; s < X; s += 32) tilehist[(long long)s * nt + t] = h[s];
+// Each block counts its tile's slabs in shared memory, a thread a vertex:
+// the peers of a slab in a warp add their number with one integer atomic.
+__global__ void __launch_bounds__(SLAB_TILE)
+    slab_hist_kernel(const float* __restrict__ pos, int P, int X, int nt,
+                     int* __restrict__ tilehist) {
+  extern __shared__ int hist[];  // [X]
+  const int t = blockIdx.x;
+  const long long p = (long long)t * SLAB_TILE + threadIdx.x;
+  const int g = p < P ? slab_of(__ldg(pos + 3 * p), X) : -1;
+  for (int s = threadIdx.x; s < X; s += SLAB_TILE) hist[s] = 0;
+  const unsigned peers = __match_any_sync(FULL, g);
+  __syncthreads();
+  if (g >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(hist + g, __popc(peers));
+  __syncthreads();
+  for (int s = threadIdx.x; s < X; s += SLAB_TILE) tilehist[(long long)s * nt + t] = hist[s];
 }
 
 // Block g: exclusive scan of slab g's tile counts (in place), its total.
@@ -239,11 +229,10 @@ __global__ void slab_scan_kernel(int* __restrict__ tilehist, int nt, int X, int 
 }
 
 // Each warp walks its tile again in vertex order and gives every vertex its
-// stable position in the slab order: K12's layout, or K11's kept vertices
-// counted into the tile bins.
+// stable position in the slab order: K11's records, activity 1 for the
+// vertices within capacity.
 __global__ void slab_rank_kernel(const float* __restrict__ pos, const float* __restrict__ force,
                                  int P, int X, int Y, int Z, int nt, int capacity, SlabBins sb,
-                                 int* __restrict__ order, float* __restrict__ pos_s,
                                  float4* __restrict__ rec) {
   extern __shared__ int run[];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -280,17 +269,9 @@ __global__ void slab_rank_kernel(const float* __restrict__ pos, const float* __r
     __syncwarp();
     if (!valid) continue;
     const int dst = at + __popc(peers & lt);
-    if (order != nullptr) {
-      order[dst] = (int)pl;
-      pos_s[3 * (long long)dst] = px;
-      pos_s[3 * (long long)dst + 1] = py;
-      pos_s[3 * (long long)dst + 2] = pz;
-    }
-    if (rec != nullptr) {  // K11: the vertices within capacity deposit
-      const float* f3 = force + 3 * pl;
-      rec[2 * pl] = make_float4(px, py, pz, dst - sb.starts[g] < capacity ? 1.f : 0.f);
-      rec[2 * pl + 1] = make_float4(f3[0], f3[1], f3[2], __int_as_float(0xff));
-    }
+    const float* f3 = force + 3 * pl;
+    rec[2 * pl] = make_float4(px, py, pz, dst - sb.starts[g] < capacity ? 1.f : 0.f);
+    rec[2 * pl + 1] = make_float4(f3[0], f3[1], f3[2], __int_as_float(0xff));
   }
 }
 
@@ -380,23 +361,28 @@ int tile_bins_count_records(const float4* rec, int P, int X, int Y, int Z, const
   return (int)cudaGetLastError();
 }
 
+int slab_counts(const float* pos, int P, int X, int capacity, const SlabBins& sb,
+                long long* overflow, cudaStream_t s) {
+  const int nt = blocks(P, SLAB_TILE);
+  const int smem = X * (int)sizeof(int);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(slab_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (nt > 0) slab_hist_kernel<<<nt, SLAB_TILE, smem, s>>>(pos, P, X, nt, sb.tilehist);
+  slab_scan_kernel<<<X, 1024, 0, s>>>(sb.tilehist, nt, X, capacity, sb, overflow);
+  return (int)cudaGetLastError();
+}
+
 int slab_bins(const float* pos, const float* force, int P, int X, int Y, int Z, int capacity,
-              const SlabBins& sb, long long* overflow, int* order, float* pos_s, float4* rec,
-              cudaStream_t s) {
+              const SlabBins& sb, long long* overflow, float4* rec, cudaStream_t s) {
+  int err = slab_counts(pos, P, X, capacity, sb, overflow, s);
   const int nt = blocks(P, SLAB_TILE);
   const int smem = slab_smem(X);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(slab_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > 48 * 1024)
     cudaFuncSetAttribute(slab_rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  }
-  const int grid = blocks(nt, SLAB_WARPS);
-  if (nt > 0)
-    slab_hist_kernel<<<grid, 32 * SLAB_WARPS, smem, s>>>(pos, P, X, nt, sb.tilehist);
-  slab_scan_kernel<<<X, 1024, 0, s>>>(sb.tilehist, nt, X, capacity, sb, overflow);
-  if (nt > 0)
-    slab_rank_kernel<<<grid, 32 * SLAB_WARPS, smem, s>>>(pos, force, P, X, Y, Z, nt, capacity,
-                                                         sb, order, pos_s, rec);
-  return (int)cudaGetLastError();
+  if (!err && nt > 0)
+    slab_rank_kernel<<<blocks(nt, SLAB_WARPS), 32 * SLAB_WARPS, smem, s>>>(
+        pos, force, P, X, Y, Z, nt, capacity, sb, rec);
+  return err ? err : (int)cudaGetLastError();
 }
 
 }  // namespace hc
@@ -431,15 +417,14 @@ extern "C" int hc_bin_tiles(const void* pos, const void* force, const void* acti
   return err;
 }
 
-// K12's binning: order [P] int32 (sorted row -> vertex), the wrapped
-// positions in that order pos_s [P, 3], starts [X + 1] int32 and the
-// overflow past `capacity` (int64).
-extern "C" int hc_bin_slabs(const void* pos, int capacity, void* order, void* pos_s,
-                            void* starts, void* overflow, void* scratch, int P, int X, int Y,
-                            int Z, void* stream) {
+// The slab counts alone (K12's first two launches), for the checks of
+// chip_smoke.py: starts [X + 1] int32 (slab g holds the vertices of the
+// stable slab order starts[g] .. starts[g + 1] - 1) and the overflow past
+// `capacity` (int64).
+extern "C" int hc_slab_starts(const void* pos, int capacity, void* starts, void* overflow,
+                              void* scratch, int P, int X, void* stream) {
   hc::SlabBins sb = hc::slab_bins_carve((int*)scratch, P, X);
   sb.starts = (int*)starts;
-  return hc::slab_bins((const float*)pos, nullptr, P, X, Y, Z, capacity, sb,
-                       (long long*)overflow, (int*)order, (float*)pos_s, nullptr,
-                       (cudaStream_t)stream);
+  return hc::slab_counts((const float*)pos, P, X, capacity, sb, (long long*)overflow,
+                         (cudaStream_t)stream);
 }

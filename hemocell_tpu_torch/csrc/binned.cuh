@@ -1,5 +1,5 @@
 // The deterministic binned spread shared by K2 (csrc/spread.cu) and K11
-// (csrc/ibm_static.cu), and the x-slab binning of K11 and K12.
+// (csrc/ibm_static.cu), and the x-slab counts of K11 and K12.
 //
 // The field is cut into tiles of TX x TY x TZ nodes (gather_tiles).
 //
@@ -32,16 +32,21 @@
 //   atomics) does not matter: the field is the same bit for bit on every
 //   launch.  No float atomics, no zeroing pass over the field.
 //
-// Slab bins (csrc/bin_vertices.cu): a stable counting sort by the x-slab
-//   floor(x) mod X, for the capacity of K11 and the layout K12 reads.  Each
-//   warp counts a tile of SLAB_TILE vertices into shared memory; one block
-//   per slab scans that slab's tile counts; the last block to finish scans
-//   the slab totals into starts[X + 1] and sums the overflow past the
-//   capacity; then each warp walks its tile again in vertex order, 32
-//   vertices a round, and ranks them with __match_any_sync and
-//   __popc(peers & lanemask_lt) on top of its running slab offsets.  The
-//   result equals torch.sort(key, stable=True) and searchsorted's starts
-//   bit for bit.
+// Slab bins (csrc/bin_vertices.cu): the stable rank of each vertex in its
+//   x-slab floor(x) mod X, in vertex order, for the capacity of K11 and
+//   K12.  Each block counts a tile of SLAB_TILE vertices into shared memory
+//   (a thread a vertex; the peers of a slab in a warp add their number with
+//   one atomic); one block per slab scans that slab's tile counts (each
+//   tile's count of the slab's vertices before it); the last block to
+//   finish scans the slab totals into starts[X + 1] and sums the overflow
+//   past the capacity.  Then a vertex's rank is its tile's count before it,
+//   plus its slab's vertices in the earlier rounds of 32 of its tile, plus
+//   its lower peers in its own round (__match_any_sync, __popc(peers &
+//   lanemask_lt)): K11's rank kernel walks its tile's rounds in a warp with
+//   running slab offsets, K12's gather takes a block a tile and the
+//   rounds' counts from shared memory.  The ranks equal those of
+//   torch.sort(key, stable=True) and searchsorted's starts bit for bit; no
+//   sorted copy is written.
 //
 // Node bins (csrc/bin_nodes.cu), K5's neighbour search: a stable counting
 //   sort of the vertices by their nearest node (X*Y*Z bins, the dead in
@@ -143,14 +148,15 @@ int tile_bins_count_k2(const float* pos, const float* force, const float* force_
 int tile_bins_place(const TileBins& tb, const float4* rec, int P, int X, int Y, int Z,
                     cudaStream_t s);
 
-// Slab bins of the wrapped x.  With `order` and `pos_s` set, the stable
-// slab order and the wrapped positions in it (K12's layout); with `rec`
-// set, the records of all vertices (activity 1 within `capacity` of the
-// slab, else 0, the force as it is: K11).  `overflow` receives the
-// vertices past capacity.
+// The slab counts of the wrapped x (two launches): sb.tilehist holds each
+// tile's count of each slab's vertices before it, sb.starts the slabs'
+// starts; `overflow` receives the vertices past capacity.
+int slab_counts(const float* pos, int P, int X, int capacity, const SlabBins& sb,
+                long long* overflow, cudaStream_t s);
+// The slab counts, then the records of all vertices (activity 1 within
+// `capacity` of the slab, else 0, the force as it is: K11).
 int slab_bins(const float* pos, const float* force, int P, int X, int Y, int Z, int capacity,
-              const SlabBins& sb, long long* overflow, int* order, float* pos_s, float4* rec,
-              cudaStream_t s);
+              const SlabBins& sb, long long* overflow, float4* rec, cudaStream_t s);
 // K11's counting: the vertices whose record has activity 1 into their
 // tiles, with the bound max |force|.
 int tile_bins_count_records(const float4* rec, int P, int X, int Y, int Z, const TileBins& tb,
@@ -215,6 +221,12 @@ __device__ __forceinline__ void stencil_tiles(int bx, int by, int bz, int X, int
     const bool fresh = (!a || x1 != x0) && (!b || y1 != y0) && (!cc || z1 != z0);
     ids[c] = fresh ? ((a ? x1 : x0) * t.ny + (b ? y1 : y0)) * t.nz + (cc ? z1 : z0) : -1;
   }
+}
+
+// The x-slab of an unwrapped x: floor of its wrap, wrapped (the wrap lies
+// in [0, L]: it may round to L).
+__device__ __forceinline__ int slab_of(float x, int X) {
+  return wrap_once((int)floorf(wrap_pos_fast(x, X)), X);
 }
 
 // The nearest node along one axis of a wrapped coordinate in [0, L]:

@@ -11,8 +11,8 @@
 //
 // Bound on the H100: bytes.  K11 reads 24 B per vertex (position and
 //   force) and writes the [3, X, Y, Z] field once.  K12 reads 12 B
-//   (position) and 4 B (its original index) per vertex and NCH x 4 B of each
-//   node it touches, and writes NCH x 4 B per vertex.
+//   (position) per vertex and NCH x 4 B of each node it touches, and writes
+//   NCH x 4 B per vertex.
 //
 // K11's design: K2's deterministic binned spread (binned.cuh) with the slab
 //   bins in front.  One entry makes every launch: the slab bins rank each
@@ -24,81 +24,115 @@
 //   pass, no empty slots: the field repeats bit for bit.  The overflow is
 //   the sum over slabs of the count past C.
 //
-// K12's layout (the slab bins of csrc/bin_vertices.cu, hc_bin_slabs): the
-//   wrapped positions sorted by slab, stably, order[P] and starts[X+1];
-//   slab g holds the sorted rows starts[g] .. starts[g+1]-1, and the first
-//   C of them are its slots.  A vertex past its slab's capacity has no
-//   slot: K12 writes it a zero row (the TPU kernel's un-bin reads another
-//   vertex's row for it; the port defines it as zero).  One thread per slot
-//   (g, c), X * C threads; a slot past its slab's count returns at once.
-//   The x planes are the slab g and (g + 1) mod X, y and z wrap by index, as
-//   the reference's one-hot rows do.  K12 gathers 8 corners x NCH channels
-//   and writes the row of the vertex's original index (through `order`):
-//   deterministic; the last slot of an overfull slab writes the zero rows
-//   of that slab's dropped vertices.
+// K12's design: a thread a vertex, in vertex order, with no sort.  Three
+//   launches: the slab counts of csrc/bin_vertices.cu (each tile's count of
+//   each slab's vertices before it, and the overflow), then one gather.  A
+//   block of the gather takes a tile of SLAB_TILE vertices, a warp a round
+//   of 32, a thread a vertex.  The thread loads its position, wraps it and
+//   takes its slab (the values hc::slab_of and the plain version give),
+//   then issues the load of its tile's offset in that slab and the loads
+//   of its 8 corners x NCH channels with 32-bit node indices (the x planes
+//   are the slab g and (g + 1) mod X, y and z wrap by index, as the
+//   reference's one-hot rows do), and ranks while they are in flight: the
+//   warp's peers of a slab (__match_any_sync) put their number into the
+//   round's row of shared memory, and a vertex's rank in its slab is the
+//   tile's offset, plus its slab's counts in the tile's earlier rounds,
+//   plus its lower peers (__popc), as the stable sort of the reference's
+//   build_bins orders them.  rank < C keeps it.  Then it sums corner by
+//   corner and writes its own row: the rows are contiguous in the vertex
+//   index, and a dropped vertex's row is 0 (the TPU kernel's un-bin reads
+//   another vertex's row for it; the port defines it as zero).  No sorted
+//   copy of the positions, no order, no scattered rows; the rows repeat bit
+//   for bit and equal those of the sorted layout this design replaced.
+//   Its time follows the corner loads, a warp instruction touching up to
+//   32 lines, as K3's does (PERF.md); loading a row's two z corners as one
+//   aligned float4 was faster at pipeflow30's shapes and slower at the
+//   suspension's, and was dropped.
 
 #include "binned.cuh"
 
 namespace {
 
 struct Corners {
-  long long node[8];
+  int node[8];
   float w[8];
 };
 
-// The 8 periodic trilinear corners of the sorted row `r` of slab `g`.
-__device__ __forceinline__ void static_corners(const float* __restrict__ p3, int g, int X,
+// The 8 periodic trilinear corners of the wrapped position (px, py, pz) in
+// [0, X] x [0, Y] x [0, Z], in slab g.
+__device__ __forceinline__ void static_corners(float px, float py, float pz, int g, int X,
                                                int Y, int Z, Corners& s) {
-  const float px = p3[0], py = p3[1], pz = p3[2];
   const float by = floorf(py), bz = floorf(pz);
   const float fx = px - floorf(px), fy = py - by, fz = pz - bz;
   const int ix[2] = {g, g + 1 == X ? 0 : g + 1};
-  const int iy[2] = {hc::wrap_idx((int)by, Y), hc::wrap_idx((int)by + 1, Y)};
-  const int iz[2] = {hc::wrap_idx((int)bz, Z), hc::wrap_idx((int)bz + 1, Z)};
+  const int iy[2] = {hc::wrap_once((int)by, Y), hc::wrap_once((int)by + 1, Y)};
+  const int iz[2] = {hc::wrap_once((int)bz, Z), hc::wrap_once((int)bz + 1, Z)};
   const float wx[2] = {1.0f - fx, fx};
   const float wy[2] = {1.0f - fy, fy};
   const float wz[2] = {1.0f - fz, fz};
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int a = (k >> 2) & 1, b = (k >> 1) & 1, c = k & 1;
-    s.node[k] = ((long long)ix[a] * Y + iy[b]) * Z + iz[c];
+    s.node[k] = (ix[a] * Y + iy[b]) * Z + iz[c];
     s.w[k] = wx[a] * wy[b] * wz[c];
   }
 }
 
-__global__ void interp_static_kernel(const float* __restrict__ u,
-                                     const float* __restrict__ pos_s,
-                                     const int* __restrict__ order,
-                                     const int* __restrict__ starts, int C, int NCH,
-                                     float* __restrict__ out, int X, int Y, int Z) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)X * C) return;
-  const int g = (int)(t / C), c = (int)(t % C);
-  const int r = starts[g] + c, end = starts[g + 1];
-  if (c == C - 1) {
-    // the vertices past this slab's capacity interpolate to 0
-    for (int d = starts[g] + C; d < end; ++d)
-      for (int ch = 0; ch < NCH; ++ch) out[(long long)order[d] * NCH + ch] = 0.f;
+// One block a tile of SLAB_TILE vertices, a warp a round of 32, a thread a
+// vertex.  `tilehist` [X, nt]: the count of slab g's vertices in the tiles
+// before tile t (the slab counts' scan).
+__global__ void __launch_bounds__(hc::SLAB_TILE)
+    interp_static_kernel(const float* __restrict__ u, const float* __restrict__ pos,
+                         const int* __restrict__ tilehist, int P, int nt, int C, int NCH,
+                         float* __restrict__ out, int X, int Y, int Z) {
+  extern __shared__ int before[];  // [SLAB_ROUNDS - 1, X]: each round's count a slab
+  const int lane = threadIdx.x & 31, r = threadIdx.x >> 5;
+  const int t = blockIdx.x;
+  const long long p = (long long)t * hc::SLAB_TILE + threadIdx.x;
+  const bool valid = p < P;
+  for (int i = threadIdx.x; i < (hc::SLAB_ROUNDS - 1) * X; i += blockDim.x) before[i] = 0;
+  float px = 0.f, py = 0.f, pz = 0.f;
+  if (valid) {
+    px = hc::wrap_pos_fast(__ldg(pos + 3 * p), X);
+    py = hc::wrap_pos_fast(__ldg(pos + 3 * p + 1), Y);
+    pz = hc::wrap_pos_fast(__ldg(pos + 3 * p + 2), Z);
   }
-  if (r >= end) return;  // an empty slot
+  const int g = valid ? hc::wrap_once((int)floorf(px), X) : -1;
+  // the tile's offset in the slab and the corners' values, all in flight
+  // while the block ranks
+  const int first = valid ? __ldg(tilehist + (long long)g * nt + t) : 0;
   Corners s;
-  static_corners(pos_s + 3 * (long long)r, g, X, Y, Z, s);
+  static_corners(px, py, pz, valid ? g : 0, X, Y, Z, s);
   const long long N = (long long)X * Y * Z;
+  float v[8][4];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) v[k][ch] = ch < NCH ? __ldg(u + ch * N + s.node[k]) : 0.f;
+  // the rank in the slab: the rounds before this one, then the lower peers
+  const unsigned peers = __match_any_sync(hc::FULL, g);
+  __syncthreads();
+  if (valid && r < hc::SLAB_ROUNDS - 1 && lane == __ffs(peers) - 1)
+    before[r * X + g] = __popc(peers);
+  __syncthreads();
+  int rank = first + __popc(peers & ((1u << lane) - 1u));
+  for (int q = 0; q < r; ++q) rank += valid ? before[q * X + g] : 0;
+  if (!valid) return;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const float w = s.w[k];
+    const float wk = s.w[k];
 #pragma unroll
-    for (int ch = 0; ch < 4; ++ch)
-      if (ch < NCH) acc[ch] += w * u[ch * N + s.node[k]];
+    for (int ch = 0; ch < 4; ++ch) acc[ch] += wk * v[k][ch];
   }
-  const long long row = (long long)order[r] * NCH;
-  for (int ch = 0; ch < NCH; ++ch) out[row + ch] = acc[ch];
+  const bool kept = rank < C;
+  float* row = out + p * NCH;
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch)
+    if (ch < NCH) row[ch] = kept ? acc[ch] : 0.f;
 }
 
-int blocks_for(long long threads, int per_block) {
-  return (int)((threads + per_block - 1) / per_block);
-}
+int blocks_for(long long n, int per) { return (int)((n + per - 1) / per); }
 
 }  // namespace
 
@@ -118,24 +152,30 @@ extern "C" int hc_spread_static(const void* pos, const void* force, int C, void*
   const hc::TileBins tb =
       hc::tile_bins_carve((int*)scratch + hc::slab_bins_ints(P, X), P, X, Y, Z);
   int err = hc::slab_bins((const float*)pos, (const float*)force, P, X, Y, Z, C, sb,
-                          (long long*)overflow, nullptr, nullptr, (float4*)rec, s);
+                          (long long*)overflow, (float4*)rec, s);
   if (!err) err = hc::tile_bins_count_records((const float4*)rec, P, X, Y, Z, tb, s);
   if (!err) err = hc::tile_bins_place(tb, (const float4*)rec, P, X, Y, Z, s);
   if (!err) err = hc::tile_gather((const float4*)rec, tb, (float*)out, X, Y, Z, s);
   return err;
 }
 
-// u [NCH, X, Y, Z] f32 (1 <= NCH <= 4); pos_s [P, 3] f32 in slab order; order
-// [P] int32 (sorted row -> vertex); starts [X + 1] int32; out [P, NCH] f32.
-extern "C" int hc_interp_static(const void* u, const void* pos_s, const void* order,
-                                const void* starts, int C, int NCH, void* out, int X, int Y,
-                                int Z, void* stream) {
-  const long long slots = (long long)X * C;
-  if (slots > 0) {
-    const int threads = 256;
-    interp_static_kernel<<<blocks_for(slots, threads), threads, 0, (cudaStream_t)stream>>>(
-        (const float*)u, (const float*)pos_s, (const int*)order, (const int*)starts, C, NCH,
-        (float*)out, X, Y, Z);
-  }
-  return (int)cudaGetLastError();
+// u [NCH, X, Y, Z] f32 (1 <= NCH <= 4); pos [P, 3] f32 (unwrapped); out
+// [P, NCH] f32 (every row written); overflow int64; scratch
+// hc_slab_bins_ints(P, X) int32 words, zero before the first call (and left
+// so by every call).  X * Y * Z < 2^31.
+extern "C" int hc_interp_static(const void* u, const void* pos, int C, int NCH, void* out,
+                                void* overflow, void* scratch, int P, int X, int Y, int Z,
+                                void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const hc::SlabBins sb = hc::slab_bins_carve((int*)scratch, P, X);
+  int err = hc::slab_counts((const float*)pos, P, X, C, sb, (long long*)overflow, s);
+  const int nt = blocks_for(P, hc::SLAB_TILE);
+  const int smem = (hc::SLAB_ROUNDS - 1) * X * (int)sizeof(int);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(interp_static_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+  if (!err && nt > 0)
+    interp_static_kernel<<<nt, hc::SLAB_TILE, smem, s>>>(
+        (const float*)u, (const float*)pos, sb.tilehist, P, nt, C, NCH, (float*)out, X, Y, Z);
+  return err ? err : (int)cudaGetLastError();
 }

@@ -12,8 +12,10 @@
 //
 // Design: run on the post-advance positions, so a cell that touches a wall
 //   is deleted in the same step, as on the reference package's CPU path
-//   (the TPU's fused count lags one step).  One launch covers every cell
-//   type.  The positions stay in their per-type [NC, NV, 3] tensors, which
+//   (the TPU's fused count lags one step).  One launch covers up to
+//   HC_MAX_TYPES cell types (the wrapper launches once a group of them,
+//   each group's counts and owned mask at its offset in the flat order).
+//   The positions stay in their per-type [NC, NV, 3] tensors, which
 //   the kernel takes as a by-value table (a pointer and NV each); a
 //   vertex's cell follows from its index, so no cell-id operand and no
 //   concatenation exist.  One block per cell:

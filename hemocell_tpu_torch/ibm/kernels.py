@@ -112,7 +112,8 @@ def wall_hit_cells(positions, flags, owned=None):
     node is not fluid.  ``positions``: the per-type unwrapped positions
     [NC, NV, 3], as they are; ``owned``: an optional bool [sum NC*NV] mask
     of the flat order (the vertices a rank owns), the others counting
-    nowhere.  On the card one launch covers every type, a block a cell."""
+    nowhere.  On the card one launch covers up to ``MAX_TYPES`` live types,
+    a block a cell; more types take one launch a group of them."""
     positions = list(positions)
     for k, p in enumerate(positions):
         if p.dim() != 3 or p.shape[2] != 3:
@@ -121,10 +122,6 @@ def wall_hit_cells(positions, flags, owned=None):
     counts = tuple((p.shape[0], p.shape[1]) for p in positions)
     n_cells = sum(nc for nc, _ in counts)
     P = sum(nc * nv for nc, nv in counts)
-    types = [(nc, nv) for nc, nv in counts if nc > 0]
-    if len(types) > MAX_TYPES:
-        raise ValueError(f"wall_hit_cells: {len(types)} cell types, the kernel takes "
-                         f"{MAX_TYPES}")
     if not flags.is_cuda:
         wall_hit_cells.plain_calls += 1
         pos = torch.cat([p.reshape(-1, 3) for p in positions]) if positions else \
@@ -135,8 +132,8 @@ def wall_hit_cells(positions, flags, owned=None):
     X, Y, Z = flags.shape
     flags = _build.cuda_arg(flags, "wall_hit_cells: flags", torch.uint8, (X, Y, Z))
     check_nodes((X, Y, Z), "wall_hit_cells")
-    live = [_build.cuda_arg(p, f"wall_hit_cells: positions[{k}]", torch.float32, p.shape)
-            for k, p in enumerate(positions) if p.shape[0] > 0]
+    live = [(_build.cuda_arg(p, f"wall_hit_cells: positions[{k}]", torch.float32, p.shape),
+             nc, nv) for k, (p, (nc, nv)) in enumerate(zip(positions, counts)) if nc > 0]
     owned_ptr = None
     if owned is not None:
         if owned.dtype == torch.bool:
@@ -144,15 +141,20 @@ def wall_hit_cells(positions, flags, owned=None):
         owned = _build.cuda_arg(owned, "wall_hit_cells: owned", torch.uint8, (P,))
         owned_ptr = owned.data_ptr()
     hits = torch.empty(n_cells, dtype=torch.int32, device=flags.device)
-    if not types:
-        return hits
-    n = len(types)
-    err = _build.lib().hc_wall_hit_cells(
-        (ctypes.c_void_p * n)(*[p.data_ptr() for p in live]),
-        (ctypes.c_int * n)(*[nc for nc, _ in types]), (ctypes.c_int * n)(*[nv for _, nv in types]),
-        n, owned_ptr, flags.data_ptr(), hits.data_ptr(), X, Y, Z, _stream(flags))
-    _build.check(err, "hc_wall_hit_cells")
-    wall_hit_cells.launches += 1
+    cell0 = vert0 = 0  # the first cell and vertex of the group, in the flat order
+    for g0 in range(0, len(live), MAX_TYPES):
+        group = live[g0:g0 + MAX_TYPES]
+        n = len(group)
+        err = _build.lib().hc_wall_hit_cells(
+            (ctypes.c_void_p * n)(*[p.data_ptr() for p, _, _ in group]),
+            (ctypes.c_int * n)(*[nc for _, nc, _ in group]),
+            (ctypes.c_int * n)(*[nv for _, _, nv in group]), n,
+            None if owned_ptr is None else owned_ptr + vert0, flags.data_ptr(),
+            hits.data_ptr() + 4 * cell0, X, Y, Z, _stream(flags))
+        _build.check(err, "hc_wall_hit_cells")
+        wall_hit_cells.launches += 1
+        cell0 += sum(nc for _, nc, _ in group)
+        vert0 += sum(nc * nv for _, nc, nv in group)
     return hits
 
 

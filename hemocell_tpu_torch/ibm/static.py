@@ -12,12 +12,14 @@ them as zero.)
 
 ``spread_static`` and ``interp_static`` are the wrappers: on CPU tensors
 they run the plain versions ``spread_static_plain`` and
-``interp_static_plain``; on CUDA tensors they bin on the card
-(``csrc/bin_vertices.cu``) and launch K11 / K12 (``csrc/ibm_static.cu``),
-or raise for what the kernels do not take.  K11 is one call: the slab
-ranks give the capacity, then K2's deterministic binned spread with pure
-weights.  No path of the step calls them, as no path of the reference
-calls its static-binned kernels.
+``interp_static_plain``; on CUDA tensors they launch K11 / K12
+(``csrc/ibm_static.cu``, with the slab counts of
+``csrc/bin_vertices.cu``), or raise for what the kernels do not take.
+Each is one call: K11 ranks each vertex in its slab, keeps rank < C and
+runs K2's deterministic binned spread with pure weights; K12 counts the
+slabs, then gathers a thread a vertex in vertex order, ranking each
+vertex as K11 does, with no sorted copy.  No path of the step calls them,
+as no path of the reference calls its static-binned kernels.
 """
 
 from __future__ import annotations
@@ -111,27 +113,6 @@ def _check_channels(u, shape) -> int:
     return int(u.shape[0])
 
 
-def _cuda_bins(pos, shape, capacity):
-    """The slab bins of ``pos`` on the card (K12's layout): the wrapped
-    positions in slab order [P,3] f32, ``order`` [P] int32 (sorted row ->
-    vertex), ``starts`` [X+1] int32 and the overflow (0-dim int64)."""
-    X, Y, Z = (int(s) for s in shape)
-    P = pos.shape[0]
-    _check_capacity(capacity)
-    kernels.check_nodes((X, Y, Z), "interp_static")
-    ints, _ = kernels.scratch("hc_slab_bins_ints", pos.device, P, (X,))
-    dev = pos.device
-    pos_s = torch.empty((P, 3), dtype=torch.float32, device=dev)
-    order = torch.empty(P, dtype=torch.int32, device=dev)
-    starts = torch.empty(X + 1, dtype=torch.int32, device=dev)
-    overflow = torch.empty((), dtype=torch.int64, device=dev)
-    err = _build.lib().hc_bin_slabs(
-        pos.data_ptr(), int(capacity), order.data_ptr(), pos_s.data_ptr(), starts.data_ptr(),
-        overflow.data_ptr(), ints.data_ptr(), P, X, Y, Z, kernels._stream(pos))
-    _build.check(err, "hc_bin_slabs")
-    return pos_s, order, starts, overflow
-
-
 def _check_capacity(capacity):
     if int(capacity) < 1:
         raise ValueError(f"capacity must be >= 1, got {capacity}")
@@ -168,15 +149,18 @@ def interp_static(pos, u, shape, capacity=2048):
         interp_static.plain_calls += 1
         return interp_static_plain(pos, u, shape, capacity)
     X, Y, Z = (int(s) for s in shape)
+    P = pos.shape[0]
     nch = _check_channels(u, shape)
+    _check_capacity(capacity)
+    kernels.check_nodes((X, Y, Z), "interp_static")
     u = _build.cuda_arg(u, "interp_static: u", torch.float32, (nch, X, Y, Z), strict=True)
-    pos = _build.cuda_arg(pos, "interp_static: pos", torch.float32, (pos.shape[0], 3),
-                          strict=True)
-    pos_s, order, starts, overflow = _cuda_bins(pos, shape, capacity)
-    out = torch.empty((pos.shape[0], nch), dtype=torch.float32, device=pos.device)
+    pos = _build.cuda_arg(pos, "interp_static: pos", torch.float32, (P, 3), strict=True)
+    ints, _ = kernels.scratch("hc_slab_bins_ints", pos.device, P, (X,))
+    out = torch.empty((P, nch), dtype=torch.float32, device=pos.device)
+    overflow = torch.empty((), dtype=torch.int64, device=pos.device)
     err = _build.lib().hc_interp_static(
-        u.data_ptr(), pos_s.data_ptr(), order.data_ptr(), starts.data_ptr(),
-        int(capacity), nch, out.data_ptr(), X, Y, Z, kernels._stream(pos))
+        u.data_ptr(), pos.data_ptr(), int(capacity), nch, out.data_ptr(), overflow.data_ptr(),
+        ints.data_ptr(), P, X, Y, Z, kernels._stream(pos))
     _build.check(err, "hc_interp_static")
     interp_static.launches += 1
     return out, overflow

@@ -29,10 +29,18 @@ cell ids, or on the per-type positions).  A turn:
   * times K3 on the step's own operands, alone and behind what precedes it
     in the step (the fluid kernel and the velocity, or the velocity).
 
-The checkouts' kernel outputs are compared bit for bit with the first A
-turn's (``chip_smoke.py`` holds each against its plain version).  The
-last line is a JSON object of the times with the card's name and power
-limit.
+With ``--static`` the turns time K12 (the binned interpolation,
+``ibm/static.interp_static``) instead, and nothing else: its wrapper on 3
+channels over 50 calls queued behind a sleep kernel, on pipeflow30's
+packed vertex set at capacities 2048 and 256 (slabs overflow) and on the
+suspension's at the next power of two above its largest slab and at 256:
+
+    python3 scripts/ibm_cells_ab.py --static _archive/parent .
+
+The checkouts' kernel outputs (and K12's overflow counts) are compared bit
+for bit with the first A turn's (``chip_smoke.py`` holds each against its
+plain version).  The last line is a JSON object of the times with the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ def make_inputs(path):
     pipe = dict(u=u, pos=pos, active=active, flags=hc.flags, pos_adv=pos_adv,
                 cell_id=cell_id, n_cells=n_cells,
                 counts=[(cs.pos.shape[0], cs.pos.shape[1]) for cs in hc.cell_states])
-    del hc, f
+    del f
     susp = chip_smoke.build_suspension()
     cs = susp["cells"][0]
     nc, nv = cs.pos.shape[:2]
@@ -78,14 +86,47 @@ def make_inputs(path):
                    pos=spos.reshape(-1, 3).contiguous(),
                    active=alive.float().repeat_interleave(nv),
                    flags=torch.zeros(susp["cfg"].shape, dtype=torch.uint8))
+    pipe_pos = torch.cat([cs.pos.reshape(-1, 3) for cs in hc.cell_states]).contiguous()
+    susp_pos = cs.pos.reshape(-1, 3).contiguous()
+    largest = int(torch.bincount(torch.remainder(torch.floor(susp_pos[:, 0]).long(),
+                                                 susp["cfg"].shape[0])).max())
+    static = {f"{name} C={C}": dict(pos=p, u=0.01 * torch.randn((3,) + tuple(shape),
+                                                                generator=g),
+                                    shape=tuple(shape), capacity=C)
+              for name, p, shape, caps in (
+                  ("pipeflow30", pipe_pos, hc.flags.shape, (2048, 256)),
+                  ("suspension128", susp_pos, susp["cfg"].shape,
+                   (1 << largest.bit_length(), 256)))
+              for C in caps}
     cpu = {name: {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in case.items()}
            for name, case in (("pipeflow30", pipe), ("suspension128", susp128))}
+    cpu["static"] = {name: {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in c.items()}
+                     for name, c in static.items()}
     torch.save(cpu, path)
 
 
-def worker(tree, path, result):
+def static_worker(cases, time_ms):
+    """K12's wrapper of the imported checkout on the saved static cases:
+    (times, outputs)."""
+    import torch
+
+    from hemocell_tpu_torch.ibm import static
+
+    out, outputs = {}, {}
+    for name, case in cases.items():
+        pos, u = case["pos"].cuda(), case["u"].cuda()
+        args = (pos, u, case["shape"], case["capacity"])
+        vals, overflow = static.interp_static(*args)
+        outputs[f"interp_static {name}"] = vals.cpu()
+        outputs[f"interp_static {name} overflow"] = overflow.cpu()
+        out[f"interp_static {name}"] = time_ms(lambda: static.interp_static(*args), 50)
+    return out, outputs
+
+
+def worker(tree, path, result, only_static=False):
     """One turn: the wrappers and the step of the checkout at ``tree`` on
-    the saved inputs; the kernels' outputs saved to ``result``."""
+    the saved inputs (with ``only_static``, K12 alone); the kernels'
+    outputs saved to ``result``."""
     sys.path.insert(0, os.path.abspath(tree))
     sys.path.append(ROOT)  # chip_smoke's timer; the package comes from ``tree``
     import inspect
@@ -102,8 +143,17 @@ def worker(tree, path, result):
     out = {"tree": os.path.relpath(os.path.dirname(os.path.dirname(hemocell_tpu_torch.__file__)),
                                    ROOT),
            "wall_hits_per_type": per_type}
+    inputs = torch.load(path)
+    if only_static:
+        times, outputs = static_worker(inputs["static"], time_ms)
+        out.update(times)
+        torch.save(outputs, result)
+        print(json.dumps(out), flush=True)
+        return
     outputs = {}
-    for name, case in torch.load(path).items():
+    for name, case in inputs.items():
+        if name == "static":
+            continue
         c = {k: (v.cuda() if torch.is_tensor(v) else v) for k, v in case.items()}
         args = (c["u"], c["pos"], c["active"], c["flags"])
         outputs[f"interp {name}"] = kernels.interp(*args).cpu()
@@ -216,8 +266,10 @@ def step_profile(time_ms, n=100, windows=3, window=500):
 
 
 def main(argv):
+    only_static = bool(argv) and argv[0] == "--static"
+    argv = argv[only_static:]
     if len(argv) == 4 and argv[0] == "--worker":
-        worker(*argv[1:])
+        worker(*argv[1:], only_static=only_static)
         return 0
     if len(argv) != 2:
         print(__doc__)
@@ -242,8 +294,9 @@ def main(argv):
         turns = [a, b, b, a, b, a, a, b]
         runs = []
         for i, (label, tree) in enumerate(turns):
-            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree,
-                                  path, os.path.join(tmp, f"out{i}.pt")],
+            res = subprocess.run([sys.executable, os.path.abspath(__file__)]
+                                 + ["--static"] * only_static
+                                 + ["--worker", tree, path, os.path.join(tmp, f"out{i}.pt")],
                                  capture_output=True, text=True)
             if res.returncode != 0:
                 print(res.stdout + res.stderr, file=sys.stderr)

@@ -7,7 +7,9 @@
     the JAX ``pallas_wall_hit_cells`` in interpret mode; with two types, an
     empty type and dead cells; the owned mask against the overflow slot the
     sharded caller used before it, and the slabs' owned counts summing to
-    the whole domain's.
+    the whole domain's; nine live types (a launch per group of
+    ``MAX_TYPES``, mirrored) against the plain version, whole and on slabs
+    with owned masks.
   * K3 (one thread a vertex): its corner arithmetic (32-bit indices, the
     wrap's fast path, one subtraction for the upper corner) mirrored in
     numpy float32 against ``coupling.stencil`` (the same corners, weights
@@ -70,14 +72,30 @@ def _flat(cells):
 
 
 def _k4_mirror(cells, flags, owned=None):
-    """The kernel's walk in plain Python: the table of the non-empty types
-    (first cell, first vertex, NV), one cell a block, the cell's type the
-    last whose first cell is at or before it, its vertices at
-    ``pos + cell * NV * 3``, the nearest node's flag."""
+    """The wrapper's launches and the kernel's walk in plain Python: the
+    non-empty types in groups of ``MAX_TYPES``, a launch each, whose counts
+    and owned mask start at the group's first cell and vertex of the flat
+    order; in a launch the table of its types (first cell, first vertex,
+    NV), one cell a block, the cell's type the last whose first cell is at
+    or before it, its vertices at ``pos + cell * NV * 3``, the nearest
+    node's flag."""
+    live = [p for p in cells if p.shape[0] > 0]
+    out, cell0, vert0 = [], 0, 0
+    for g0 in range(0, len(live), kernels.MAX_TYPES):
+        group = live[g0:g0 + kernels.MAX_TYPES]
+        own = None if owned is None else owned[vert0:]
+        out.append(_k4_launch(group, flags, own))
+        cell0 += sum(p.shape[0] for p in group)
+        vert0 += sum(p.shape[0] * p.shape[1] for p in group)
+    return np.concatenate(out) if out else np.zeros(0, np.int32)
+
+
+def _k4_launch(live, flags, owned):
+    """One launch of K4 on at most ``MAX_TYPES`` non-empty types."""
+    assert len(live) <= kernels.MAX_TYPES
     shape = tuple(flags.shape)
-    live = [(k, p) for k, p in enumerate(cells) if p.shape[0] > 0]
     starts, vstarts, n_cells, n_vert = [], [], 0, 0
-    for _, p in live:
+    for p in live:
         starts.append(n_cells)
         vstarts.append(n_vert)
         n_cells += p.shape[0]
@@ -85,7 +103,7 @@ def _k4_mirror(cells, flags, owned=None):
     counts = np.zeros(n_cells, np.int32)
     for c in range(n_cells):
         t = max(j for j in range(len(live)) if c >= starts[j])
-        p = live[t][1]
+        p = live[t]
         nv = p.shape[1]
         local = c - starts[t]
         vert = p.reshape(-1, 3)[local * nv:(local + 1) * nv]
@@ -195,13 +213,48 @@ def test_wall_hits_slabs_sum_to_the_whole_domain():
     assert torch.equal(total, whole) and whole.sum() > 0
 
 
+# nine live types, more than one launch of K4 takes, and an empty one
+NINE_TYPES = tuple((2 + k % 3, 5 + 2 * k, 1.0 + 0.3 * k) for k in range(4)) + ((0, 4, 1.0),) \
+    + tuple((1 + k % 2, 6 + k, 2.0 + 0.2 * k) for k in range(5))
+
+
 def test_layout_checks():
+    """Positions that are not [NC, NV, 3] raise; nine live types (one past
+    ``MAX_TYPES``) count as the plain version does; no type gives no
+    count."""
     flags = _walled()
     with pytest.raises(ValueError, match="NC, NV, 3"):
         kernels.wall_hit_cells([torch.zeros(10, 3)], flags)
-    with pytest.raises(ValueError, match="cell types"):
-        kernels.wall_hit_cells([torch.zeros(1, 2, 3)] * (kernels.MAX_TYPES + 1), flags)
+    cells = _cells(np.random.default_rng(9), SHAPE, NINE_TYPES)
+    assert sum(p.shape[0] > 0 for p in cells) == kernels.MAX_TYPES + 1
+    counts = _counts(cells)
+    n_cells = sum(nc for nc, _ in counts)
+    out = kernels.wall_hit_cells(cells, flags)
+    ref = coupling.wall_hit_cells(_flat(cells), cell_index(counts), flags, n_cells)
+    assert torch.equal(out, ref) and 0 < int((out > 0).sum()) < n_cells
     assert kernels.wall_hit_cells([], flags).shape == (0,)
+
+
+@pytest.mark.parametrize("x0, Xl", [(0, 8), (8, 8)])
+def test_wall_hits_nine_types_two_launches_mirror(x0, Xl):
+    """Nine live types and an empty one: the wrapper's two launches
+    (eight types, then one, each at its offset in the flat order) mirrored
+    in plain Python equal the plain version on the whole box and on a slab
+    with its owned mask."""
+    cells = [p.to(torch.float32) for p in _cells(np.random.default_rng(10), SHAPE,
+                                                 NINE_TYPES)]
+    counts = _counts(cells)
+    n_cells = sum(nc for nc, _ in counts)
+    flags = _walled()
+    whole = coupling.wall_hit_cells(_flat(cells), cell_index(counts), flags, n_cells)
+    np.testing.assert_array_equal(_k4_mirror(cells, flags), whole.numpy())
+    flags_ext = flags[[(x0 + i) % SHAPE[0] for i in range(Xl + 1)]]
+    p_local, owned = _localize(_flat(cells), x0, Xl, SHAPE)
+    local = _split(p_local, counts)
+    ref = coupling.wall_hit_cells(p_local, cell_index(counts), flags_ext, n_cells, owned)
+    np.testing.assert_array_equal(_k4_mirror(local, flags_ext, owned), ref.numpy())
+    assert torch.equal(kernels.wall_hit_cells(local, flags_ext, owned), ref)
+    assert int(ref.sum()) > 0
 
 
 # ---------------------------------------------------------------------------
