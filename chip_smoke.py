@@ -154,9 +154,30 @@ interior viscosity and solidify:
      cases/solidify_example, on the card and with the plain versions on the
      CPU from the same state.
 
+Then the stretch validation, and output and restart:
+
+ 23. stretchcell at full size (52x26x26 walled box, one RBC of 642
+     vertices, f32): 10,000 iterations at 25, 75 and 125 pN, each through
+     K1, K2, K3 and K4 once an iteration (exact counts, no plain version),
+     the axial and transverse diameters inside the validated bands of
+     VALIDATION.md and the volume ratio in (0.98, 1.02]; wall us per
+     iteration, one profiler window of 100 iterations (busy, idle share)
+     and the phase's seconds;
+ 24. pipeflow30 saved mid-run (iteration 107) with the facade's
+     save_checkpoint and resumed from the file in a fresh facade,
+     suspension128 (repulsion, CEPAC; iteration 53) and fluid128 (the fused
+     runner; iteration 51, then one call of 101 against 51 + 50) saved and
+     resumed in a fresh runner: each bitwise equal to the run that went on,
+     with the same launches and (the coupled paths) no more device events
+     per iteration; the host
+     fields of a loaded state on the host; write_output's snapshot with
+     every fluid field (Force one K2 launch, equal to a direct K2 call; the
+     other fields equal to the state on the card) and its CSV files read
+     back; the times of the snapshot, save and load.
+
 Then the speed gates in sum, the ``kernels`` JSON line (all fifteen: the
 twelve kernels, K7's planes kernel and the two halo modes; with the speed
-gates), the card, and
+gates and phase 24's I/O times), the card, and
 as the last line ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (from the repository root, one GPU)
@@ -2879,6 +2900,336 @@ def phase_small_features():
         shutil.rmtree(d, ignore_errors=True)
 
 
+STRETCH_ITERATIONS = 10_000
+STRETCH_FORCES_PN = (25.0, 75.0, 125.0)
+
+
+def phase_stretch(smi):
+    """[23] The optical-tweezers validation at full size: stretchcell's
+    52x26x26 walled box with one RBC (642 vertices), f32, 10,000 iterations
+    at 25, 75 and 125 pN, each with the counts read around the run (K1, K2,
+    K3 and K4 once an iteration, no plain version), the diameters against
+    the validated bands and the volume ratio in (0.98, 1.02]; one profiler
+    window of 100 iterations after the first.  Returns {path: launches}."""
+    import torch
+
+    from hemocell_tpu_torch.cases import stretchcell
+
+    t_phase = time.time()
+    by_path, n = {}, STRETCH_ITERATIONS
+    expected = dict.fromkeys(KERNEL_ORDER, 0)
+    expected.update(stream_collide=n, spread=n, interp=n, wall_hit_cells=n)
+    for i, force_pn in enumerate(STRETCH_FORCES_PN):
+        workdir = tempfile.mkdtemp(prefix="stretchcell_")
+        try:
+            hc = stretchcell.build(force_pn, workdir, device="cuda")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        v0 = float(hc.cell_volumes(0)[0])
+        hc.state  # builds the runner outside the count
+        fns = reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hc.iterate(n)
+        hc.block()
+        dt = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in fns.items()}
+        plain = {k: fn.plain_calls for k, fn in fns.items()}
+        axial, transverse = stretchcell.diameters_um(hc)
+        ratio = float(hc.cell_volumes(0)[0]) / v0
+        cs = hc.state.cells[0]
+        finite = bool(torch.isfinite(hc.state.f).all() & torch.isfinite(cs.pos).all())
+        (a_lo, a_hi), (t_lo, t_hi) = stretchcell.BANDS[force_pn]
+        print(f"[23] stretch {force_pn:g} pN {hc.shape}: {n} iterations in {dt:.3f} s = "
+              f"{dt * 1e6 / n:.1f} us/it wall on {smi} | axial {axial:.4f} um [{a_lo}, "
+              f"{a_hi}] | transverse {transverse:.4f} um [{t_lo}, {t_hi}] | volume ratio "
+              f"{ratio:.5f} (0.98, 1.02] | launches {launches} | plain calls {plain}",
+              flush=True)
+        checks = {"finite state": finite, "the cell is alive": hc.alive_count(0) == 1,
+                  "axial diameter in its band": a_lo <= axial <= a_hi,
+                  "transverse diameter in its band": t_lo <= transverse <= t_hi,
+                  "volume ratio in (0.98, 1.02]": 0.98 < ratio <= 1.02,
+                  "launch counts": launches == expected,
+                  "no plain version on the stretch path": not any(plain.values())}
+        for check, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"stretch {force_pn:g} pN check failed: {check} "
+                                     f"(expected launches {expected})")
+        by_path[f"stretch {force_pn:g} pN"] = launches
+        if i == 0:
+            phase_profile("[23]", hc.iterate, dt * 1e6 / n)
+        del hc
+    print(f"[23] three stretches in {time.time() - t_phase:.1f} s", flush=True)
+    return by_path
+
+
+EVENT_WINDOW = 100  # iterations of restart_check's profiler windows
+
+
+def profiled_events(advance, n):
+    """Device kernel events per iteration in n iterations of ``advance``
+    (torch.profiler, the window between two sleep kernels)."""
+    return sum(c for c, _ in profiled_kernels(lambda: advance(n), 1).values()) / n
+
+
+def restart_check(tag, name, run_on, fresh_run, state_a, state_b, n, ms, events_gate=True):
+    """Both runs from the checkpoint's iteration: ``state_a`` the one that
+    went on in memory, ``state_b`` the one resumed from the file.  Their
+    wrapper counts over n iterations must be equal, their end states bitwise
+    equal, and (``events_gate``) the resumed run may not issue more device
+    events per iteration (kernels and copies, by the profiler) than the
+    other, within 2% and two events: a state loaded onto the wrong device
+    would add a copy or a sync every step.  The profiler drops events late
+    in a run and never adds any, so each run's count is the larger of two
+    windows of EVENT_WINDOW iterations, taken in turns, and the gate is
+    one-sided.  A path whose only device work is its wrappers' kernels
+    passes ``events_gate=False``: the wrapper counts are its device
+    launches, and its windows are printed only.  Returns the resumed run's
+    wrapper counts."""
+    import torch
+
+    counts = []
+    for run, st in ((run_on, state_a), (fresh_run, state_b)):
+        fns = reset_counters()
+        st = run(st, n)
+        torch.cuda.synchronize()
+        counts.append(({k: fn.launches for k, fn in fns.items() if fn.launches},
+                       {k: fn.plain_calls for k, fn in fns.items() if fn.plain_calls}, st))
+    (la, pa, a), (lb, pb, b) = counts
+    equal = states_equal(a, b)
+    box = [a, b]
+
+    def adv(i):
+        def advance(k):
+            box[i] = (run_on if i == 0 else fresh_run)(box[i], k)
+        return advance
+
+    windows = [profiled_events(adv(i), EVENT_WINDOW) for i in (0, 1, 0, 1)]
+    events = [max(windows[0], windows[2]), max(windows[1], windows[3])]
+    print(f"{tag} {name}: saved in {ms['save']:.1f} ms, loaded in {ms['load']:.1f} ms; "
+          f"{n} iterations on from the checkpoint's iteration {int(state_a.it)}: resumed "
+          f"bitwise equal to the uninterrupted run {equal}; launches {lb} (uninterrupted "
+          f"{la}); device events/it {events[1]:.2f} (uninterrupted {events[0]:.2f}; "
+          f"windows in turns {', '.join(f'{w:.2f}' for w in windows)})",
+          flush=True)
+    checks = {"bitwise equal to the uninterrupted run": equal,
+              "the same launches": la == lb and bool(lb),
+              "no plain version": not (pa or pb),
+              "no more device events per iteration after the load": not events_gate
+              or (events[1] <= 1.02 * events[0] + 2 / EVENT_WINDOW and min(events) > 0)}
+    for check, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"{name} restart check failed: {check}")
+    return lb
+
+
+def phase_output(hc, smi):
+    """[24] The snapshot of write_output at pipeflow30's size with every
+    fluid field (``HemoCell.output_jobs``: the fields computed on the card
+    and copied to the host, as the writers' arguments): the Force field
+    equal to a direct K2 call plus the body force, the other fields to the
+    state on the card bit for bit, the cell file's positions to the live
+    vertices, K2 once and no plain version; the CSV files written and read
+    back against the cell statistics on the card.  The HDF5 files
+    themselves are host code that needs h5py, which a GPU machine's Python
+    need not have: tests/test_torch_output.py holds them against the
+    reference's files on the CPU, and they are not written here.  Returns
+    the snapshot's time in ms."""
+    import torch
+
+    from hemocell_tpu_torch.fluid import lbm
+    from hemocell_tpu_torch.ibm import kernels
+    from hemocell_tpu_torch.io import hdf5io
+    from hemocell_tpu_torch.utils import cellinfo
+
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_out_")
+    try:
+        hc.outdir = outdir
+        st = hc.state
+        hc.block()
+        fns = reset_counters()
+        t0 = time.perf_counter()
+        jobs = hc.output_jobs(st, OUTPUT_FIELDS)
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
+        plain = {k: fn.plain_calls for k, fn in fns.items() if fn.plain_calls}
+        by_writer = {}
+        for job in jobs:
+            by_writer.setdefault(job.func, []).append(job)
+        got = by_writer[hdf5io.write_fluid_hdf5][0].args[4]
+        pos = torch.cat([cs.pos.reshape(-1, 3) for cs in st.cells])
+        active = torch.cat([cs.alive.float().repeat_interleave(cs.pos.shape[1])
+                            for cs in st.cells])
+        direct = kernels.spread(pos, torch.cat([cs.force.reshape(-1, 3) for cs in st.cells]),
+                                active, hc.flags, hc.params.f_limit,
+                                force_extra=torch.cat([cs.force_repulsion.reshape(-1, 3)
+                                                       for cs in st.cells]))
+        force_ref = (direct.permute(1, 2, 3, 0).cpu().numpy()
+                     + np.broadcast_to(np.asarray(hc.body_force), hc.shape + (3,))
+                     ).astype(np.float32)
+        rho, u = lbm.macroscopic(st.f)
+        refs = {"Force": force_ref,
+                "Velocity": u.permute(1, 2, 3, 0).cpu().numpy(),
+                "Density": rho.cpu().numpy(),
+                "Boundary": hc.flags.cpu().numpy().astype(np.float32),
+                "ShearRate": lbm.shear_rate_magnitude(st.f, None, hc.omega).cpu().numpy(),
+                "StrainRate": lbm.strain_rate_tensor(st.f, None, hc.omega).permute(
+                    1, 2, 3, 0).cpu().numpy()}
+        errs = {k: float(np.abs(np.asarray(got[k], np.float32) - v).max())
+                for k, v in refs.items()}
+        live = sum(int(cs.alive.sum()) * cs.pos.shape[1] for cs in st.cells)
+        density = sum(float(got[f"CellDensity_{ct.name}"].sum()) for ct in hc.cell_types)
+        cell_jobs = {j.args[2]: j for j in by_writer[hdf5io.write_cells_hdf5]}
+        cs0 = st.cells[0]
+        rbc_pos = np.array_equal(cell_jobs["RBC"].keywords["positions"],
+                                 cs0.pos[cs0.alive].reshape(-1, 3).cpu().numpy())
+        for job in by_writer[hdf5io.write_cell_csv]:
+            job()
+        vols = cellinfo.volumes(cs0.pos, hc.cell_types[0].topo_dev["tri"])[cs0.alive]
+        rows = np.loadtxt(os.path.join(outdir, "csv", f"RBC.{hdf5io.zero_pad(hc.iter)}.csv"),
+                          delimiter=",", skiprows=1, ndmin=2)
+        csv_ok = (rows.shape[0] == int(cs0.alive.sum())
+                  and np.array_equal(rows[:, 4].astype(np.float32), vols.cpu().numpy()))
+        print(f"[24] write_output's snapshot at {hc.shape} with {len(OUTPUT_FIELDS)} fluid "
+              f"fields ({len(got)} datasets) and {len(jobs)} files: {snapshot_ms:.1f} ms on "
+              f"{smi} | launches {launches} | plain calls {plain} | max diff against the "
+              f"card: {errs} | CellDensity {density:.0f} of {live} live vertices | RBC "
+              f"positions equal {rbc_pos} | CSV read back equal {csv_ok}", flush=True)
+        checks = {"K2 once for the Force field": launches == {"spread": 1},
+                  "no plain version": not plain,
+                  "every field equal to the card's": all(e == 0.0 for e in errs.values()),
+                  "CellDensity counts the live vertices": density == live,
+                  "RBC positions": rbc_pos, "CSV rows": csv_ok}
+        for check, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"write_output check failed: {check}")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    return dict(snapshot_ms=snapshot_ms)
+
+
+OUTPUT_FIELDS = ("Velocity", "Density", "Boundary", "Force", "ShearRate", "StrainRate",
+                 "ShearStress", "Omega", "CellDensity", "BindingSites", "InteriorPoints")
+
+
+def phase_restart(smi):
+    """[24] Output and restart on the card.  pipeflow30 (the facade),
+    suspension128 (repulsion and CEPAC) and fluid128 (the fused runner, K8
+    at k = 2) are saved mid-run in the reference's checkpoint format and
+    resumed from the file: the pipe in a fresh facade, the others in a
+    fresh runner; each must equal the run that went on in memory bit for
+    bit, with the same launches (the resumed cell-free run splits its
+    iterations into other K8 launches: it equals the uninterrupted run
+    only because K8 equals two K1 launches bit for bit), and the host
+    fields of a loaded state stay on the host.  Then phase_output.
+    Returns ({path: launches}, times in ms)."""
+    import torch
+
+    from hemocell_tpu_torch.cases import fluid_only
+    from hemocell_tpu_torch.cases.pipeflow30 import build_pipeflow30, pipeflow30_facade
+    from hemocell_tpu_torch.dynamics import build_runner, initial_sim_state
+    from hemocell_tpu_torch.io import checkpoint
+
+    t_phase = time.time()
+    by_path, times = {}, {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    try:
+        # ---- pipeflow30 through the facade
+        hc = build_pipeflow30(device="cuda", workdir=os.path.join(work, "case"))
+        hc.iterate(107)  # mid-period: particles every 5, materials every 20
+        hc.block()
+        ckpt = os.path.join(work, "pipe")
+        t0 = time.perf_counter()
+        hc.save_checkpoint(ckpt)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        fresh = pipeflow30_facade(device="cuda", workdir=os.path.join(work, "case2"))
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(ckpt)
+        fresh.block()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        times["pipeflow30"] = dict(save=save_ms, load=load_ms,
+                                   bytes=os.path.getsize(os.path.join(ckpt, "checkpoint.npz")))
+        if not (fresh.iter == hc.iter == 107 and fresh.local_state.f.is_cuda):
+            raise AssertionError("pipeflow30: the loaded state is not the saved one on the card")
+
+        def facade_run(f):
+            def run(_, n):
+                f.iterate(n)
+                return f.local_state
+            return run
+
+        by_path["pipeflow30 resumed"] = restart_check(
+            "[24]", "pipeflow30", facade_run(hc), facade_run(fresh), hc.local_state,
+            fresh.local_state, 200, times["pipeflow30"])
+        times["output"] = phase_output(fresh, smi)
+        del hc, fresh
+        torch.cuda.empty_cache()
+
+        # ---- suspension128 with repulsion and CEPAC
+        susp = build_suspension()
+        cfg = susp["cepac_cfg"]
+        run = build_runner(cfg)
+        state = run(initial_sim_state(cfg, list(susp["cells"])), 53)
+        torch.cuda.synchronize()
+        ckpt = os.path.join(work, "susp")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(ckpt, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loaded, _ = checkpoint.load_checkpoint(ckpt, device="cuda")
+        torch.cuda.synchronize()
+        times["suspension128"] = dict(save=save_ms, load=(time.perf_counter() - t0) * 1e3)
+        by_path["suspension128 resumed"] = restart_check(
+            "[24]", "suspension128", run, build_runner(cfg), state, loaded, 100,
+            times["suspension128"])
+        # a Lees-Edwards state's displacement and a body-force override come
+        # back on the host, as the step holds them
+        arrays = checkpoint.state_arrays(state._replace(
+            le_displacement=torch.tensor(3.5), body_force_state=torch.tensor([1e-6, 0, 0])))
+        back = checkpoint.state_from_arrays(arrays, device="cuda")
+        if back.le_displacement.is_cuda or back.body_force_state.is_cuda or not back.f.is_cuda:
+            raise AssertionError("a loaded state's host fields are not on the host")
+        del susp, state, loaded, back, arrays, run
+        torch.cuda.empty_cache()
+
+        # ---- fluid128, the fused runner (K8 at k = 2)
+        cfg, state0 = fluid_only.build(FLUID_SHAPE)
+        state0 = perturbed(cfg, state0, 11)
+        run = build_runner(cfg)
+        state = run(state0, 51)  # 25 K8 launches and one K1
+        torch.cuda.synchronize()
+        ckpt = os.path.join(work, "fluid")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(ckpt, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loaded, _ = checkpoint.load_checkpoint(ckpt, device="cuda")
+        torch.cuda.synchronize()
+        times["fluid128"] = dict(save=save_ms, load=(time.perf_counter() - t0) * 1e3)
+        whole = run(state0, 101)  # 50 K8 launches and one K1
+        resumed = build_runner(cfg)(loaded, 50)  # 25 K8 launches
+        torch.cuda.synchronize()
+        same = states_equal(whole, resumed)
+        print(f"[24] fluid128: 51 iterations, saved, resumed for 50 in a fresh runner: "
+              f"bitwise equal to 101 iterations in one call {same}", flush=True)
+        if not same:
+            raise AssertionError("fluid128: the resumed run differs from the one call")
+        # the cell-free runner issues nothing but K8 (and K1) launches, which
+        # its wrappers count exactly; late in this script the profiler sees
+        # 31 of the 50 K8 launches of a window, so its windows are printed
+        # only
+        by_path["fluid128 resumed"] = restart_check(
+            "[24]", "fluid128", run, build_runner(cfg), state, loaded, 50, times["fluid128"],
+            events_gate=False)
+        del state0, state, loaded, whole, resumed, run
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[24] output and restart in {time.time() - t_phase:.1f} s: {json.dumps(times)}",
+          flush=True)
+    return by_path, times
+
+
 def main() -> int:
     try:
         import torch
@@ -2970,6 +3321,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small_features()
 
+    by_path.update(phase_stretch(smi))
+    restart_paths, io_times = phase_restart(smi)
+    by_path.update(restart_paths)
+
     # ``launches`` is the count of the first full-size path that runs the
     # kernel (K11 and K12, which no path runs: phase 20's comparisons, the
     # path "standalone"); ``launches_by_path`` has every path's; K1-K3, K11
@@ -2984,7 +3339,7 @@ def main() -> int:
             "device_launches_per_call")
     kernels_line = {"kernels": []}
     for name in KERNEL_ORDER:
-        per_path = {path: counts[name] for path, counts in by_path.items()}
+        per_path = {path: counts.get(name, 0) for path, counts in by_path.items()}
         launches = next((c for c in per_path.values() if c > 0), 0)
         if launches == 0:
             return fail(f"{name}: no path launched the kernel ({per_path})")
@@ -3004,6 +3359,7 @@ def main() -> int:
     missed = [w for w, ms, other_ms, _ in SPEED_GATES if not ms < other_ms]
     print(f"speed gates: {len(SPEED_GATES) - len(missed)} of {len(SPEED_GATES)} below their "
           f"yardstick; not below: {missed}", flush=True)
+    kernels_line["io_ms"] = io_times
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

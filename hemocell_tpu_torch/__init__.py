@@ -20,7 +20,9 @@ kernels for Hopper (``csrc/``), built with ``nvcc`` at first use
   K10 fluid/stream_collide_2d.py  x-marching stream-collide, large cross-sections
 
 Each wrapper runs its plain PyTorch version on CPU tensors and launches
-its kernel on CUDA tensors.  Entry points run on ``device="cuda"`` unless
+its kernel on CUDA tensors.  Output and restart (``io/``) write the
+reference's HDF5 and CSV layout and the JAX package's npz checkpoints,
+which either package resumes.  Entry points run on ``device="cuda"`` unless
 the caller passes ``device="cpu"``.
 """
 

@@ -6,10 +6,15 @@ stepMaterialEvery 20, no repulsion.
 
 The port's copy of ``cases/pipeflow30.py``: the packing density is adapted
 until the in-tube hematocrit after placement denial is within 1% of the
-target.
+target.  With ``--out DIR`` the run writes its HDF5 and CSV output there
+every 100 iterations; with ``--checkpoint-every N`` also a checkpoint to
+``DIR/checkpoint`` every N iterations (and on SIGTERM, SIGINT, SIGHUP,
+SIGUSR1 or SIGUSR2, before it exits); ``--resume`` continues from that
+checkpoint (written by either package) up to ``--iterations`` in all.
 
 Usage: python -m hemocell_tpu_torch.cases.pipeflow30 [--iterations N]
            [--ht 0.30] [--shape 248 56 56] [--radius 25] [--device cuda]
+           [--out DIR [--checkpoint-every N] [--resume]]
        torchrun --nproc-per-node N -m hemocell_tpu_torch.cases.pipeflow30 --distribute
            (one rank per card, the pipe cut into x-slabs; with --device cpu
            the ranks run the plain path over gloo)
@@ -76,6 +81,31 @@ def pipe_flags(shape, radius):
     return flags
 
 
+def pipeflow30_facade(shape=(248, 56, 56), radius: float = 25.0,
+                      workdir: str | None = None, device="cuda") -> HemoCell:
+    """The case's facade without cells: its configuration, the pipe's
+    lattice, the RBC and PLT types and the Poiseuille body force (what a
+    resumed run needs before it loads its checkpoint)."""
+    workdir = workdir or tempfile.mkdtemp(prefix="pipeflow30_")
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "config.xml"), "w") as f:
+        f.write(CONFIG_XML)
+    for cell in ("RBC", "PLT"):
+        shutil.copy(os.path.join(REPO, "tools", "cell_templates", f"{cell}_template.xml"),
+                    os.path.join(workdir, f"{cell}.xml"))
+
+    hc = HemoCell(os.path.join(workdir, "config.xml"), device=device)
+    hc.params.pipe_flow_radius(hc.cfg, radius)
+    hc.initialize_lattice(flags=pipe_flags(shape, radius))
+    hc.add_cell_type("RBC", "RbcHighOrderModel")
+    hc.cell_types[-1].minimum_distance_from_solid_um = 0.5
+    hc.add_cell_type("PLT", "PltSimpleModel")
+    r = hc.params.pipe_radius
+    poiseuille = 8 * hc.params.nu_lbm * (hc.params.u_lbm_max * 0.5) / r / r
+    hc.set_body_force((poiseuille, 0.0, 0.0))
+    return hc
+
+
 def build_pipeflow30(
     target_hematocrit: float = 0.30,
     shape=(248, 56, 56),
@@ -87,21 +117,7 @@ def build_pipeflow30(
     """Build the case; packs adaptively until the post-placement-denial
     in-tube RBC hematocrit is within 1% (abs) of the target."""
     workdir = workdir or tempfile.mkdtemp(prefix="pipeflow30_")
-    os.makedirs(workdir, exist_ok=True)
-    with open(os.path.join(workdir, "config.xml"), "w") as f:
-        f.write(CONFIG_XML)
-    for cell in ("RBC", "PLT"):
-        shutil.copy(os.path.join(REPO, "tools", "cell_templates", f"{cell}_template.xml"),
-                    os.path.join(workdir, f"{cell}.xml"))
-
-    hc = HemoCell(os.path.join(workdir, "config.xml"), device=device)
-    flags = pipe_flags(shape, radius)
-    hc.params.pipe_flow_radius(hc.cfg, radius)
-    hc.initialize_lattice(flags=flags)
-    hc.add_cell_type("RBC", "RbcHighOrderModel")
-    hc.cell_types[-1].minimum_distance_from_solid_um = 0.5
-    hc.add_cell_type("PLT", "PltSimpleModel")
-
+    hc = pipeflow30_facade(shape, radius, workdir, device)
     dx_um = hc.params.dx * 1e6
     box_um = tuple(s * dx_um for s in shape)
     v_rbc_lu = abs(hc.cell_types[0].topo.volume_eq)
@@ -129,10 +145,6 @@ def build_pipeflow30(
         # linear correction on the packed count
         n_rbc = max(1, int(round(n_rbc * target_hematocrit / max(achieved, 1e-9))))
     hc.measured_hematocrit = achieved
-
-    r = hc.params.pipe_radius
-    poiseuille = 8 * hc.params.nu_lbm * (hc.params.u_lbm_max * 0.5) / r / r
-    hc.set_body_force((poiseuille, 0.0, 0.0))
     return hc
 
 
@@ -145,26 +157,54 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--distribute", action="store_true",
                     help="run on the ranks of torchrun, one x-slab each")
+    ap.add_argument("--out", default=None,
+                    help="write HDF5 and CSV output here every 100 iterations")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="write a checkpoint to OUT/checkpoint every N iterations")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the checkpoint in OUT/checkpoint")
     args = ap.parse_args(argv)
+    if (args.resume or args.checkpoint_every) and not args.out:
+        ap.error("--resume and --checkpoint-every need --out")
 
     mesh, say = case_mesh(args)
-    hc = build_pipeflow30(target_hematocrit=args.ht, shape=tuple(args.shape),
-                          radius=args.radius, device=mesh.device if mesh else args.device)
+    device = mesh.device if mesh else args.device
+    if args.resume:
+        hc = pipeflow30_facade(tuple(args.shape), args.radius, device=device)
+    else:
+        hc = build_pipeflow30(target_hematocrit=args.ht, shape=tuple(args.shape),
+                              radius=args.radius, device=device)
     if mesh is not None:
         hc.distribute(mesh)
-    say(f"(pipeflow30) {hc.alive_count(0)} RBC + {hc.alive_count(1)} PLT kept, "
-        f"tube hematocrit {hc.measured_hematocrit:.3f}, device {hc.device}"
-        + (f", {mesh.size} ranks" if mesh else ""))
+    if args.out:
+        hc.set_output_dir(args.out)
+    if args.resume:
+        hc.load_checkpoint()
+        say(f"(pipeflow30) resumed at iteration {hc.iter} from "
+            f"{os.path.join(args.out, 'checkpoint')}")
+    else:
+        say(f"(pipeflow30) {hc.alive_count(0)} RBC + {hc.alive_count(1)} PLT kept, "
+            f"tube hematocrit {hc.measured_hematocrit:.3f}, device {hc.device}"
+            + (f", {mesh.size} ranks" if mesh else ""))
+    if args.checkpoint_every:
+        hc.enable_exit_signals()
+    start = hc.iter
     t0 = time.time()
     step = 100
-    for it in range(0, args.iterations, step):
-        hc.iterate(min(step, args.iterations - it))
+    while hc.iter < args.iterations:
+        n = min(step, args.iterations - hc.iter)
+        hc.iterate(n)
         hc.block()
-        mlups = np.prod(hc.shape) * hc.iter / (time.time() - t0) / 1e6
+        mlups = np.prod(hc.shape) * (hc.iter - start) / (time.time() - t0) / 1e6
         say(f"(pipeflow30) iter {hc.iter}: "
             f"cells {hc.alive_count(0) + hc.alive_count(1)} "
             f"| mean RBC force {hc.mean_force_pn(0):.3f} pN "
             f"| {mlups:.1f} MLUPS on {hc.device}")
+        if args.out:
+            hc.write_output()
+        if args.checkpoint_every and (hc.iter // args.checkpoint_every
+                                      > (hc.iter - n) // args.checkpoint_every):
+            hc.save_checkpoint()
     say("(pipeflow30) done")
     return hc
 

@@ -3,6 +3,6 @@ jax-free config modules (defaults, XML reader, unit conversion)."""
 
 from . import defaults
 from .units import Parameters
-from .xmlconfig import Config, ConfigNode
+from .xmlconfig import Config, ConfigNode, load_directories
 
-__all__ = ["defaults", "Parameters", "Config", "ConfigNode"]
+__all__ = ["defaults", "Parameters", "Config", "ConfigNode", "load_directories"]

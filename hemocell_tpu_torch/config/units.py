@@ -104,3 +104,17 @@ class Parameters:
         vmax = self.shearrate_lbm * nz * 0.5
         self.le_force = 8 * self.nu_lbm * vmax * 0.5 / (nz / 4) ** 2
         return self
+
+    # -- helpers ------------------------------------------------------------
+
+    def force_si_to_lu(self, force_n: float) -> float:
+        return force_n / self.df
+
+    def pn_to_lu(self, force_pn: float) -> float:
+        return force_pn * 1e-12 / self.df
+
+    def um_to_lu(self, x_um: float) -> float:
+        return x_um * 1e-6 / self.dx
+
+    def lu_to_um(self, x_lu: float) -> float:
+        return x_lu * self.dx * 1e6

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import os
 import xml.etree.ElementTree as ET
-from typing import Any
+from typing import Any, Optional
 
 
 class ConfigNode:
@@ -73,3 +73,24 @@ class Config(ConfigNode):
         self.directory = os.path.dirname(os.path.abspath(path))
         self.checkpointed = root.tag == "checkpoint"
 
+
+def load_directories(cfg: Config, output_root: Optional[str] = None) -> dict:
+    """The output, checkpoint, log, hdf5 and csv directories from
+    <parameters>, as the reference's loadDirectories resolves them:
+    relative to the config file unless ``output_root`` is given."""
+    params = cfg["parameters"] if "parameters" in cfg else None
+
+    def rd(key, default):
+        if params is None:
+            return default
+        return params.get(key, str, default)
+
+    base = output_root or cfg.directory
+    outdir = os.path.join(base, rd("outputDirectory", "output"))
+    return {
+        "output": outdir,
+        "checkpoint": os.path.join(outdir, rd("checkpointDirectory", "checkpoint")),
+        "log": os.path.join(outdir, rd("logDirectory", "log")),
+        "hdf5": os.path.join(outdir, "hdf5"),
+        "csv": os.path.join(outdir, "csv"),
+    }

@@ -85,9 +85,9 @@ def type_from_numpy(name: str, model: str, topo_arrays: Mapping, material: Mappi
                     device="cuda", **options) -> TypeConfig:
     """TypeConfig from a topology given as numpy arrays (the keys of
     ``topology_device_arrays``) and a material dict of floats; ``options``
-    are the TypeConfig's feature fields (``omega_interior``,
-    ``interior_box``, ``solidify``, ``distance_threshold``,
-    ``shear_threshold``)."""
+    are the TypeConfig's feature fields (``ext_force``,
+    ``omega_interior``, ``interior_box``, ``solidify``,
+    ``distance_threshold``, ``shear_threshold``)."""
     return TypeConfig(
         name=name,
         model_fn=MODEL_REGISTRY[model],

@@ -26,7 +26,8 @@ reference package's phase order:
      vertex whose nearest node is not fluid, on the post-advance positions
      (kernel K4);
   6. every ``material_every`` steps, evaluate the constitutive model of
-     each cell type; dead cells get zero force through ``where``.
+     each cell type and add its static external force; dead cells get zero
+     force through ``where``.
 
 The iteration counter is a Python int and the Lees-Edwards displacement a
 host scalar, so the timescale gates and the plane shifts cost no device
@@ -87,6 +88,9 @@ class TypeConfig:
     topo: dict  # tensors from topology_device_arrays
     material: dict  # float coefficients
     material_every: int = 1  # stepMaterialEvery
+    # static external force added to the model's force whenever it is
+    # evaluated (None = off): [NC, NV, 3], or [1, NV, 3] for every cell
+    ext_force: Any = None
     # interior viscosity (None = off): omega inside this type's membranes
     omega_interior: Optional[float] = None
     interior_box: int = 24  # local raycast box edge (>= cell diameter + 3)
@@ -165,6 +169,13 @@ def cell_index(counts, device=None):
     return torch.arange(len(nv), dtype=torch.int32).repeat_interleave(nv).to(device)
 
 
+def external_forces(cfg: StepConfig, device) -> list:
+    """Each type's ``ext_force`` as a tensor of the step's dtype on
+    ``device``, made once (None where a type has none)."""
+    return [None if tc.ext_force is None else
+            torch.as_tensor(tc.ext_force).to(device, cfg.dtype) for tc in cfg.types]
+
+
 def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
     """Build the single-iteration function ``step(state) -> state``."""
     device = resolve_device(cfg.device)
@@ -191,6 +202,7 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
     le_u = cfg.lees_edwards_velocity
     fshape = torch.tensor([float(s) for s in shape], dtype=dtype, device=device)
     shape_i = torch.tensor(shape, dtype=torch.long, device=device)
+    ext_force = external_forces(cfg, device)
 
     def omega_raycast(cells):
         """The omega field from a full raycast of the membranes."""
@@ -396,6 +408,8 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
             if cs.pos.shape[0] == 0 or it % tc.material_every != 0:
                 continue
             ft = tc.model_fn(cs.pos, cs.vel, tc.topo, tc.material).total
+            if ext_force[k] is not None:
+                ft = ft + ext_force[k]
             # dead slots may hold degenerate geometry (NaN forces)
             ft = torch.where(cs.alive[:, None, None], ft, torch.zeros_like(ft))
             cells[k] = cs._replace(force=ft)

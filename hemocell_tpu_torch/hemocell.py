@@ -2,19 +2,24 @@
 ``hemocell_tpu/hemocell.py``.
 
 Construct from an XML config, initialise the lattice, add cell types, load
-or set cells, set the body force, enable repulsion, boundary repulsion, the
-CEPAC field, interior viscosity or solidify, iterate, and read observables.  The
-facade runs on ``device="cuda"`` unless the caller passes ``device="cpu"``,
-and raises when CUDA is asked for and absent.
+or set cells, set the body force or a static external force on a type's
+vertices, enable repulsion, boundary repulsion, the CEPAC field, interior
+viscosity or solidify, iterate, read observables and cell statistics, write
+HDF5 and CSV output, and save and load checkpoints in the reference
+package's format.  The facade runs on ``device="cuda"`` unless the caller
+passes ``device="cpu"``, and raises when CUDA is asked for and absent.
 
 ``distribute()`` runs it on a 1-D x mesh of ranks (``parallel/``), one per
 card, as the reference runs under ``mpirun -n N``: each rank holds an
 x-slab of the lattice and every cell, and steps through the sharded
-runner.  The getters return global values on every rank.
+runner.  The getters return global values on every rank.  Every rank calls
+the getters of the global state, ``write_output`` and ``save_checkpoint``
+(the gather is a collective); rank 0 writes the files.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 from dataclasses import dataclass
@@ -38,15 +43,18 @@ from .config.defaults import FLAG_FLUID
 from .dynamics import (SimState, StepConfig, TypeConfig, build_runner, initial_sim_state,
                        with_feature_fields)
 from .fluid import lbm
-from .fluid.advection_diffusion import tau_from_diffusivity
+from .fluid.advection_diffusion import concentration, tau_from_diffusivity
+from .ibm import kernels
 from .mechanics import (
     MODEL_REGISTRY,
     convert_material,
     material_dict,
     topology_device_arrays,
 )
-from .mechanics.forces import mean_force_magnitude
 from .mesh import build_topology, construct_mesh, mirror_inner_edges
+from .utils import cellinfo
+from .utils.logfile import hlog, print_header
+from .utils.profiler import Profiler
 
 _log = logging.getLogger(__name__)
 
@@ -69,6 +77,7 @@ class CellType:
     timescale: int = 1  # stepMaterialEvery
     minimum_distance_from_solid_um: float = 0.0
     material_cfg: object = None  # the <MaterialModel> block of <name>.xml
+    ext_force: Optional[torch.Tensor] = None  # static [1 | NC, NV, 3] (stretch)
     omega_interior: Optional[float] = None  # interior viscosity (None = off)
     solidify: bool = False
     distance_threshold: float = 0.0
@@ -78,6 +87,7 @@ class CellType:
 class HemoCell:
     def __init__(self, config_path: str, device="cuda"):
         self.device = resolve_device(device)
+        print_header()
         self.cfg = Config(config_path)
         self.params = Parameters.from_config(self.cfg)
         self.dtype = torch.float32
@@ -113,6 +123,15 @@ class HemoCell:
         self._mesh = None  # the x mesh after distribute()
         self._distributed_mode = "single"
         self._owner_note_logged = False
+        self.profiler = Profiler("hemocell")
+        self.outdir = None
+        self._outputs = {}  # per-type cell datasets (setOutputs)
+        self._fluid_outputs = None  # fluid fields (setFluidOutputs)
+        self._writer = None  # the AsyncWriter of write_output(async_io=True)
+        self._last_output_elapsed = 0.0
+        self._last_output_at = 0
+        self._exit_requested = False
+        self._checkpoint_on_exit = False
 
     # ------------------------------------------------------------------
     # setup
@@ -198,6 +217,13 @@ class HemoCell:
     def set_cells(self, type_index: int, positions: np.ndarray):
         self.cell_states[type_index] = make_cell_state(
             positions, dtype=self.dtype, device=self.device)
+        self._dirty = True
+
+    def set_external_force(self, ct_index: int, force):
+        """A static per-vertex external force of a type, [NC, NV, 3] or
+        [1, NV, 3] for every cell (the optical-tweezers stretch)."""
+        self.cell_types[ct_index].ext_force = torch.as_tensor(
+            np.asarray(force), dtype=self.dtype, device=self.device)
         self._dirty = True
 
     def set_body_force(self, force):
@@ -288,7 +314,8 @@ class HemoCell:
             types=[
                 TypeConfig(name=ct.name, model_fn=MODEL_REGISTRY[ct.model_name],
                            topo=ct.topo_dev, material=ct.material,
-                           material_every=ct.timescale, omega_interior=ct.omega_interior,
+                           material_every=ct.timescale, ext_force=ct.ext_force,
+                           omega_interior=ct.omega_interior,
                            interior_box=box, solidify=ct.solidify,
                            distance_threshold=ct.distance_threshold,
                            shear_threshold=ct.shear_threshold)
@@ -377,14 +404,18 @@ class HemoCell:
         for ct in self.cell_types:
             ct.topo_dev = {k: v.to(device) if torch.is_tensor(v) else v
                            for k, v in ct.topo_dev.items()}
+            if ct.ext_force is not None:
+                ct.ext_force = ct.ext_force.to(device)
         self.cell_states = [CellTypeState(*[None if t is None else t.to(device) for t in cs])
                             for cs in self.cell_states]
 
     def iterate(self, n: int = 1):
         """Advance n coupled iterations."""
+        self.check_exit_signals()
         if self._dirty or self._runner is None:
             self._build()
-        self._state = self._runner(self._state, n)
+        with self.profiler("iterate"):
+            self._state = self._runner(self._state, n)
         self.iter += n
         self.cell_states = list(self._state.cells)
         return self._state
@@ -420,6 +451,25 @@ class HemoCell:
         _, u = lbm.macroscopic(self.state.f)
         return u
 
+    def fluid_density(self):
+        """Fluid density [X,Y,Z] (the populations are stored as deviations)."""
+        return 1.0 + torch.sum(self.state.f, dim=0)
+
+    def cell_volumes(self, type_index=0):
+        """[NC] signed volumes of a type's cells."""
+        return cellinfo.volumes(self.state.cells[type_index].pos,
+                                self.cell_types[type_index].topo_dev["tri"])
+
+    def cell_areas(self, type_index=0):
+        """[NC] surface areas of a type's cells."""
+        return cellinfo.areas(self.state.cells[type_index].pos,
+                              self.cell_types[type_index].topo_dev["tri"])
+
+    def cell_bounding_boxes(self, type_index=0):
+        """[NC, 6] bounding boxes of a type's cells: xmin xmax ymin ymax
+        zmin zmax."""
+        return cellinfo.bounding_boxes(self.state.cells[type_index].pos)
+
     def alive_count(self, type_index=0):
         return int(self.local_state.cells[type_index].alive.sum())
 
@@ -427,8 +477,335 @@ class HemoCell:
         """Mean vertex force magnitude of live cells in pN (pipeflow
         oracle)."""
         cs = self.local_state.cells[type_index]
-        f_lu = mean_force_magnitude(cs.force + cs.force_repulsion, cs.alive)
+        f_lu = cellinfo.mean_force_magnitude(cs.force + cs.force_repulsion, cs.alive)
         return float(f_lu) * self.params.df * 1e12
+
+    # ------------------------------------------------------------------
+    # output, checkpoints and exit signals
+
+    @property
+    def _writes_files(self) -> bool:
+        """Rank 0 of a distributed facade, or a single-device one."""
+        return self._mesh is None or self._mesh.rank == 0
+
+    def set_output_dir(self, path: str):
+        """Write output and checkpoints under ``path``; the log goes to a
+        versioned file under ``<path>/log``."""
+        self.outdir = path
+        if self._writes_files:
+            os.makedirs(path, exist_ok=True)
+            if hlog.path is None:
+                hlog.open(os.path.join(path, "log"))
+
+    def setOutputs(self, name, outputs):
+        """The per-vertex datasets ``write_output`` writes for the cell type
+        ``name``: "Cell Id" and "Vertex Id" always, the others only when
+        listed (Velocity, Total force, Repulsion force, restime, and the
+        separated force terms, which cost a model evaluation)."""
+        self._outputs[name] = list(outputs)
+
+    def setFluidOutputs(self, outputs):
+        """The fluid fields ``write_output`` writes: Velocity, Density,
+        Boundary, Force, ShearRate, StrainRate, ShearStress, Omega,
+        CellDensity, BindingSites, InteriorPoints."""
+        self._fluid_outputs = list(outputs)
+
+    def enable_exit_signals(self, checkpoint_on_exit: bool = True):
+        """SIGINT, SIGTERM, SIGHUP, SIGUSR1 and SIGUSR2 set a flag; the next
+        ``iterate`` writes a final checkpoint (when an output directory is
+        set) and raises SystemExit."""
+        import signal
+
+        self._exit_requested = False
+
+        def _handler(signum, frame):
+            self._exit_requested = True
+
+        for sig in ("SIGINT", "SIGTERM", "SIGHUP", "SIGUSR1", "SIGUSR2"):
+            if hasattr(signal, sig):
+                try:
+                    signal.signal(getattr(signal, sig), _handler)
+                except (ValueError, OSError):
+                    pass  # not the main thread, or not on this platform
+        self._checkpoint_on_exit = checkpoint_on_exit
+
+    def check_exit_signals(self):
+        """Exit (after a checkpoint) if a termination signal has arrived."""
+        if self._exit_requested:
+            if self._checkpoint_on_exit and self.outdir:
+                self.block()
+                self.save_checkpoint()
+            raise SystemExit("HemoCell: exiting because of termination signal")
+
+    def spread_force_field(self):
+        """[3,X,Y,Z] the vertex forces spread onto the lattice, recomputed
+        from the current state as the step spreads them (the capped
+        constitutive force plus the repulsion force); on the card one K2
+        launch."""
+        return self._force_field(self.state)
+
+    def _force_field(self, st):
+        live = [cs for cs in st.cells if cs.pos.shape[0] > 0]
+        if not live:
+            return torch.zeros((3,) + self.shape, dtype=self.dtype, device=self.device)
+        pos = torch.cat([cs.pos.reshape(-1, 3) for cs in live])
+        force = torch.cat([cs.force.reshape(-1, 3) for cs in live])
+        frep = torch.cat([cs.force_repulsion.reshape(-1, 3) for cs in live])
+        active = torch.cat([cs.alive.to(self.dtype).repeat_interleave(cs.pos.shape[1])
+                            for cs in live])
+        return kernels.spread(pos, force, active, self.flags, self.params.f_limit,
+                              force_extra=frep)
+
+    def write_output(self, fluid_fields=None, si_units=False, async_io=False):
+        """The fluid HDF5 file, a cell HDF5 file and a CSV file per type, and
+        the CEPAC file when the field is on, for this iteration, in the
+        reference's layout (``io/hdf5io.py``).
+
+        The arrays are copied to the host now (``output_jobs``); with
+        ``async_io=True`` a worker thread writes the files while the card
+        steps on, and ``flush_output`` waits for them."""
+        if self.outdir is None:
+            raise RuntimeError("call set_output_dir first")
+        # the performance line: seconds per iteration by the profiler's
+        # iterate scope since the last output, with the card's queued work
+        # landed inside that scope
+        it_timer = self.profiler.root.children.get("iterate")
+        if it_timer is not None and self._state is not None:
+            with self.profiler("iterate"):
+                self.block()
+        elapsed = it_timer.total if it_timer is not None else 0.0
+        tpi = ((elapsed - self._last_output_elapsed) / (self.iter - self._last_output_at)
+               if self.iter > self._last_output_at else 0.0)
+        self._last_output_elapsed = elapsed
+        self._last_output_at = self.iter
+        st = self.state  # a collective on a distributed facade
+        if not self._writes_files:
+            return
+        print(f"(HemoCell) (Output) writing output at timestep {self.iter} "
+              f"({self.params.dt * self.iter:g} s). Approx. performance: "
+              f"{tpi:.6f} s / iteration.")
+        jobs = self.output_jobs(st, fluid_fields, si_units)
+
+        def write_all(jobs=tuple(jobs)):
+            for job in jobs:
+                job()
+
+        if async_io:
+            if self._writer is None:
+                from .io.async_output import AsyncWriter
+
+                self._writer = AsyncWriter()
+            self._writer.submit(write_all)
+        else:
+            write_all()
+
+    def output_jobs(self, st, fluid_fields=None, si_units=False):
+        """The snapshot of ``write_output``: its fields computed from the
+        state ``st`` and copied to the host, as a list of write jobs
+        (``functools.partial`` of the ``io/hdf5io.py`` writers, whose
+        arguments hold the arrays).  ``fluid_fields`` defaults to the
+        ``setFluidOutputs`` selection, else Velocity, Density, Boundary."""
+        from .io import write_cell_csv, write_cells_hdf5, write_fluid_hdf5
+
+        if fluid_fields is None:
+            fluid_fields = tuple(self._fluid_outputs or ("Velocity", "Density", "Boundary"))
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        jobs = []
+        rho, u = lbm.macroscopic(st.f)
+        fields = {}
+        for name in fluid_fields:
+            if name == "Velocity":
+                fields[name] = host(u.permute(1, 2, 3, 0))
+            elif name == "Density":
+                fields[name] = host(rho)
+            elif name == "Boundary":
+                fields[name] = host(self.flags).astype(np.float32)
+            elif name == "ShearRate":
+                fields[name] = host(lbm.shear_rate_magnitude(st.f, None, self.omega))
+            elif name == "Omega":
+                fields[name] = np.broadcast_to(np.asarray(self.omega), self.shape).copy()
+            elif name in ("StrainRate", "ShearStress"):
+                # Voigt [xx, yy, zz, xy, xz, yz] last
+                S = host(lbm.strain_rate_tensor(st.f, None, self.omega).permute(1, 2, 3, 0))
+                if name == "ShearStress":
+                    om = float(np.mean(np.asarray(self.omega)))
+                    nu = (1.0 / om - 0.5) / 3.0
+                    S = 2.0 * nu * host(rho)[..., None] * S
+                fields[name] = S
+            elif name == "Force":
+                # the lattice force: the vertex forces spread again, as the
+                # reference re-runs its spread before writing it, plus the
+                # body force
+                bf = np.asarray(self.body_force if self.body_force is not None
+                                else np.zeros(3))
+                total = host(self._force_field(st).permute(1, 2, 3, 0)) + np.broadcast_to(
+                    bf, self.shape + (3,))
+                fields[name] = total.astype(np.float32)
+            elif name == "BindingSites":
+                b = st.binding_mask
+                fields[name] = (host(b).astype(np.float32) if b is not None
+                                else np.zeros(self.shape, np.float32))
+            elif name == "InteriorPoints":
+                # the nodes the interior-viscosity field marks
+                om = st.omega_field
+                if om is not None:
+                    base = float(np.mean(np.asarray(self.omega)))
+                    fields[name] = (np.abs(host(om) - base) > 1e-12).astype(np.float32)
+                else:
+                    fields[name] = np.zeros(self.shape, np.float32)
+            elif name == "CellDensity":
+                # vertices per node, one field per cell type
+                for k, ct in enumerate(self.cell_types):
+                    cs = st.cells[k]
+                    dens = np.zeros(self.shape, np.float32)
+                    al = host(cs.alive)
+                    if al.any():
+                        p = host(cs.pos)[al].reshape(-1, 3)
+                        ij = np.round(p).astype(int)
+                        for d in range(3):
+                            ij[:, d] = np.mod(ij[:, d], self.shape[d])
+                        np.add.at(dens, (ij[:, 0], ij[:, 1], ij[:, 2]), 1.0)
+                    fields[f"CellDensity_{ct.name}"] = dens
+        jobs.append(functools.partial(write_fluid_hdf5, self.outdir, self.iter,
+                                      self.params.dx, self.params.dt, fields,
+                                      si_units=si_units))
+        if st.cepac is not None:
+            jobs.append(functools.partial(write_fluid_hdf5, self.outdir, self.iter,
+                                          self.params.dx, self.params.dt,
+                                          {"Density": host(concentration(st.cepac))},
+                                          identifier="CEPAC", si_units=si_units))
+        term_labels = [("Area force", "area"), ("Volume force", "volume"),
+                       ("Link force", "link"), ("Bending force", "bending"),
+                       ("Viscous force", "visc"), ("Inner link force", "inner_link")]
+        for k, ct in enumerate(self.cell_types):
+            cs = st.cells[k]
+            alive = host(cs.alive)
+            pos = host(cs.pos)[alive]
+            vel = host(cs.vel)[alive]
+            frc = host(cs.force)[alive]
+            frep = host(cs.force_repulsion)[alive]
+            nca = pos.shape[0]
+            nv = ct.mesh.num_vertices
+            tris = (np.asarray(ct.topo.triangles)[None, :, :]
+                    + (np.arange(nca) * nv)[:, None, None]).reshape(-1, 3)
+            sel = self._outputs.get(ct.name)  # None: every dataset
+
+            def want(n, sel=sel):
+                return sel is None or n in sel
+
+            datasets = {
+                "Cell Id": np.repeat(np.arange(nca), nv)[:, None],
+                "Vertex Id": np.tile(np.arange(nv), nca)[:, None],
+            }
+            if want("Velocity"):
+                datasets["Velocity"] = vel.reshape(-1, 3)
+            if want("Total force"):
+                datasets["Total force"] = (frc + frep).reshape(-1, 3)
+            if want("Repulsion force"):
+                datasets["Repulsion force"] = frep.reshape(-1, 3)
+            if cs.restime is not None and want("restime"):
+                datasets["restime"] = np.repeat(host(cs.restime)[alive], nv)[:, None]
+            # the separated constitutive terms, from one more model
+            # evaluation, only when asked for
+            want_terms = [lbl for lbl, _ in term_labels if want(lbl)]
+            if nca > 0 and want_terms:
+                keep = cs.alive
+                terms = MODEL_REGISTRY[ct.model_name](cs.pos[keep], cs.vel[keep],
+                                                      ct.topo_dev, ct.material)
+                for label, attr in term_labels:
+                    if label in want_terms:
+                        datasets[label] = host(getattr(terms, attr)).reshape(-1, 3)
+            jobs.append(functools.partial(write_cells_hdf5, self.outdir, self.iter, ct.name,
+                                          positions=pos.reshape(-1, 3), datasets=datasets,
+                                          triangles=tris))
+            # atomic_block: the x-slab a cell's centre lies in on a
+            # distributed facade (the reference reports its block id)
+            centers = pos.mean(axis=1)
+            blk = np.zeros(nca, int)
+            if self._mesh is not None:
+                blk = (np.mod(centers[:, 0], self.shape[0])
+                       // max(1, self.shape[0] // self._mesh.size)).astype(int)
+            jobs.append(functools.partial(write_cell_csv, self.outdir, self.iter, ct.name,
+                                          self._csv_rows(st, k, blk)))
+        return jobs
+
+    def _csv_rows(self, st, k, blocks=None):
+        """The CSV rows of type k's live cells: centre, area, volume,
+        atomic block, cell id twice (positions are unwrapped: no periodic
+        image is relabelled), mean velocity."""
+        cs = st.cells[k]
+        tri = self.cell_types[k].topo_dev["tri"]
+        alive = cs.alive.cpu().numpy()
+        pos = cs.pos.detach().cpu().numpy()[alive]
+        vel = cs.vel.detach().cpu().numpy()[alive]
+        vols = cellinfo.volumes(cs.pos, tri).cpu().numpy()[alive]
+        areas = cellinfo.areas(cs.pos, tri).cpu().numpy()[alive]
+        nca = pos.shape[0]
+        centers = pos.mean(axis=1) if nca else pos.reshape(0, 3)
+        vels = vel.mean(axis=1) if nca else vel.reshape(0, 3)
+        ids = np.arange(len(alive))[alive]
+        blocks = np.zeros(nca, int) if blocks is None else blocks
+        return [[centers[i, 0], centers[i, 1], centers[i, 2], areas[i], vols[i],
+                 int(blocks[i]), int(ids[i]), int(ids[i]), vels[i, 0], vels[i, 1], vels[i, 2]]
+                for i in range(nca)]
+
+    def write_csv(self):
+        """The per-cell CSV files alone, at their own cadence."""
+        from .io import write_cell_csv
+
+        if self.outdir is None:
+            raise RuntimeError("call set_output_dir first")
+        st = self.state
+        if not self._writes_files:
+            return
+        for k, ct in enumerate(self.cell_types):
+            write_cell_csv(self.outdir, self.iter, ct.name, self._csv_rows(st, k))
+
+    def flush_output(self):
+        """Wait until every asynchronous write has landed on disk."""
+        if self._writer is not None:
+            self._writer.flush()
+
+    def save_checkpoint(self, directory: Optional[str] = None):
+        """Write the state to ``<directory>/checkpoint.npz`` (default
+        ``<outdir>/checkpoint``) in the reference package's format; returns
+        the path (None on the ranks that do not write)."""
+        from .io import save_checkpoint
+
+        d = directory or os.path.join(self.outdir or ".", "checkpoint")
+        st = self.state  # a collective on a distributed facade
+        path = None
+        if self._writes_files:
+            meta = {"iteration": self.iter, "dx": self.params.dx, "dt": self.params.dt}
+            path = save_checkpoint(d, st, meta)
+        if self._mesh is not None:
+            from .parallel import comm
+
+            comm.barrier(self._mesh)  # the file is whole before any rank reads it
+        return path
+
+    def load_checkpoint(self, directory: Optional[str] = None):
+        """Resume from ``<directory>/checkpoint.npz`` (default
+        ``<outdir>/checkpoint``), written by either package: the state,
+        the cells and the iteration; the next ``iterate`` builds the runner
+        around them.  On a distributed facade every rank reads the file and
+        keeps its slab.  Returns the meta."""
+        from .io import load_checkpoint
+
+        d = directory or os.path.join(self.outdir or ".", "checkpoint")
+        state, meta = load_checkpoint(d, dtype=self.dtype, device=self.device)
+        if self._mesh is not None:
+            from .parallel import shard_state
+
+            state = shard_state(state, self._mesh)
+        self._state = state
+        self.cell_states = list(state.cells)
+        self.iter = int(state.it)
+        self._dirty = True
+        return meta
 
     # ------------------------------------------------------------------
     # reference-style camelCase aliases
@@ -453,3 +830,15 @@ class HemoCell:
 
     def enableBoundaryParticles(self, k_rep_si: float, cutoff_lu: float, every: int = 1):
         self.enable_boundary_repulsion(k_rep_si / self.params.df, cutoff_lu, every)
+
+    def writeOutput(self, *a, **kw):
+        return self.write_output(*a, **kw)
+
+    def writeCellInfoCSV(self, *a, **kw):
+        return self.write_csv(*a, **kw)
+
+    def saveCheckPoint(self, *a, **kw):
+        return self.save_checkpoint(*a, **kw)
+
+    def loadCheckPoint(self, *a, **kw):
+        return self.load_checkpoint(*a, **kw)

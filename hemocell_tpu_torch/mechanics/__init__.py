@@ -4,6 +4,8 @@ from .constants import MaterialConstants, convert_material, material_dict
 from .forces import (
     MODEL_REGISTRY,
     ForceTerms,
+    cell_area,
+    cell_volume,
     plt_simple_forces,
     rbc_ho_forces,
     topology_device_arrays,
@@ -16,6 +18,8 @@ __all__ = [
     "material_dict",
     "MODEL_REGISTRY",
     "ForceTerms",
+    "cell_area",
+    "cell_volume",
     "plt_simple_forces",
     "rbc_ho_forces",
     "topology_device_arrays",

@@ -284,8 +284,14 @@ MODEL_REGISTRY = {
 }
 
 
-def mean_force_magnitude(force, alive):
-    """Mean |F| over the vertices of live cells (pipeflow oracle)."""
-    mag = _norm(force)
-    w = alive.to(force.dtype)[:, None]
-    return torch.sum(mag * w) / torch.clamp(torch.sum(w) * force.shape[1], min=1)
+def cell_volume(pos, tri):
+    """Signed volumes [NC] of a batch of cells ``pos [NC, NV, 3]`` (the
+    expansion the models use): one [NC, NT] gather of each corner."""
+    v0, v1, v2 = pos[:, tri[:, 0]], pos[:, tri[:, 1]], pos[:, tri[:, 2]]
+    return torch.sum(_dot(v0, _cross(v1, v2)), dim=-1) / 6.0
+
+
+def cell_area(pos, tri):
+    """Surface areas [NC] of a batch of cells ``pos [NC, NV, 3]``."""
+    v0, v1, v2 = pos[:, tri[:, 0]], pos[:, tri[:, 1]], pos[:, tri[:, 2]]
+    return 0.5 * torch.sum(_norm(_cross(v1 - v0, v2 - v0)), dim=-1)

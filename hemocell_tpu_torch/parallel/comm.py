@@ -5,7 +5,7 @@ Counterpart of the ``jax.lax`` collectives that
 ``hemocell_tpu/parallel/sharded_step.py`` wraps (``_from_next``,
 ``_from_prev``, ``_to_next`` over ``ppermute``; ``psum``; ``all_gather``):
 ``from_next``, ``to_next``, ``halo_rows`` (both neighbours' rows at once),
-``psum``, ``all_gather`` and ``broadcast``.
+``psum``, ``all_gather``, ``broadcast`` and ``barrier``.
 The ranks form a periodic ring along x: rank r holds the slab
 ``[r Xl, (r+1) Xl)`` and its neighbours are r-1 and r+1 modulo the size.
 
@@ -180,6 +180,12 @@ def broadcast(mesh: XMesh, t: torch.Tensor) -> torch.Tensor:
     dist.broadcast(t.view(torch.uint8) if t.dtype == torch.bool else t, src=0,
                    group=mesh.group)
     return t
+
+
+def barrier(mesh: XMesh) -> None:
+    """Wait until every rank has reached this call."""
+    if mesh.size > 1:
+        dist.barrier(group=mesh.group)
 
 
 def all_gather(mesh: XMesh, t: torch.Tensor, dim: int) -> torch.Tensor:

@@ -20,8 +20,9 @@ every cell, and the ranks meet only in the collectives of
   5. advance (Euler or Adams-Bashforth), and wall deletion: each rank counts
      the hits of its owned vertices on the extended flags (K4), then a
      summed ``all_reduce``;
-  6. mechanics: each rank computes a contiguous block of cells, then an
-     ``all_reduce`` of the zero-padded forces.
+  6. mechanics: each rank computes a contiguous block of cells and adds
+     their static external force, then an ``all_reduce`` of the zero-padded
+     forces.
 
 A run with no vertices is the K1 halo-mode loop; the fused fluid kernels
 are single-device, as in the reference, whose shard_map runner fuses no
@@ -44,7 +45,7 @@ import torch
 
 from .._device import constant
 from ..cells import repulsion as rep
-from ..dynamics import SimState, StepConfig, _split, cell_index
+from ..dynamics import SimState, StepConfig, _split, cell_index, external_forces
 from ..fluid import advection_diffusion as ad
 from ..fluid import lbm
 from ..fluid import sharded_pallas as _sp
@@ -113,6 +114,7 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         device, torch.uint8)
     rep_on = cfg.repulsion_constant > 0.0
     brep_on = cfg.boundary_repulsion_constant > 0.0 and bmask is not None
+    ext_force = external_forces(cfg, device)
 
     # static rows, exchanged once: the IBM grid is the slab plus the next
     # rank's row 0; CEPAC's operands get one row on each side
@@ -251,6 +253,10 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
             full = torch.zeros_like(cs.pos)
             if hi > lo:
                 ft = tc.model_fn(cs.pos[lo:hi], cs.vel[lo:hi], tc.topo, tc.material).total
+                ef = ext_force[k]
+                if ef is not None:
+                    # the block's rows, or the one row every cell shares
+                    ft = ft + (ef[lo:hi] if ef.shape[0] == nc else ef)
                 # dead slots may hold degenerate geometry (NaN forces)
                 full[lo:hi] = torch.where(cs.alive[lo:hi, None, None], ft, torch.zeros_like(ft))
             cells[k] = cs._replace(force=comm.psum(mesh, full))

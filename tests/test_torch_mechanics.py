@@ -14,6 +14,7 @@ from hemocell_tpu.mesh import build_topology as j_build_topology
 from hemocell_tpu.mesh import generate as jgen
 from hemocell_tpu_torch.mechanics import forces as tf
 from hemocell_tpu_torch.mesh import build_topology, generate
+from hemocell_tpu_torch.utils import cellinfo
 
 MC = material_dict(MaterialConstants(k_volume=2.0, k_area=1.5, k_link=1.2, k_bend=0.8,
                                      eta_m=0.5))
@@ -82,5 +83,5 @@ def test_mean_force_magnitude():
     from hemocell_tpu.utils.cellinfo import mean_force_magnitude
 
     ref = float(mean_force_magnitude(jnp.asarray(force), jnp.asarray(alive)))
-    out = float(tf.mean_force_magnitude(torch.as_tensor(force), torch.as_tensor(alive)))
+    out = float(cellinfo.mean_force_magnitude(torch.as_tensor(force), torch.as_tensor(alive)))
     assert abs(out - ref) <= 1e-14 * abs(ref)
