@@ -175,9 +175,34 @@ Then the stretch validation, and output and restart:
      other fields equal to the state on the card) and its CSV files read
      back; the times of the snapshot, save and load.
 
+Then the WBC, malaria and NoOp models, STL meshes and the field body force:
+
+ 25. the WBC stretch (stretchcell --cell WBC: the 52x26x26 walled box, the
+     WBC template's sphere of 642 vertices, f32), 3000 iterations at 50 and
+     125 pN, K1-K4 once an iteration (exact counts, no plain version), the
+     diameters inside the bands of tests/test_material_oracles.py (axial
+     below the RBC's 12.25 um at 125 pN), the volume ratio in (0.98, 1.02],
+     a profiler window; then the capillary (cases/capillary: 400x50x50, one
+     WBC, materials and particles every step), 5000 iterations, K1-K4
+     counts exact, the WBC alive, carried in +x, its volume within 2%, the
+     fluid gates, MLUPS, wall, busy and idle;
+ 26. kolmogorov128 (cases/kolmogorovflow: periodic 128^3, 872 RBC, the
+     half-space drive as a [3,128,128,128] field): the force K1 takes on
+     one step equal to a direct K2 call plus the field bit for bit; 500
+     iterations with K1 and K2 500, K3 100, K4 0, the halves' mean u_x
+     opposite and equal within 20%, every cell alive, the fluid gates,
+     MLUPS, busy and idle; then the cell-free box through the facade's
+     runner, 100 K1 launches with the field and no K8 or K9, u_x
+     antisymmetric in y to 1e-5 of max|u|;
+ 27. a walled 48x28x28 box under a field force with a WBC whose rigid core
+     is live, an RbcMalariaModel cell from a binary STL written here (its
+     header "solid") with <InnerEdges> ids, and three NoOp tracers, 41 steps
+     on the card and with the plain versions on the CPU, phase 5's
+     tolerances.
+
 Then the speed gates in sum, the ``kernels`` JSON line (all fifteen: the
 twelve kernels, K7's planes kernel and the two halo modes; with the speed
-gates and phase 24's I/O times), the card, and
+gates, phase 24's I/O times and the rates of phases 25-26), the card, and
 as the last line ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (from the repository root, one GPU)
@@ -3230,6 +3255,355 @@ def phase_restart(smi):
     return by_path, times
 
 
+WBC_STRETCH_ITERATIONS = 3000
+CAPILLARY_ITERATIONS = 5000
+KOLMOGOROV_ITERATIONS = 500
+KOLMOGOROV_FREE_ITERATIONS = 100
+
+
+def coupled_run(tag, name, hc, n, expected, smi):
+    """n iterations of the facade ``hc`` with the counts read around the
+    run: the counts must equal ``expected`` (every other wrapper 0) with no
+    plain call.  Returns (launches, wall seconds)."""
+    import torch
+
+    hc.state  # builds the runner outside the count
+    fns = reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hc.iterate(n)
+    hc.block()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    plain = {k: fn.plain_calls for k, fn in fns.items()}
+    want = dict.fromkeys(KERNEL_ORDER, 0)
+    want.update(expected)
+    print(f"{tag} {name} {hc.shape}: {n} iterations in {dt:.3f} s = "
+          f"{int(np.prod(hc.shape)) * n / dt / 1e6:.1f} MLUPS, {dt * 1e6 / n:.1f} us/it wall "
+          f"on {smi} | launches {launches} | plain calls {plain}", flush=True)
+    if launches != want or any(plain.values()):
+        raise AssertionError(f"{name}: launches {launches} (expected {want}), plain calls "
+                             f"{plain}")
+    return launches, dt
+
+
+def fluid_checks(tag, name, hc, mass0, extra):
+    """The physical gates of a coupled run (finite state, max|u| < 0.1, mass
+    drift per node < 1e-6) and the path's own ``extra`` {check: ok}."""
+    import torch
+
+    st = hc.state
+    finite = bool(torch.isfinite(st.f).all()) and all(
+        bool(torch.isfinite(cs.pos).all() & torch.isfinite(cs.vel).all()
+             & torch.isfinite(cs.force).all()) for cs in st.cells)
+    umax = float(hc.fluid_velocity().abs().max())
+    dmass = abs(float(st.f.double().sum()) - mass0) / int(np.prod(hc.shape))
+    print(f"{tag} {name}: max|u| {umax:.4e} | mass drift per node {dmass:.3e}", flush=True)
+    checks = {"finite state": finite, "max|u| < 0.1": umax < 0.1,
+              "mass drift per node < 1e-6": dmass < 1e-6}
+    checks.update(extra)
+    for check, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"{name} check failed: {check}")
+
+
+def phase_wbc(smi):
+    """[25] The WBC at full size.  The stretch (stretchcell --cell WBC:
+    52x26x26 walled box, the WBC template's sphere of 642 vertices, f32):
+    3000 iterations at 50 and 125 pN, K1-K4 once an iteration (exact
+    counts, no plain version), the diameters inside the bands of
+    tests/test_material_oracles.py (the axial below the RBC's 12.25 um at
+    125 pN), the volume ratio in (0.98, 1.02]; one profiler window of 100
+    iterations.  Then the capillary (cases/capillary, 400x50x50, one WBC,
+    materials and particles every step): 5000 iterations with K1-K4 counts
+    exact, the WBC alive, carried in +x, its volume within 2%, the fluid
+    gates, MLUPS and a profiler window.  Returns ({path: launches}, {path:
+    (wall us/it, busy, idle)})."""
+    import torch
+
+    from hemocell_tpu_torch.cases import capillary, stretchcell
+
+    t_phase = time.time()
+    by_path, rates = {}, {}
+    n = WBC_STRETCH_ITERATIONS
+    for i, force_pn in enumerate(sorted(stretchcell.WBC_BANDS)):
+        workdir = tempfile.mkdtemp(prefix="stretch_wbc_")
+        try:
+            hc = stretchcell.build(force_pn, workdir, device="cuda", cell="WBC")
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        v0 = float(hc.cell_volumes(0)[0])
+        name = f"WBC stretch {force_pn:g} pN"
+        launches, dt = coupled_run("[25]", name, hc, n, dict(
+            stream_collide=n, spread=n, interp=n, wall_hit_cells=n), smi)
+        axial, transverse = stretchcell.diameters_um(hc)
+        ratio = float(hc.cell_volumes(0)[0]) / v0
+        (a_lo, a_hi), (t_lo, t_hi) = stretchcell.WBC_BANDS[force_pn]
+        print(f"[25] {name}: axial {axial:.4f} um [{a_lo}, {a_hi}] | transverse "
+              f"{transverse:.4f} um [{t_lo}, {t_hi}] | volume ratio {ratio:.5f} (0.98, 1.02]",
+              flush=True)
+        cs = hc.state.cells[0]
+        checks = {"finite state": bool(torch.isfinite(hc.state.f).all()
+                                       & torch.isfinite(cs.pos).all()),
+                  "the cell is alive": hc.alive_count(0) == 1,
+                  "axial diameter in its band": a_lo <= axial <= a_hi,
+                  "transverse diameter in its band": t_lo <= transverse <= t_hi,
+                  "stiffer than the RBC (axial below 12.25 um)": axial < 12.25,
+                  "volume ratio in (0.98, 1.02]": 0.98 < ratio <= 1.02}
+        for check, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"{name} check failed: {check}")
+        by_path[name] = launches
+        if i == 0:
+            prof = phase_profile("[25]", hc.iterate, dt * 1e6 / n)
+            rates[name] = (dt * 1e6 / n,) + (prof or (None, None))
+        del hc
+
+    workdir = tempfile.mkdtemp(prefix="capillary_")
+    try:
+        hc = capillary.build(workdir=workdir, device="cuda")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if hc.alive_count(0) != 1 or hc.cell_types[0].num_vertices != 642:
+        raise AssertionError("capillary: the WBC of 642 vertices was not placed")
+    n = CAPILLARY_ITERATIONS
+    c0 = capillary.wbc_centre(hc)
+    v0 = float(hc.cell_volumes(0)[0])
+    mass0 = float(hc.state.f.double().sum())
+    launches, dt = coupled_run("[25]", "capillary", hc, n, dict(
+        stream_collide=n, spread=n, interp=n, wall_hit_cells=n), smi)
+    c1 = capillary.wbc_centre(hc)
+    ratio = float(hc.cell_volumes(0)[0]) / v0
+    print(f"[25] capillary: WBC centre ({c0[0]:.3f}, {c0[1]:.3f}, {c0[2]:.3f}) -> "
+          f"({c1[0]:.3f}, {c1[1]:.3f}, {c1[2]:.3f}) lu | volume ratio {ratio:.5f}", flush=True)
+    fluid_checks("[25]", "capillary", hc, mass0, {
+        "the WBC is alive": hc.alive_count(0) == 1,
+        "the WBC advanced in +x": c1[0] > c0[0],
+        "the WBC's volume within 2%": abs(ratio - 1.0) <= 0.02})
+    by_path["capillary"] = launches
+    prof = phase_profile("[25]", hc.iterate, dt * 1e6 / n)
+    rates["capillary"] = (dt * 1e6 / n,) + (prof or (None, None))
+    del hc
+    torch.cuda.empty_cache()
+    print(f"[25] the WBC paths in {time.time() - t_phase:.1f} s", flush=True)
+    return by_path, rates
+
+
+def phase_kolmogorov(smi):
+    """[26] kolmogorov128 (cases/kolmogorovflow: the periodic 128^3 box, 872
+    RBC, the +F / -F half-space drive as a [3,128,128,128] field, particles
+    every 5, materials every 20): 500 iterations with the counts exact (K1
+    and K2 500, K3 100, K4 0: no walls), the driven halves' mean u_x of
+    opposite signs and equal within 20%, every cell alive, the fluid gates;
+    one more step with K1's force read: the spread plus the field bit for
+    bit; MLUPS and a profiler window.  Then the cell-free box through the
+    facade's runner: 100 K1 launches with the field, no K8 or K9, u_x
+    antisymmetric in y to 1e-5 of max|u|.  Returns ({path: launches},
+    {path: (wall us/it, busy, idle)})."""
+    import torch
+
+    import hemocell_tpu_torch.dynamics as dyn
+    from hemocell_tpu_torch.cases import kolmogorovflow
+    from hemocell_tpu_torch.ibm import kernels
+
+    t_phase = time.time()
+    by_path, rates = {}, {}
+    t0 = time.time()
+    workdir = tempfile.mkdtemp(prefix="kolmogorov_")
+    try:
+        hc = kolmogorovflow.build(128, kolmogorovflow.CELLS, workdir, device="cuda")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    cells = hc.alive_count(0)
+    print(f"[26] kolmogorov128 built in {time.time() - t0:.1f} s: {cells} RBC "
+          f"({hc.cell_types[0].num_vertices} vertices each), {hc.params.describe()}",
+          flush=True)
+    if cells != kolmogorovflow.CELLS:
+        raise AssertionError(f"kolmogorov128: {cells} cells placed, not 872")
+
+    n = KOLMOGOROV_ITERATIONS
+    mass0 = float(hc.state.f.double().sum())
+    launches, dt = coupled_run("[26]", "kolmogorov128", hc, n, dict(
+        stream_collide=n, spread=n, interp=n // hc.particle_every), smi)
+    top, bottom = kolmogorovflow.half_velocities(hc)
+    print(f"[26] kolmogorov128: mean u_x of the +F half {top:.6e}, of the -F half "
+          f"{bottom:.6e} lu/step", flush=True)
+    fluid_checks("[26]", "kolmogorov128", hc, mass0, {
+        "every cell alive": hc.alive_count(0) == kolmogorovflow.CELLS,
+        "the +F half moves in +x, the -F half in -x": top > 0.0 > bottom,
+        "antisymmetric within 20%": abs(top + bottom) <= 0.2 * max(top, -bottom)})
+    by_path["kolmogorov128"] = launches
+    # one more step with the force handed to K1 read, against a direct K2
+    # call on the step's own state plus the field
+    st = hc.local_state
+    seen = []
+    original = dyn.stream_collide
+
+    def reading(f, force, *a, **kw):
+        seen.append(force.clone())
+        return original(f, force, *a, **kw)
+
+    dyn.stream_collide = reading
+    try:
+        hc.iterate(1)
+    finally:
+        dyn.stream_collide = original
+    pos = torch.cat([cs.pos.reshape(-1, 3) for cs in st.cells])
+    active = torch.cat([cs.alive.float().repeat_interleave(cs.pos.shape[1])
+                        for cs in st.cells])
+    direct = kernels.spread(pos, torch.cat([cs.force.reshape(-1, 3) for cs in st.cells]),
+                            active, hc.flags, hc.params.f_limit) + hc.body_force
+    force_equal = len(seen) == 1 and torch.equal(seen[0], direct)
+    spread_max = float((direct - hc.body_force).abs().max())
+    print(f"[26] the force K1 took on step {int(st.it)} equals the spread plus the field "
+          f"bit for bit {force_equal} (spread max {spread_max:.3e}, field max "
+          f"{float(hc.body_force.abs().max()):.3e})", flush=True)
+    if not (force_equal and spread_max > 0.0):
+        raise AssertionError("kolmogorov128: K1's force is not the spread plus the field")
+    prof = phase_profile("[26]", hc.iterate, dt * 1e6 / n)
+    rates["kolmogorov128"] = (dt * 1e6 / n,) + (prof or (None, None))
+    del hc, st, pos, active, direct, seen
+    torch.cuda.empty_cache()
+
+    workdir = tempfile.mkdtemp(prefix="kolmogorov_free_")
+    try:
+        hc = kolmogorovflow.build(128, 0, workdir, device="cuda")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    n = KOLMOGOROV_FREE_ITERATIONS
+    launches, dt = coupled_run("[26]", "kolmogorov128 cell-free", hc, n,
+                               dict(stream_collide=n), smi)
+    ux = hc.fluid_velocity()[0]
+    umax = float(hc.fluid_velocity().abs().max())
+    asym = float((ux + torch.flip(ux, dims=[1])).abs().max())
+    print(f"[26] kolmogorov128 cell-free: max|u_x(y) + u_x(127 - y)| {asym:.3e} against "
+          f"max|u| {umax:.3e}", flush=True)
+    if not (umax > 0.0 and asym <= 1e-5 * umax):
+        raise AssertionError("kolmogorov128 cell-free: u_x is not antisymmetric in y")
+    by_path["kolmogorov128 cell-free"] = launches
+    rates["kolmogorov128 cell-free"] = (dt * 1e6 / n, None, None)
+    del hc
+    torch.cuda.empty_cache()
+    print(f"[26] kolmogorov128 in {time.time() - t_phase:.1f} s", flush=True)
+    return by_path, rates
+
+
+# a WBC with a live rigid core (the mirror pairs as inner edges, a core of
+# the order of the other forces), the malaria model from an STL, a tracer
+THREE_TYPES_WBC_XML = """<?xml version="1.0" ?>
+<hemocell><MaterialModel>
+  <name>WBC</name><eta_m>0.0</eta_m>
+  <kBend>120.0</kBend><kVolume>50.0</kVolume><kArea>10.0</kArea><kLink>40.0</kLink>
+  <kInnerRigid> 5e-12 </kInnerRigid> <kCytoskeleton> 2e-12 </kCytoskeleton>
+  <coreRadius> 1.5e-6 </coreRadius> <InnerEdges/>
+  <minNumTriangles>600</minNumTriangles><radius>4.1e-6</radius><Volume>280</Volume>
+</MaterialModel></hemocell>
+"""
+THREE_TYPES_MALARIA_XML = """<?xml version="1.0" ?>
+<hemocell><MaterialModel>
+  <name>RBC_MALARIA</name><StlFile>vRBC.stl</StlFile><eta_m>0.0</eta_m>
+  <kBend>60.0</kBend><kVolume>-0.5</kVolume><kArea>3.0</kArea><kLink>15.0</kLink>
+  <kInnerLink>15.0</kInnerLink><minNumTriangles>1</minNumTriangles><radius>5.4e-6</radius>
+  <InnerEdges>{edges}</InnerEdges>
+</MaterialModel></hemocell>
+"""
+THREE_TYPES_SHAPE = (48, 28, 28)
+
+
+def write_binary_stl(path, vertices, triangles, header=b"solid written as binary"):
+    """A binary STL (80-byte header, count, 50-byte facets) of a mesh."""
+    v = vertices[triangles]
+    nrm = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    rec = np.zeros(len(triangles), dtype=[("f", "<f4", (12,)), ("attr", "<u2")])
+    rec["f"] = np.concatenate([nrm[:, None, :], v], axis=1).reshape(-1, 12)
+    with open(path, "wb") as fh:
+        fh.write(header.ljust(80, b" ")[:80] + np.uint32(len(triangles)).tobytes()
+                 + rec.tobytes())
+
+
+def phase_small_three_types():
+    """[27] A walled 48x28x28 box under a field body force with three cell
+    types: a WBC whose rigid core is live (<InnerEdges/>), an
+    RbcMalariaModel cell from a binary STL written here (header "solid")
+    with <InnerEdges> ids, and NoOp tracers; 41 steps on the card and with
+    the plain versions on the CPU from the same state: populations 1e-6,
+    positions 1e-4 lu, alive equal (phase 5's tolerances)."""
+    import torch
+
+    from hemocell_tpu_torch import HemoCell
+    from hemocell_tpu_torch.cells.state import place_cells
+    from hemocell_tpu_torch.config.defaults import FLAG_WALL
+    from hemocell_tpu_torch.mechanics import MODEL_REGISTRY
+    from hemocell_tpu_torch.mesh import generate
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_three_")
+    try:
+        rbc = generate.rbc_from_sphere(1.0, 320)
+        write_binary_stl(os.path.join(d, "vRBC.stl"), rbc.vertices, rbc.triangles)
+        stl_mesh = generate.mesh_from_stl(os.path.join(d, "vRBC.stl"), 5.4)
+        pairs = generate.mirror_inner_edges(stl_mesh, axis=1)
+        edges = "".join(f"<Edge>{a} {b}</Edge>" for a, b in pairs)
+        for name, text in (("config.xml", SMALL_CONFIG), ("WBC.xml", THREE_TYPES_WBC_XML),
+                           ("RBC_MALARIA.xml", THREE_TYPES_MALARIA_XML.format(edges=edges))):
+            with open(os.path.join(d, name), "w") as fh:
+                fh.write(text)
+        shutil.copy(os.path.join(HERE, "tools", "cell_templates", "PLT_template.xml"),
+                    os.path.join(d, "TRACER.xml"))
+        X, Y, Z = THREE_TYPES_SHAPE
+        flags = np.zeros(THREE_TYPES_SHAPE, np.uint8)
+        flags[:, 0, :] = flags[:, -1, :] = FLAG_WALL
+        y = np.arange(Y)[None, :, None]
+        x = np.arange(X)[:, None, None]
+        field = np.zeros((3,) + THREE_TYPES_SHAPE)
+        field[0] = 4e-5 * np.sin(np.pi * y / (Y - 1)) + 0 * x
+        field[1] = 2e-6 * np.cos(2 * np.pi * x / X) + 0 * y
+        centers = (np.array([[12.0, 14.0, 14.0]]), np.array([[32.0, 13.5, 14.5]]),
+                   np.array([[24.0, 6.0, 14.0], [40.0, 22.0, 9.0], [4.0, 20.0, 20.0]]))
+        rng = np.random.default_rng(3)
+        runs, positions = [], None
+        for device in ("cuda", "cpu"):
+            hc = HemoCell(os.path.join(d, "config.xml"), device=device)
+            hc.initialize_lattice(flags=flags)
+            hc.add_cell_type("WBC", "WbcHighOrderModel")
+            hc.add_cell_type("RBC_MALARIA", "RbcMalariaModel")
+            hc.add_cell_type("TRACER", "NoOp")
+            if positions is None:
+                positions = [place_cells(ct.mesh.vertices, c) for ct, c in
+                             zip(hc.cell_types, centers)]
+                positions = [p + 0.01 * rng.standard_normal(p.shape) for p in positions]
+            for k, p in enumerate(positions):
+                hc.set_cells(k, p)
+            hc.set_body_force(field)
+            hc.iterate(41)
+            hc.block()
+            runs.append((hc, hc.state))
+        (hc_gpu, gpu), (hc_cpu, cpu) = runs
+        topo = [hc_cpu.cell_types[k].topo for k in range(3)]
+        ids_taken = np.array_equal(np.asarray(topo[1].inner_edges), pairs)
+        err_f = float((gpu.f.cpu() - cpu.f).abs().max())
+        err_pos = max(float((a.pos.cpu() - b.pos).abs().max())
+                      for a, b in zip(gpu.cells, cpu.cells))
+        alive = [int(cs.alive.sum()) for cs in cpu.cells]
+        alive_ok = all(bool((a.alive.cpu() == b.alive).all())
+                       for a, b in zip(gpu.cells, cpu.cells))
+        ct = hc_cpu.cell_types[0]
+        cs = cpu.cells[0]
+        core = float(MODEL_REGISTRY[ct.model_name](cs.pos, cs.vel, ct.topo_dev,
+                                                   ct.material).inner_link.abs().max())
+        print(f"[27] three types ({hc_cpu.cell_types[0].num_vertices}-vertex WBC with "
+              f"{len(topo[0].inner_edges)} core edges, {stl_mesh.num_vertices}-vertex malaria "
+              f"cell from the STL with its {len(pairs)} <InnerEdges> ids taken {ids_taken}, "
+              f"3 tracers) under a field force, 41 steps, card vs plain CPU: max|df| "
+              f"{err_f:.3e} (tol 1e-6) | max|dpos| {err_pos:.3e} lu (tol 1e-4) | alive "
+              f"{alive} equal {alive_ok} | the WBC's core force max {core:.3e}", flush=True)
+        if not (err_f <= 1e-6 and err_pos <= 1e-4 and alive_ok and ids_taken
+                and alive == [1, 1, 3] and core > 0.0 and len(topo[0].inner_edges) > 0):
+            raise AssertionError("the three-type box disagrees with the plain CPU path")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3325,6 +3699,13 @@ def main() -> int:
     restart_paths, io_times = phase_restart(smi)
     by_path.update(restart_paths)
 
+    wbc_paths, rates = phase_wbc(smi)
+    by_path.update(wbc_paths)
+    kolmogorov_paths, kolmogorov_rates = phase_kolmogorov(smi)
+    by_path.update(kolmogorov_paths)
+    rates.update(kolmogorov_rates)
+    phase_small_three_types()
+
     # ``launches`` is the count of the first full-size path that runs the
     # kernel (K11 and K12, which no path runs: phase 20's comparisons, the
     # path "standalone"); ``launches_by_path`` has every path's; K1-K3, K11
@@ -3360,6 +3741,9 @@ def main() -> int:
     print(f"speed gates: {len(SPEED_GATES) - len(missed)} of {len(SPEED_GATES)} below their "
           f"yardstick; not below: {missed}", flush=True)
     kernels_line["io_ms"] = io_times
+    # phases 25-26: wall us/it, device busy us/it and idle share by path
+    kernels_line["paths_us_per_it"] = {path: dict(zip(("wall", "busy", "idle"), r))
+                                       for path, r in rates.items()}
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

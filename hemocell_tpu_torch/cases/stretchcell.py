@@ -1,5 +1,6 @@
 """stretchCell on the PyTorch/CUDA port: optical-tweezers stretching of one
-red blood cell, the reference's validation of its membrane mechanics.
+red blood cell, the reference's validation of its membrane mechanics, or
+(``--cell WBC``) of one white blood cell.
 
 A closed 26x13x13 um box (52x26x26 lattice, walls on every face) holds one
 RBC (RbcHighOrderModel, 642 vertices) at (12, 6, 6) um, turned by 90
@@ -17,8 +18,17 @@ and the volume must stay within 2% of the start.  The port's copy of
 ``examples/stretchcell.py``: the configuration, material XML and ``.pos``
 file are written in code.
 
-Usage: python -m hemocell_tpu_torch.cases.stretchcell [--force-pn 125]
-           [--iterations 10000] [--device cuda] [--workdir DIR]
+``--cell WBC`` stretches the WBC template of ``tools/cell_templates``
+(WbcHighOrderModel, a sphere of 642 vertices, radius 4 um) placed unturned
+at (13.0, 6.5, 6.5) um in the same box, for 3000 iterations.  The
+reference publishes no bands for it; those of the JAX package's recorded
+response (``tests/test_material_oracles.py``) hold it:
+
+  50 pN: axial 9.0-9.7 um, transverse 7.6-8.2 um
+  125 pN: axial 10.0-10.8 um (below the RBC's 12.25), transverse 7.5-8.2 um
+
+Usage: python -m hemocell_tpu_torch.cases.stretchcell [--cell RBC|WBC]
+           [--force-pn 125] [--iterations N] [--device cuda] [--workdir DIR]
 """
 
 from __future__ import annotations
@@ -61,15 +71,30 @@ N_FORCED = 7  # vertices pulled on each side
 BANDS = {25.0: ((9.2, 9.7), (7.3, 7.9)),
          75.0: ((11.0, 12.0), (7.0, 7.5)),
          125.0: ((12.25, 12.75), (6.5, 7.0))}
+WBC_BANDS = {50.0: ((9.0, 9.7), (7.6, 8.2)),
+             125.0: ((10.0, 10.8), (7.5, 8.2))}
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _wbc_xml() -> str:
+    with open(os.path.join(REPO, "tools", "cell_templates", "WBC_template.xml")) as f:
+        return f.read()
+
+
+# cell -> (model, material XML, .pos line, iterations, bands)
+CELLS = {"RBC": ("RbcHighOrderModel", lambda: RBC_XML, "12.0 6 6 90 0 0", 10_000, BANDS),
+         "WBC": ("WbcHighOrderModel", _wbc_xml, "13.0 6.5 6.5 0 0 0", 3000, WBC_BANDS)}
 
 
 def build(force_pn: float = 125.0, workdir: str | None = None, device="cuda",
-          dtype=torch.float32) -> HemoCell:
-    """The stretch case's facade, its external force set."""
+          dtype=torch.float32, cell: str = "RBC") -> HemoCell:
+    """The stretch case's facade for one ``cell`` (RBC or WBC), its
+    external force set."""
+    model, xml, pos, _, _ = CELLS[cell]
     workdir = workdir or tempfile.mkdtemp(prefix="stretchcell_")
     os.makedirs(workdir, exist_ok=True)
-    for name, text in (("config.xml", CONFIG_XML), ("RBC.xml", RBC_XML),
-                       ("RBC.pos", "1\n12.0 6 6 90 0 0\n")):
+    for name, text in (("config.xml", CONFIG_XML), (f"{cell}.xml", xml()),
+                       (f"{cell}.pos", f"1\n{pos}\n")):
         with open(os.path.join(workdir, name), "w") as f:
             f.write(text)
 
@@ -84,7 +109,7 @@ def build(force_pn: float = 125.0, workdir: str | None = None, device="cuda",
             index[axis] = end
             flags[tuple(index)] = FLAG_WALL
     hc.initialize_lattice(flags=flags)
-    hc.add_cell_type("RBC", "RbcHighOrderModel")
+    hc.add_cell_type(cell, model)
     hc.load_particles()
     # the forced vertices are found on the placed (turned) cell
     placed = hc.cell_states[0].pos[0].cpu().numpy()
@@ -102,13 +127,18 @@ def diameters_um(hc) -> tuple[float, float]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--cell", choices=sorted(CELLS), default="RBC")
     ap.add_argument("--force-pn", type=float, default=125.0)
-    ap.add_argument("--iterations", type=int, default=10000)
+    ap.add_argument("--iterations", type=int, default=None,
+                    help="default 10000 (RBC), 3000 (WBC)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--workdir", default=None)
     args = ap.parse_args(argv)
+    _, _, _, validated_at, bands = CELLS[args.cell]
+    if args.iterations is None:
+        args.iterations = validated_at
 
-    hc = build(args.force_pn, args.workdir, device=args.device)
+    hc = build(args.force_pn, args.workdir, device=args.device, cell=args.cell)
     v0 = float(hc.cell_volumes(0)[0])
     done = 0
     while done < args.iterations:
@@ -119,11 +149,12 @@ def main(argv=None):
         ratio = float(hc.cell_volumes(0)[0]) / v0
         print(f"(stretchcell) iter {hc.iter}: axial {axial:.3f} um, transverse "
               f"{transverse:.3f} um, volume ratio {ratio:.4f}")
-    band = BANDS.get(args.force_pn)
+    band = bands.get(args.force_pn)
     if band is not None:
         (a_lo, a_hi), (t_lo, t_hi) = band
-        print(f"(stretchcell) validated at {args.force_pn:g} pN after 10000 iterations: "
-              f"axial {a_lo}-{a_hi} um, transverse {t_lo}-{t_hi} um")
+        print(f"(stretchcell) {args.cell} validated at {args.force_pn:g} pN after "
+              f"{validated_at} iterations: axial {a_lo}-{a_hi} um, transverse "
+              f"{t_lo}-{t_hi} um")
     return hc
 
 

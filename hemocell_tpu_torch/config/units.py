@@ -82,6 +82,14 @@ class Parameters:
             return cfg["preInlet"]["parameters"]["Re"].read(float)
         raise KeyError("no <Re> under <domain> or <preInlet><parameters>")
 
+    def pipe_flow(self, cfg, fluid_area_lu: float) -> "Parameters":
+        """Pipe parameters with the radius of a circle of the fluid
+        cross-section's area (its node count)."""
+        self.re = self._read_re(cfg)
+        self.pipe_radius = math.sqrt(fluid_area_lu / math.pi)
+        self.u_lbm_max = self.re * self.nu_lbm / (self.pipe_radius * 2)
+        return self
+
     def pipe_flow_radius(self, cfg, radius_lu: float) -> "Parameters":
         """Pipe parameters with a predefined radius in lattice units
         (reference: mechanics/constantConversion.cpp:75-82)."""
@@ -118,3 +126,10 @@ class Parameters:
 
     def lu_to_um(self, x_lu: float) -> float:
         return x_lu * self.dx * 1e6
+
+    def describe(self) -> str:
+        return (
+            f"dx={self.dx:g} dt={self.dt:g} dm={self.dm:g} df={self.df:g} "
+            f"tau={self.tau:g} nu_lbm={self.nu_lbm:g} "
+            f"u_lbm_max={self.u_lbm_max:g} f_limit={self.f_limit:g}"
+        )

@@ -55,6 +55,20 @@ class ConfigNode:
             return default
         return ConfigNode(child, f"{self._path}/{name}").read(typ)
 
+    def children(self, name: Optional[str] = None):
+        """The child elements, all or those with tag ``name``, in order."""
+        for child in self._el:
+            if name is None or child.tag == name:
+                yield ConfigNode(child, f"{self._path}/{child.tag}")
+
+    @property
+    def tag(self) -> str:
+        return self._el.tag
+
+    @property
+    def text(self) -> str:
+        return (self._el.text or "").strip()
+
 
 class Config(ConfigNode):
     """Root config document.

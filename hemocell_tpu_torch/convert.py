@@ -67,16 +67,20 @@ def state_from_numpy(f, it, cells: Sequence[Mapping], dtype=torch.float64,
 def fluid_config_from_numpy(flags, omega, body_force=None, fluid_2x=None, fluid_k=None,
                             dtype=torch.float64, device="cuda") -> StepConfig:
     """Cell-free StepConfig from a numpy flag matrix ``[X,Y,Z]``, a scalar
-    omega and a uniform body force ``[3]`` or None, with the fused-runner
-    options ``fluid_2x`` and ``fluid_k``."""
+    omega and a body force (a uniform ``[3]``, a field ``[3,X,Y,Z]``, which
+    goes to the device in ``dtype``, or None), with the fused-runner options
+    ``fluid_2x`` and ``fluid_k``."""
     device = resolve_device(device)
     flags = np.asarray(flags, dtype=np.uint8)
+    if body_force is not None:
+        body_force = np.asarray(body_force)
+        body_force = (tuple(float(v) for v in body_force) if body_force.ndim == 1 else
+                      torch.tensor(body_force, dtype=dtype, device=device))
     return StepConfig(
         shape=tuple(int(s) for s in flags.shape),
         flags=torch.as_tensor(flags, device=device),
         omega=float(omega), types=[],
-        body_force=(None if body_force is None else
-                    tuple(float(v) for v in np.asarray(body_force))),
+        body_force=body_force,
         fluid_2x=fluid_2x, fluid_k=fluid_k, dtype=dtype, device=device)
 
 

@@ -8,7 +8,8 @@ reference package's phase order:
      boundary repulsion every ``boundary_repulsion_every`` steps; between
      recomputes the carried per-vertex force is spread every step;
   2. spread the capped constitutive forces plus the uncapped repulsion
-     force (kernel K2) and add the body force;
+     force (kernel K2) and add the body force, a uniform [3] or a field
+     [3, X, Y, Z];
  2b. interior viscosity: the omega field of the fluid step, from a full
      raycast of the membranes every ``interior_entire_every`` steps (or
      ``interior_every`` when that is 0) and the cheap membrane sweep every
@@ -111,7 +112,9 @@ class StepConfig:
     types: Sequence[TypeConfig] = field(default_factory=list)
     bc_velocity: Any = None  # [3, X, Y, Z], used at velocity nodes
     bc_density: Optional[float] = None  # density at pressure nodes
-    body_force: Optional[Sequence[float]] = None  # uniform [3]
+    # uniform [3] or a field [3, X, Y, Z] (the field never fuses: K8/K9 take
+    # a uniform force only)
+    body_force: Any = None
     particle_every: int = 1  # stepParticleEvery
     f_limit: float = 1e30
     # repulsion (constants in lattice units; 0 = off)
@@ -176,6 +179,11 @@ def external_forces(cfg: StepConfig, device) -> list:
             torch.as_tensor(tc.ext_force).to(device, cfg.dtype) for tc in cfg.types]
 
 
+def is_field(body_force) -> bool:
+    """A body force given per node, [3, X, Y, Z] (not a uniform [3])."""
+    return body_force is not None and torch.as_tensor(body_force).dim() > 1
+
+
 def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
     """Build the single-iteration function ``step(state) -> state``."""
     device = resolve_device(cfg.device)
@@ -190,10 +198,19 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
     has_boundaries = bool(flags.any()) or bool(cfg.solidify_every)
     omega = cfg.omega.to(device, dtype) if torch.is_tensor(cfg.omega) else float(cfg.omega)
     bc_velocity = _dev(cfg.bc_velocity, dtype)
-    bf_cfg = bf_cfg_host = None
+    # the body force as K1 takes it (bf_arg: a uniform [3] on the host or
+    # the field on the device) and as it adds to a field (bf_view:
+    # [3,1,1,1] or [3,X,Y,Z] on the device)
+    bf_view = bf_arg = None
     if cfg.body_force is not None:
-        bf_cfg_host = torch.as_tensor(cfg.body_force, dtype=dtype)
-        bf_cfg = bf_cfg_host.to(device)[:, None, None, None]
+        if is_field(cfg.body_force):
+            bf_view = bf_arg = _dev(cfg.body_force, dtype).contiguous()
+            if tuple(bf_view.shape) != (3,) + shape:
+                raise ValueError(f"a field body force must be [3, *{shape}], got "
+                                 f"{tuple(bf_view.shape)}")
+        else:
+            bf_arg = torch.as_tensor(cfg.body_force, dtype=dtype).cpu()
+            bf_view = bf_arg.to(device)[:, None, None, None]
     bmask = _dev(cfg.boundary_mask, torch.uint8)
     rep_on = cfg.repulsion_constant > 0.0
     brep_on = cfg.boundary_repulsion_constant > 0.0 and bmask is not None
@@ -298,8 +315,9 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                 cells[k] = cells[k]._replace(force_repulsion=part)
 
         # ---- 2: spread capped forces + repulsion, add the body force -----
-        bf, bf_host = bf_cfg, bf_cfg_host
+        bf, bf_host = bf_view, bf_arg
         if state.body_force_state is not None:
+            # the dynamic override is a uniform [3], kept on the host
             bf_host = torch.as_tensor(state.body_force_state).to("cpu", dtype)
             bf = bf_host.to(device)[:, None, None, None]
         le_w = None
@@ -319,7 +337,8 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                 force = force + bf
             force_arg = force_view = force
         else:
-            force_arg, force_view = bf_host, bf  # uniform [3] / [3,1,1,1] or None
+            # uniform [3] on the host / [3,1,1,1], the field twice, or None
+            force_arg, force_view = bf_host, bf
 
         # ---- 2b: interior viscosity omega field ---------------------------
         omega_now = omega
@@ -430,9 +449,9 @@ def build_runner(cfg: StepConfig) -> Callable[[SimState, int], SimState]:
     cuda = device.type == "cuda"
 
     # The fused kernels advance a run whose only change per iteration is
-    # {f, it}, within their own scope: scalar omega, uniform or no body
-    # force, bounce-back walls only, no Lees-Edwards, no CEPAC, no interior
-    # viscosity and no solidify.  On the H100 they are on by default at k =
+    # {f, it}, within their own scope: scalar omega, a uniform [3] or no
+    # body force (never a field), bounce-back walls only, no Lees-Edwards,
+    # no CEPAC, no interior viscosity and no solidify.  On the H100 they are on by default at k =
     # 2, the one depth that beats the one-step loop in the 128^3 box and in
     # the pipe (PERF.md, section 6: K8 against K1 a step).
     default_k = 2 if cuda else 4
@@ -449,12 +468,13 @@ def build_runner(cfg: StepConfig) -> Callable[[SimState, int], SimState]:
         and not cfg.interior_every
         and not cfg.solidify_every
         and not (torch.is_tensor(cfg.omega) and cfg.omega.dim() > 0)
+        and not is_field(cfg.body_force)
     )
     flags = torch.as_tensor(cfg.flags).to(device, torch.uint8)
     flags_arg = flags if bool(flags.any()) else None
     omega = cfg.omega
     bf_cfg = None
-    if cfg.body_force is not None:
+    if fused and cfg.body_force is not None:
         bf_cfg = torch.as_tensor(cfg.body_force, dtype=cfg.dtype)
 
     def fluid_k_steps(f, bf, k):

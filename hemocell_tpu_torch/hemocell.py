@@ -1,13 +1,15 @@
-"""The HemoCell facade in PyTorch: the ported subset of
-``hemocell_tpu/hemocell.py``.
+"""The HemoCell facade in PyTorch, after ``hemocell_tpu/hemocell.py``.
 
-Construct from an XML config, initialise the lattice, add cell types, load
-or set cells, set the body force or a static external force on a type's
-vertices, enable repulsion, boundary repulsion, the CEPAC field, interior
-viscosity or solidify, iterate, read observables and cell statistics, write
-HDF5 and CSV output, and save and load checkpoints in the reference
-package's format.  The facade runs on ``device="cuda"`` unless the caller
-passes ``device="cpu"``, and raises when CUDA is asked for and absent.
+Construct from an XML config (or from ``Parameters``), initialise the
+lattice, add cell types of the five models (templates from the construct
+types or from an STL file), load or set cells, set the body force (uniform
+or a field) or a static external force on a type's vertices, the outlet
+density and the timescales, enable repulsion, boundary repulsion, the
+CEPAC field, interior viscosity or solidify, iterate, read observables and
+cell statistics, write HDF5 and CSV output, and save and load checkpoints
+in the reference package's format.  The facade runs on ``device="cuda"``
+unless the caller passes ``device="cpu"``, and raises when CUDA is asked
+for and absent.
 
 ``distribute()`` runs it on a 1-D x mesh of ranks (``parallel/``), one per
 card, as the reference runs under ``mpirun -n N``: each rank holds an
@@ -41,7 +43,7 @@ from .cells.state import (
 from .config import Config, Parameters
 from .config.defaults import FLAG_FLUID
 from .dynamics import (SimState, StepConfig, TypeConfig, build_runner, initial_sim_state,
-                       with_feature_fields)
+                       is_field, with_feature_fields)
 from .fluid import lbm
 from .fluid.advection_diffusion import concentration, tau_from_diffusivity
 from .ibm import kernels
@@ -58,9 +60,13 @@ from .utils.profiler import Profiler
 
 _log = logging.getLogger(__name__)
 
+# each model's template when add_cell_type names none
 _CONSTRUCT = {
     "RbcHighOrderModel": "RBC_FROM_SPHERE",
+    "RbcMalariaModel": "RBC_FROM_SPHERE",
+    "WbcHighOrderModel": "WBC_SPHERE",
     "PltSimpleModel": "ELLIPSOID_FROM_SPHERE",
+    "NoOp": "ELLIPSOID_FROM_SPHERE",
 }
 
 
@@ -78,18 +84,32 @@ class CellType:
     minimum_distance_from_solid_um: float = 0.0
     material_cfg: object = None  # the <MaterialModel> block of <name>.xml
     ext_force: Optional[torch.Tensor] = None  # static [1 | NC, NV, 3] (stretch)
+    volume_um3: float = 0.0  # <Volume> of the material XML
     omega_interior: Optional[float] = None  # interior viscosity (None = off)
     solidify: bool = False
     distance_threshold: float = 0.0
     shear_threshold: float = 0.0
 
+    @property
+    def num_vertices(self):
+        return self.mesh.num_vertices
+
 
 class HemoCell:
-    def __init__(self, config_path: str, device="cuda"):
+    def __init__(self, config_path: Optional[str] = None,
+                 params: Optional[Parameters] = None, device="cuda"):
+        """From the XML config at ``config_path`` or from ``params`` (which
+        win over the config's <domain>).  Without a config, material XMLs
+        and ``.pos`` files are read from the working directory."""
         self.device = resolve_device(device)
         print_header()
-        self.cfg = Config(config_path)
-        self.params = Parameters.from_config(self.cfg)
+        self.cfg = Config(config_path) if config_path else None
+        if params is not None:
+            self.params = params
+        elif self.cfg is not None:
+            self.params = Parameters.from_config(self.cfg)
+        else:
+            raise ValueError("need config_path or params")
         self.dtype = torch.float32
         self.iter = 0
         self.cell_types: list[CellType] = []
@@ -97,9 +117,11 @@ class HemoCell:
         self.shape = None
         self.flags = None
         self.bc_velocity = None  # [3,X,Y,Z] array-like, used at velocity nodes
-        self.body_force = None
+        self.body_force = None  # uniform (3 floats) or a [3,X,Y,Z] tensor
+        self.bc_density = None  # density at the pressure nodes
         self.omega = 1.0 / self.params.tau
-        ibm = self.cfg["ibm"] if "ibm" in self.cfg else None
+        self.periodicity = (True, True, True)
+        ibm = self.cfg["ibm"] if self.cfg is not None and "ibm" in self.cfg else None
         self.particle_every = ibm.get("stepParticleEvery", int, 1) if ibm else 1
         self._default_material_every = ibm.get("stepMaterialEvery", int, 1) if ibm else 1
         # repulsion and CEPAC are off until enabled
@@ -151,22 +173,48 @@ class HemoCell:
         self._rho0, self._u0 = rho0, u0
         self._dirty = True
 
-    def add_cell_type(self, name: str, model: str = "RbcHighOrderModel"):
-        """Read ``<name>.xml`` next to the config and build the template."""
-        base = self.cfg.directory
+    def latticeEquilibrium(self, rho, u):
+        """The density and velocity the lattice starts from."""
+        self._rho0, self._u0 = rho, tuple(u)
+        self._dirty = True
+
+    def initializeCellfield(self):
+        """Kept for the reference's API: cell fields are made by
+        ``add_cell_type``."""
+
+    def add_cell_type(self, name: str, model: str = "RbcHighOrderModel",
+                      construct_type: Optional[str] = None):
+        """Read ``<name>.xml`` next to the config and build the template:
+        ``construct_type`` (default by model) or the XML's ``<StlFile>``,
+        resolved against the config's directory.  ``<InnerEdges>`` adds the
+        inner links: for an STL mesh the XML's ``<Edge>`` vertex ids when
+        they index its vertices, else the mirror pairs across the y = 0
+        plane."""
+        base = self.cfg.directory if self.cfg is not None else "."
         mat_cfg = Config(os.path.join(base, name + ".xml"))["MaterialModel"]
-        if mat_cfg.get("StlFile", str, None):
-            raise NotImplementedError(
-                f"{name}.xml names an <StlFile>: meshes from STL files are not ported yet "
-                "(ROADMAP Queue 1 item 3); the template would not be the STL's mesh")
+        if construct_type is None:
+            construct_type = _CONSTRUCT[model]
         radius_lu = mat_cfg["radius"].read(float) / self.params.dx
         min_tri = mat_cfg.get("minNumTriangles", int, 600)
         aspect = mat_cfg.get("aspectRatio", float, 0.3)
-        mesh = construct_mesh(_CONSTRUCT[model], radius_lu, min_tri, aspect)
+        stl_file = mat_cfg.get("StlFile", str, None)
+        if stl_file:
+            construct_type = "MESH_FROM_STL"
+            stl_file = os.path.join(base, stl_file)
+        mesh = construct_mesh(construct_type, radius_lu, min_tri, aspect, stl_file)
         inner = None
         if "InnerEdges" in mat_cfg:
-            # transverse stiffening pairs: mirror pairs across the disc plane
-            inner = mirror_inner_edges(mesh, axis=1)
+            if construct_type == "MESH_FROM_STL":
+                # the ids index the STL's own vertices, numbered in the order
+                # they first appear, as mesh_from_stl numbers them
+                ids = np.array([[int(a), int(b)] for a, b in (
+                    e.text.split() for e in mat_cfg["InnerEdges"].children("Edge"))],
+                    dtype=np.int64)
+                if ids.size and ids.max() < mesh.num_vertices:
+                    inner = ids
+            if inner is None:
+                # transverse stiffening pairs: mirror pairs across the disc plane
+                inner = mirror_inner_edges(mesh, axis=1)
             if len(inner) == 0:
                 inner = None
         topo = build_topology(mesh, inner_edges=inner)
@@ -182,6 +230,7 @@ class HemoCell:
             minimum_distance_from_solid_um=mat_cfg.get("minimumDistanceFromSolid",
                                                        float, 0.0),
             material_cfg=mat_cfg,
+            volume_um3=mat_cfg.get("Volume", float, 0.0),
         )
         self.cell_types.append(ct)
         self.cell_states.append(make_cell_state(
@@ -191,23 +240,29 @@ class HemoCell:
         # timescales from the config's <sim> block
         if mat_cfg.get("enableInteriorViscosity", int, 0):
             every, entire = 10, 0
-            if "sim" in self.cfg:
+            if self.cfg is not None and "sim" in self.cfg:
                 every = self.cfg["sim"].get("interiorViscosity", int, 10)
                 entire = self.cfg["sim"].get("interiorViscosityEntireGrid", int, 0)
             self.enable_interior_viscosity(len(self.cell_types) - 1, every=every,
                                            entire_every=entire)
         return ct
 
-    def load_particles(self, pos_dir: Optional[str] = None):
+    def load_particles(self, pos_dir: Optional[str] = None, allow_missing: bool = False):
         """Load ``<name>.pos`` per cell type, place the template meshes and
-        drop cells overlapping walls."""
-        base = pos_dir or self.cfg.directory
+        drop cells overlapping walls.  A missing file raises, or with
+        ``allow_missing`` leaves that type without cells."""
+        base = pos_dir or (self.cfg.directory if self.cfg is not None else ".")
         um_to_lu = 1e-6 / self.params.dx
         for k, ct in enumerate(self.cell_types):
             path = os.path.join(base, ct.name + ".pos")
             if not os.path.exists(path):
-                raise FileNotFoundError(
-                    f"{path} not found - generate positions with tools/packcells")
+                if not allow_missing:
+                    raise FileNotFoundError(
+                        f"{path} not found - generate positions with tools/packcells, or "
+                        "pass allow_missing=True to run cell-free")
+                print(f"(HemoCell) warning: {path} not found - no {ct.name} cells loaded "
+                      "(generate with tools/packcells)")
+                continue
             centers, angles = load_pos_file(path, um_to_lu)
             cells = place_cells(ct.mesh.vertices, centers, angles)
             deny = int(round(ct.minimum_distance_from_solid_um * um_to_lu))
@@ -227,9 +282,29 @@ class HemoCell:
         self._dirty = True
 
     def set_body_force(self, force):
-        """Uniform driving force density [3] (pipe flow drive)."""
-        self.body_force = tuple(float(v) for v in force)
+        """Driving force density: uniform [3] (pipe flow drive) or a field
+        [3, X, Y, Z] (held on the facade's device)."""
+        if is_field(force):
+            force = force if torch.is_tensor(force) else torch.as_tensor(np.asarray(force))
+            self.body_force = force.to(self.device, self.dtype)
+        else:
+            self.body_force = tuple(float(v) for v in np.asarray(force).reshape(3))
         self._dirty = True
+
+    def set_outlet_density(self, density: float = 1.0):
+        """The fixed density of the pressure nodes of the flag matrix."""
+        self.bc_density = float(density)
+        self._dirty = True
+
+    def set_system_periodicity(self, axis_or_tuple, value=None):
+        """Kept for the reference's API: the dense lattice is periodic on
+        every axis, and walls come from the flag matrix."""
+        if value is None:
+            self.periodicity = tuple(axis_or_tuple)
+        else:
+            p = list(self.periodicity)
+            p[axis_or_tuple] = value
+            self.periodicity = tuple(p)
 
     def enable_repulsion(self, constant=None, cutoff=None, every=1):
         """Inter-cell repulsion; constant (lattice units) and cutoff (lu)
@@ -322,6 +397,7 @@ class HemoCell:
                 for ct, box in zip(self.cell_types, boxes)
             ],
             bc_velocity=self.bc_velocity,
+            bc_density=self.bc_density,
             body_force=self.body_force,
             particle_every=self.particle_every,
             f_limit=self.params.f_limit,
@@ -395,6 +471,12 @@ class HemoCell:
             self._state = shard_state(self._state, mesh)
         self._dirty = True
         return mesh
+
+    def fresh_state(self):
+        """Drop the state: the next iteration starts from the lattice's
+        equilibrium and the cells as set."""
+        self._state = None
+        self._dirty = True
 
     def _move_to(self, device):
         """Hold every tensor of the facade on ``device`` (the rank's card)."""
@@ -638,11 +720,15 @@ class HemoCell:
             elif name == "Force":
                 # the lattice force: the vertex forces spread again, as the
                 # reference re-runs its spread before writing it, plus the
-                # body force
-                bf = np.asarray(self.body_force if self.body_force is not None
-                                else np.zeros(3))
-                total = host(self._force_field(st).permute(1, 2, 3, 0)) + np.broadcast_to(
-                    bf, self.shape + (3,))
+                # body force, uniform or a field ([3,X,Y,Z] turned to the
+                # output's [X,Y,Z,3])
+                spread = host(self._force_field(st).permute(1, 2, 3, 0))
+                if is_field(self.body_force):
+                    total = spread + host(self.body_force.permute(1, 2, 3, 0))
+                else:
+                    bf = np.asarray(self.body_force if self.body_force is not None
+                                    else np.zeros(3))
+                    total = spread + np.broadcast_to(bf, self.shape + (3,))
                 fields[name] = total.astype(np.float32)
             elif name == "BindingSites":
                 b = st.binding_mask
@@ -807,8 +893,61 @@ class HemoCell:
         self._dirty = True
         return meta
 
+    def sanity_check(self, strict=False):
+        """The validated envelope (the reference's sanityCheck): tau and
+        nu in range, the velocity bound, dx, and each material timescale a
+        multiple of the particle timescale.  Returns the warnings; raises
+        with ``strict``."""
+        warnings = []
+        p = self.params
+        if not (0.53 <= p.tau <= 1.85):
+            warnings.append(f"tau={p.tau:.3f} outside validated range [0.53, 1.85] "
+                            f"(nu_lbm={p.nu_lbm:.3f} not in [0.01, 0.45])")
+        if p.u_lbm_max > 0.1:
+            warnings.append(f"u_lbm_max={p.u_lbm_max:.3f} > 0.1 (compressibility)")
+        if abs(p.dx - 0.5e-6) > 1e-12:
+            warnings.append(f"dx={p.dx:g} != 0.5e-6 m (models validated at 0.5um)")
+        for ct in self.cell_types:
+            if ct.timescale % self.particle_every != 0:
+                warnings.append(f"material timescale {ct.timescale} of {ct.name} not "
+                                f"divisible by particle timescale {self.particle_every}")
+        if strict and warnings:
+            raise ValueError("; ".join(warnings))
+        return warnings
+
     # ------------------------------------------------------------------
     # reference-style camelCase aliases
+
+    def setMaterialTimeScaleSeparation(self, name: str, timescale: int):
+        """Evaluate type ``name``'s model every ``timescale`` steps."""
+        self._cell_type(name).timescale = int(timescale)
+        self._dirty = True
+
+    def setParticleVelocityUpdateTimeScaleSeparation(self, timescale: int):
+        self.particle_every = int(timescale)
+        self._dirty = True
+
+    def setInitialMinimumDistanceFromSolid(self, name: str, distance_um: float):
+        """Cells of type ``name`` placed closer to a wall are dropped."""
+        self._cell_type(name).minimum_distance_from_solid_um = float(distance_um)
+
+    def _cell_type(self, name: str) -> CellType:
+        for ct in self.cell_types:
+            if ct.name == name:
+                return ct
+        raise KeyError(name)
+
+    def setSystemPeriodicity(self, axis, value):
+        self.set_system_periodicity(axis, value)
+
+    def initializeLattice(self, *a, **kw):
+        return self.initialize_lattice(*a, **kw)
+
+    def addCellType(self, name, model="RbcHighOrderModel", construct_type=None):
+        return self.add_cell_type(name, model, construct_type)
+
+    def loadParticles(self, *a, **kw):
+        return self.load_particles(*a, **kw)
 
     def setInteriorViscosityTimeScaleSeperation(self, separation: int,  # sic (reference)
                                                 separation_entire_grid: int):

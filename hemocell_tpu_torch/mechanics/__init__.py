@@ -6,10 +6,13 @@ from .forces import (
     ForceTerms,
     cell_area,
     cell_volume,
+    noop_forces,
     plt_simple_forces,
     rbc_ho_forces,
+    rbc_malaria_forces,
     topology_device_arrays,
     topology_from_arrays,
+    wbc_ho_forces,
 )
 
 __all__ = [
@@ -20,8 +23,11 @@ __all__ = [
     "ForceTerms",
     "cell_area",
     "cell_volume",
+    "noop_forces",
     "plt_simple_forces",
     "rbc_ho_forces",
+    "rbc_malaria_forces",
     "topology_device_arrays",
     "topology_from_arrays",
+    "wbc_ho_forces",
 ]

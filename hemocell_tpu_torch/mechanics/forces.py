@@ -7,8 +7,9 @@ the topology's index arrays and segment-sum along the vertex dimension.
 The segment sums gather through per-vertex incidence tables built once per
 topology and add in a fixed order: no float ``index_add`` (atomics on
 CUDA), so a force evaluation on the card repeats bit for bit.  Force terms,
-nonlinearities and stability clamps are the same formulas.  WBC and
-malaria models are not ported yet.
+nonlinearities and stability clamps are the same formulas, for all five
+models of the reference's registry: the RBC high-order, PLT simple, WBC
+high-order (with its rigid core) and malaria models and the NoOp tracer.
 """
 
 from __future__ import annotations
@@ -252,6 +253,26 @@ def _inner_link_forces(pos, t, k, fi, linear_scale=5.0):
     return fi
 
 
+def _wbc_core_forces(pos, t, k_cyto, k_rigid, radius, core_radius, fi):
+    """WBC rigid-core repulsive inner links: (1 - l / 2r) k_cyto below twice
+    the cell radius plus (1 - l / 2r_core) k_rigid below twice the core
+    radius, pushing each pair apart (-force on the first vertex)."""
+    ie = t["inner_edges"]
+    if ie.shape[0] == 0:
+        return fi
+    p0, p1 = pos[:, ie[:, 0]], pos[:, ie[:, 1]]
+    ev = p1 - p0
+    el = _norm(ev)
+    uv = ev / el[..., None]
+    zero = torch.zeros_like(el)
+    f1 = torch.where(el < 2 * radius, (1.0 - el / (2 * radius)) * k_cyto, zero)
+    f2 = torch.where(el < 2 * core_radius, (1.0 - el / (2 * core_radius)) * k_rigid, zero)
+    force = uv * (f1 + f2)[..., None]
+    fi = _add(fi, t["seg_inner_edges0"], -force)
+    fi = _add(fi, t["seg_inner_edges1"], force)
+    return fi
+
+
 def _pack(fa, fv, fl, fb, fviz, fi):
     return ForceTerms(fa + fv + fl + fb + fviz + fi, fa, fv, fl, fb, fviz, fi)
 
@@ -278,9 +299,43 @@ def plt_simple_forces(pos, vel, t, mc) -> ForceTerms:
     return _pack(fa, fv, fl, fb, fviz, fi)
 
 
+def wbc_ho_forces(pos, vel, t, mc) -> ForceTerms:
+    """WbcHighOrderModel over a batch of cells: the RBC terms plus a
+    repulsive rigid core over the inner edges."""
+    t = _with_segments(t)
+    z = torch.zeros_like(pos)
+    fa, fv, _ = _area_volume_forces(pos, t, mc["k_area"], mc["k_volume"], z, z)
+    fb = _patch_bending_forces(pos, t, mc["k_bend"], z)
+    fl, fviz = _link_visc_forces(pos, vel, t, mc["k_link"], mc["eta_m"], z, z)
+    fi = _wbc_core_forces(pos, t, mc["k_cytoskeleton"], mc["k_inner_rigid"], mc["radius"],
+                          mc["core_radius"], z)
+    return _pack(fa, fv, fl, fb, fviz, fi)
+
+
+def rbc_malaria_forces(pos, vel, t, mc) -> ForceTerms:
+    """RbcMalariaModel over a batch of cells: the RBC terms plus linear
+    inner links with k_inner_link."""
+    t = _with_segments(t)
+    z = torch.zeros_like(pos)
+    fa, fv, _ = _area_volume_forces(pos, t, mc["k_area"], mc["k_volume"], z, z)
+    fb = _patch_bending_forces(pos, t, mc["k_bend"], z)
+    fl, fviz = _link_visc_forces(pos, vel, t, mc["k_link"], mc["eta_m"], z, z)
+    fi = _inner_link_forces(pos, t, mc["k_inner_link"], z)
+    return _pack(fa, fv, fl, fb, fviz, fi)
+
+
+def noop_forces(pos, vel, t, mc) -> ForceTerms:
+    """NoOp model of passive tracer particles: zero in every term."""
+    z = torch.zeros_like(pos)
+    return ForceTerms(z, z, z, z, z, z, z)
+
+
 MODEL_REGISTRY = {
     "RbcHighOrderModel": rbc_ho_forces,
     "PltSimpleModel": plt_simple_forces,
+    "WbcHighOrderModel": wbc_ho_forces,
+    "RbcMalariaModel": rbc_malaria_forces,
+    "NoOp": noop_forces,
 }
 
 

@@ -6,9 +6,14 @@ from .generate import (
     construct_mesh,
     ellipsoid_from_sphere,
     euler_xyz,
+    euler_zxz,
+    icosphere,
+    mesh_from_stl,
     mirror_inner_edges,
     rbc_from_sphere,
+    signed_volume,
 )
+from .metrics import MeshMetrics
 from .topology import CellTopology, build_topology
 
 __all__ = [
@@ -16,8 +21,13 @@ __all__ = [
     "construct_mesh",
     "ellipsoid_from_sphere",
     "euler_xyz",
+    "euler_zxz",
+    "icosphere",
+    "mesh_from_stl",
     "mirror_inner_edges",
     "rbc_from_sphere",
+    "signed_volume",
+    "MeshMetrics",
     "CellTopology",
     "build_topology",
 ]

@@ -40,12 +40,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from .._device import constant
 from ..cells import repulsion as rep
-from ..dynamics import SimState, StepConfig, _split, cell_index, external_forces
+from ..dynamics import SimState, StepConfig, _split, cell_index, external_forces, is_field
 from ..fluid import advection_diffusion as ad
 from ..fluid import lbm
 from ..fluid import sharded_pallas as _sp
@@ -67,7 +66,7 @@ def sharded_unsupported_reason(cfg: StepConfig, mesh=None) -> Optional[str]:
                 "ROADMAP Queue 1 item 10c)")
     if cfg.solidify_every:
         return "solidify (distributed solidify is not ported, ROADMAP Queue 1 item 10c)"
-    if cfg.body_force is not None and np.asarray(cfg.body_force).ndim != 1:
+    if is_field(cfg.body_force):
         return "a field body force (only a uniform [3] body force is sharded)"
     if mesh is not None and int(cfg.shape[0]) % mesh.size:
         return f"X={int(cfg.shape[0])} not divisible by {mesh.size} ranks"
