@@ -31,11 +31,13 @@ Phases, in order; any failure exits non-zero and prints no result:
      omega and with a per-node omega field) against their plain versions at
      the shapes of the 128^3 suspension (872 RBC, 559,824 vertices; one node
      overfull with vertices of several cells, 5% of the cells dead); K7's
-     planes kernel against the plain planes at seven displacements (none,
-     integer, fractional, negative, beyond the box, a fraction within 1e-7
-     of 1) with both omega kinds, timed alone beside the K1 launch alone and
-     the wrapper; in 20 calls the profiler sees each of its two kernels
-     within one event of the wrappers' exact counts (20 each), and no other;
+     two planes kernels (the collided wrap-plane pair, then the corrected
+     planes from it) against their plain versions at seven displacements
+     (none, integer, fractional, negative, beyond the box, a fraction
+     within 1e-7 of 1) with both omega kinds, each timed, the planes timed
+     alone beside the K1 launch alone and the wrapper; in 20 calls the
+     profiler sees each of its three kernels within one event of the
+     wrappers' exact counts (20 each), and no other;
      and K1,
      K2 (without and with its extra force, with phase 3's K2 checks and
      speed gate), K3 and K4 (walls on the z faces, the vertices moved by
@@ -54,8 +56,8 @@ Phases, in order; any failure exits non-zero and prints no result:
      box with repulsion (K2's extra force on), 100 iterations twice from one
      state: the end states bitwise equal;
   8. the same box under Lees-Edwards shear of 100/s from the linear
-     profile, 500 iterations through K7 (its planes kernel and K1 with the
-     planes, each counted), K2, K3, K5, the fitted shear slope and the
+     profile, 500 iterations through K7 (its two planes kernels and K1 with
+     the planes, each counted), K2, K3, K5, the fitted shear slope and the
      accumulated displacement, then a profiler window; and the empty box,
      200 iterations, whose profile must stay put;
   9. a 32^3 box with 8 RBC with repulsion, CEPAC and Lees-Edwards on in
@@ -200,10 +202,50 @@ Then the WBC, malaria and NoOp models, STL meshes and the field body force:
      on the card and with the plain versions on the CPU, phase 5's
      tolerances.
 
-Then the speed gates in sum, the ``kernels`` JSON line (all fifteen: the
-twelve kernels, K7's planes kernel and the two halo modes; with the speed
-gates, phase 24's I/O times and the rates of phases 25-26), the card, and
-as the last line ``{"ok": true, "device": {...}}``.
+Then the preInlet and the x mesh's features:
+
+ 28. the preInlet on pipeflow30 at full width (cases/pipeflow_with_preinlet:
+     the preinlet is pipeflow30 under the adaptive drive, the main domain
+     the same tube with its x = 0 velocity nodes, a copy of the preinlet's
+     cells and 64 dead slots a type;
+     the preinlet's cells moved along the pipe so that a central one sits
+     0.5 lu before its end): K1 with the uniform force read from device
+     memory bitwise equal to K1 with it by value (also in halo mode on one
+     slab), both timed; 1000 coupled
+     iterations with K1 2000, K2 2000, K3 400, K4 2000 and no plain call,
+     the main domain filled with a copy of the preinlet's cells (an
+     injected image dies on arrival at the inlet's velocity nodes, as in
+     the JAX package, so these carry its cell path), both domains finite,
+     max|u| < 0.1 and mass drift per node < 1e-6, at least one cell
+     injected, the main domain's live cells at least one and at most those
+     at the start plus the watermarks' advances, no watermark above its
+     cell's image, the drive finite and positive, MLUPS over both domains'
+     nodes; 100 iterations under torch.cuda.set_sync_debug_mode("error"),
+     where any host sync fails the phase; a profiler window;
+     a save_preinlet_checkpoint at iteration 107 resumed in a fresh stepper
+     for 200 iterations, bitwise equal to the run that went on; the
+     reference test's small case (24x12x12, 41 steps, a forced crossing) on
+     the card and on the CPU, phase 5's tolerances;
+ 29. in an NCCL group of one: the distributed coupled runner (the main
+     domain on the x mesh, K1 in halo mode, the preinlet replicated), 200
+     iterations against the single-device stepper from phase 28's state,
+     its main domain holding live cells (exact counts, within 1e-5 of the
+     populations and 1e-3 lu); then
+     cases/preinlet_shear at 128x64x64 through it, 500 iterations;
+ 30. pipeflow30 with phase 21's interior viscosity and solidify, 200
+     iterations, and leesedwards128, 100 iterations, on the x mesh against
+     the single device, exact counts: pipeflow30 without and with the
+     features, with the cells near the x wrap set dead (there the slab's
+     wrapped positions round apart from the kernels' own wrap), bitwise
+     equal in the populations, the omega field, the runtime flags, the
+     binding sites, alive and the live cells' positions; leesedwards128,
+     its cells across the wrap, within 1e-6 of the populations and 1e-3
+     lu.
+
+Then the speed gates in sum, the ``kernels`` JSON line (all sixteen: the
+twelve kernels, K7's two planes kernels, and the two halo modes; with the speed gates, phase 24's I/O times and the rates of
+phases 25-26 and 28), the card, and as the last line
+``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (from the repository root, one GPU)
 """
@@ -239,7 +281,8 @@ REPLACES = {
     "repulsion": "hemocell_tpu/cells/pallas_repulsion.py:110",
     "ad_stream_collide": "hemocell_tpu/fluid/advection_diffusion.py:129",
     "le_stream_collide": "hemocell_tpu/fluid/lees_edwards.py:142",
-    "le_planes": "hemocell_tpu/fluid/lees_edwards.py:142",
+    "le_pair": "hemocell_tpu/fluid/lees_edwards.py:142",
+    "le_planes_from_pair": "hemocell_tpu/fluid/lees_edwards.py:142",
     "stream_collide_2x": "hemocell_tpu/fluid/pallas_lbm_2x.py:139",
     "stream_collide_kx": "hemocell_tpu/fluid/pallas_lbm_kx.py:134",
     "stream_collide_2d": "hemocell_tpu/fluid/pallas_lbm_2d.py:201",
@@ -256,7 +299,8 @@ SOURCES = {
     "repulsion": "hemocell_tpu_torch/csrc/repulsion.cu",
     "ad_stream_collide": "hemocell_tpu_torch/csrc/ad_stream_collide.cu",
     "le_stream_collide": "hemocell_tpu_torch/csrc/stream_collide.cu",
-    "le_planes": "hemocell_tpu_torch/csrc/le_planes.cu",
+    "le_pair": "hemocell_tpu_torch/csrc/le_planes.cu",
+    "le_planes_from_pair": "hemocell_tpu_torch/csrc/le_planes.cu",
     "stream_collide_2x": "hemocell_tpu_torch/csrc/stream_collide_kx.cu",
     "stream_collide_kx": "hemocell_tpu_torch/csrc/stream_collide_kx.cu",
     "stream_collide_2d": "hemocell_tpu_torch/csrc/stream_collide_2d.cu",
@@ -266,9 +310,10 @@ SOURCES = {
     "interp_static": "hemocell_tpu_torch/csrc/ibm_static.cu",
 }
 KERNEL_ORDER = ("stream_collide", "spread", "interp", "wall_hit_cells", "repulsion",
-                "ad_stream_collide", "le_stream_collide", "le_planes", "stream_collide_2x",
-                "stream_collide_kx", "stream_collide_2d", "stream_collide_halo",
-                "stream_collide_2d_halo", "spread_static", "interp_static")
+                "ad_stream_collide", "le_stream_collide", "le_pair", "le_planes_from_pair",
+                "stream_collide_2x", "stream_collide_kx", "stream_collide_2d",
+                "stream_collide_halo", "stream_collide_2d_halo", "spread_static",
+                "interp_static")
 
 
 def fail(msg: str) -> int:
@@ -791,7 +836,7 @@ def check_rows(tag, rows):
 def counters():
     from hemocell_tpu_torch.cells.repulsion import repulsion
     from hemocell_tpu_torch.fluid.advection_diffusion import ad_stream_collide
-    from hemocell_tpu_torch.fluid.lees_edwards import le_planes, le_stream_collide
+    from hemocell_tpu_torch.fluid.lees_edwards import le_pair, le_planes_from_pair, le_stream_collide
     from hemocell_tpu_torch.fluid.stream_collide import stream_collide, stream_collide_halo
     from hemocell_tpu_torch.fluid.stream_collide_2d import (stream_collide_2d,
                                                             stream_collide_2d_halo)
@@ -803,8 +848,8 @@ def counters():
             "stream_collide_2d_halo": stream_collide_2d_halo, "spread": kernels.spread,
             "interp": kernels.interp, "wall_hit_cells": kernels.wall_hit_cells,
             "repulsion": repulsion, "ad_stream_collide": ad_stream_collide,
-            "le_stream_collide": le_stream_collide, "le_planes": le_planes,
-            "stream_collide_2x": stream_collide_2x,
+            "le_stream_collide": le_stream_collide, "le_pair": le_pair,
+            "le_planes_from_pair": le_planes_from_pair, "stream_collide_2x": stream_collide_2x,
             "stream_collide_kx": stream_collide_kx,
             "stream_collide_2d": stream_collide_2d,
             "spread_static": static.spread_static, "interp_static": static.interp_static}
@@ -1222,29 +1267,15 @@ def phase_suspension_kernels(susp):
     om_int = 1.0 / interior_tau(5.0, 1.0 / cfg.omega)
     om_field = torch.where(torch.rand(shape, generator=g) < 0.2, om_int, cfg.omega).to(dev)
 
-    # K7's planes kernel against the plain planes: displacements without
-    # and with a fraction, negative, beyond the box and with a fraction
-    # within 1e-7 of 1; both omega kinds
-    planes_err = 0.0
-    for om in (cfg.omega, om_field):
-        for d in (0.0, 3.0, 2.37, -5.6, X + 1.25, 4.99999996, disp):
-            got = le.le_planes(f, force, om, d, LE_VELOCITY)
-            want = le._corrected_planes(f, force, om, d, LE_VELOCITY)
-            planes_err = max(planes_err, float((got - want).abs().max()))
-            del got, want
-    print(f"[6] le_planes (the corrected planes kernel) against the plain planes, 7 "
-          f"displacements x scalar omega and omega field: max_abs_err {planes_err:.3e} "
-          f"(tol 1e-6)", flush=True)
+    # K7's planes, its two kernels, against their plain versions:
+    # displacements without and with a fraction, negative, beyond the box
+    # and with a fraction within 1e-7 of 1; both omega kinds
+    rows += le_planes_rows(f, force, (cfg.omega, om_field),
+                           (0.0, 3.0, 2.37, -5.6, X + 1.25, 4.99999996, disp), disp)
     planes = le.le_planes(f, force, cfg.omega, disp, LE_VELOCITY)
     planes_ms = time_ms(lambda: le.le_planes(f, force, cfg.omega, disp, LE_VELOCITY), 50)
     planes_plain_ms = time_ms(lambda: le._corrected_planes(f, force, cfg.omega, disp,
                                                            LE_VELOCITY), 20)
-    # each input element read once: 19 populations and 3 force components of
-    # the two wrap planes; 38 floats a column written; two collisions and the
-    # shift per column
-    b_p, by_p = bound_ms(2 * X * Y * 22 * 4 + 38 * X * Y * 4, 2 * X * Y * 1100)
-    rows.append(dict(name="le_planes", tol=1e-6, max_abs_err=planes_err, ms=planes_ms,
-                     plain_ms=planes_plain_ms, bound_ms=b_p, bound_by=by_p, library_ms=None))
 
     out = le.le_stream_collide(f, force, cfg.omega, disp, LE_VELOCITY)
     ref = le.le_stream_collide_plain(f, force, cfg.omega, disp, LE_VELOCITY)
@@ -1267,17 +1298,18 @@ def phase_suspension_kernels(susp):
     # the kernels on the card in 20 calls, against the wrappers' counts over
     # the same calls; the profiler may drop an event of the window, so each
     # kernel's events are within one of its count
-    le.le_planes.launches = le.le_stream_collide.launches = 0
+    le.le_pair.launches = le.le_planes_from_pair.launches = le.le_stream_collide.launches = 0
     events = device_launches(k7, 20)
-    counted = {"le_planes_kernel": le.le_planes.launches,
+    counted = {"le_pair_collide_kernel": le.le_pair.launches,
+               "le_planes_from_pair_kernel": le.le_planes_from_pair.launches,
                "stream_collide_kernel": le.le_stream_collide.launches}
-    print(f"[6] le_stream_collide: wrapper {ms:.4f} ms over 50 calls = the planes kernel "
-          f"alone {planes_ms:.4f} ms + the K1 launch alone {launch_ms:.4f} ms (bound "
+    print(f"[6] le_stream_collide: wrapper {ms:.4f} ms over 50 calls = the planes' two "
+          f"kernels alone {planes_ms:.4f} ms + the K1 launch alone {launch_ms:.4f} ms (bound "
           f"{b:.4f} ms); plain planes {planes_plain_ms:.4f} ms; in 20 calls the profiler "
           f"saw {events} on the card, the wrappers counted {counted}", flush=True)
     if not (set(counted.values()) == {20} and set(events) == set(counted)
             and all(counted[k] - 1 <= events[k] <= counted[k] for k in counted)):
-        raise AssertionError(f"20 K7 calls launched {events}, not its two kernels once each")
+        raise AssertionError(f"20 K7 calls launched {events}, not its three kernels once each")
 
     out_o = le.le_stream_collide(f, force, om_field, disp, LE_VELOCITY)
     err_o = float((out_o - le.le_stream_collide_plain(f, force, om_field, disp,
@@ -1481,7 +1513,7 @@ def phase_lees_edwards(susp, smi):
         return {"shear slope within 10% of the imposed": abs(slope - gamma) <= 0.1 * gamma,
                 "le_displacement to f32 rounding": abs(disp - want_disp) <= 1e-4}
 
-    expected = {"le_stream_collide": n, "le_planes": n, "spread": n,
+    expected = {"le_stream_collide": n, "le_pair": n, "le_planes_from_pair": n, "spread": n,
                 "interp": n // cfg.particle_every,
                 "repulsion": n // cfg.repulsion_every}
     state, launches, run, wall_us = run_gated("[8]", "leesedwards128", cfg, state, n,
@@ -1509,6 +1541,50 @@ def phase_lees_edwards(susp, smi):
     return launches
 
 
+def le_planes_rows(f, force, omegas, displacements, disp):
+    """K7's planes, its two kernels: ``le_pair`` against ``_collided_pair``
+    for each omega, ``le_planes_from_pair`` against
+    ``corrected_planes_from_pair`` on the same pair and the planes they make
+    against ``_corrected_planes`` for each omega and displacement; each
+    timed at ``disp`` with the first omega.  Returns their two rows."""
+    from hemocell_tpu_torch.fluid import lees_edwards as le
+
+    X, Y = f.shape[1:3]
+    err_pair = err_from = err_planes = 0.0
+    for om in omegas:
+        pair = le.le_pair(f, force, om)
+        err_pair = max(err_pair, float((pair - le._collided_pair(f, force, om)).abs().max()))
+        for d in displacements:
+            got = le.le_planes_from_pair(pair, d, LE_VELOCITY)
+            err_from = max(err_from, float((got - le.corrected_planes_from_pair(
+                pair[..., 0], pair[..., 1], d, LE_VELOCITY)).abs().max()))
+            err_planes = max(err_planes, float((got - le._corrected_planes(
+                f, force, om, d, LE_VELOCITY)).abs().max()))
+            del got
+    print(f"[6] K7's planes, {len(displacements)} displacements x {len(omegas)} omega kinds: "
+          f"le_pair max_abs_err {err_pair:.3e}, le_planes_from_pair {err_from:.3e} on the same "
+          f"pair, the planes they make against the plain planes {err_planes:.3e} (tol 1e-6)",
+          flush=True)
+    if not (err_pair <= 1e-6 and err_from <= 1e-6 and err_planes <= 1e-6):
+        raise AssertionError("K7's planes kernels disagree with their plain versions")
+    om = omegas[0]
+    pair = le.le_pair(f, force, om)
+    # bytes: the pair kernel reads 22 floats of each wrap-plane node and
+    # writes 19; the planes kernel reads the pair once and writes 38 a column;
+    # one collision a node, the interpolation and the shift a column
+    b1, by1 = bound_ms(2 * X * Y * 22 * 4 + 2 * X * Y * 19 * 4, 2 * X * Y * 550)
+    b2, by2 = bound_ms(2 * X * Y * 19 * 4 + 38 * X * Y * 4, 2 * X * Y * 550)
+    return [dict(name="le_pair", tol=1e-6, max_abs_err=err_pair,
+                 ms=time_ms(lambda: le.le_pair(f, force, om), 50),
+                 plain_ms=time_ms(lambda: le._collided_pair(f, force, om), 20),
+                 bound_ms=b1, bound_by=by1, library_ms=None),
+            dict(name="le_planes_from_pair", tol=1e-6, max_abs_err=err_from,
+                 ms=time_ms(lambda: le.le_planes_from_pair(pair, disp, LE_VELOCITY), 50),
+                 plain_ms=time_ms(lambda: le.corrected_planes_from_pair(
+                     pair[..., 0], pair[..., 1], disp, LE_VELOCITY), 20),
+                 bound_ms=b2, bound_by=by2, library_ms=None, planes_max_abs_err=err_planes)]
+
+
 def phase_small_box():
     """A 32^3 box with 8 RBC, with repulsion, CEPAC and Lees-Edwards on in
     turn: 41 steps on the card and with the plain versions on the CPU from
@@ -1516,6 +1592,8 @@ def phase_small_box():
     forces) so that a wrong pair sum would show.  Tolerances as in phase 5
     (two f32 implementations): populations and CEPAC 1e-6, positions 1e-4
     lu, repulsion force 1% of its largest value."""
+    import dataclasses
+
     import dataclasses
 
     import torch
@@ -3604,6 +3682,529 @@ def phase_small_three_types():
         shutil.rmtree(d, ignore_errors=True)
 
 
+# ---- phases 28-30: the preInlet and the x mesh's features -------------------
+
+PREINLET_ITERATIONS = 1000
+PREINLET_SMALL_SHAPE = (24, 12, 12)
+
+
+def preinlet_counts(n, particle_every, halo=False):
+    """The wrappers' exact counts of n coupled preInlet steps: K1, K2 and K4
+    once a domain a step, K3 every particle_every-th step of each; with
+    ``halo`` the main domain's fluid is K1 in halo mode."""
+    want = dict.fromkeys(KERNEL_ORDER, 0)
+    want.update({"stream_collide": n if halo else 2 * n, "spread": 2 * n,
+                 "interp": 2 * (n // particle_every), "wall_hit_cells": 2 * n})
+    if halo:
+        want["stream_collide_halo"] = n
+    return want
+
+
+def counted(fn):
+    """(fn's result, the wrappers' launches, their plain calls) with every
+    count set to 0 just before and read just after."""
+    import torch
+
+    fns = reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k: f.launches for k, f in fns.items()},
+            {k: f.plain_calls for k, f in fns.items()})
+
+
+def preinlet_to_boundary(st, Lp):
+    """``st`` with the preinlet's cells moved along the (uniform, periodic)
+    pipe so that the fastest-placed cell (the nearest the axis among the
+    half that is, the largest centre x modulo Lp) sits 0.5 lu before a
+    multiple of Lp, and the crossings taken again: a run of a few lu
+    crosses it into the main domain."""
+    import torch
+
+    from hemocell_tpu_torch.utils.preinlet import initial_crossings
+
+    Y, Z = st.pre.f.shape[2:]
+    best = None
+    for cs in st.pre.cells:
+        c = cs.pos.mean(dim=1)
+        r = torch.sqrt((c[:, 1] - (Y - 1) / 2) ** 2 + (c[:, 2] - (Z - 1) / 2) ** 2)
+        central = cs.alive & (r < 0.5 * (min(Y, Z) - 1) / 2)
+        if bool(central.any()):
+            m = float(torch.remainder(c[central, 0], Lp).max())
+            best = m if best is None else max(best, m)
+    shift = torch.tensor([(Lp - 0.5) - best, 0.0, 0.0], device=st.pre.f.device)
+    cells = tuple(cs._replace(pos=cs.pos + shift) for cs in st.pre.cells)
+    pre = st.pre._replace(cells=cells)
+    return st._replace(pre=pre, crossings=initial_crossings(pre, Lp))
+
+
+def preinlet_gates(tag, st, st0, Lp):
+    """The preInlet's own gates: the injected cells, the watermarks and the
+    main domain's live cells (it starts with a copy of the preinlet's: an
+    injected image dies on arrival at the x = 0 velocity nodes, as in the
+    JAX package, so these carry the main domain's cell path)."""
+    import torch
+
+    advances = sum(int((c - c0).sum()) for c, c0 in zip(st.crossings, st0.crossings))
+    live0 = sum(int(cs.alive.sum()) for cs in st0.main.cells)
+    live_main = sum(int(cs.alive.sum()) for cs in st.main.cells)
+    over = sum(int((c > torch.floor(cs.pos[:, :, 0].mean(dim=1) / Lp).int()).sum())
+               for c, cs in zip(st.crossings, st.pre.cells))
+    drive = float(st.body_force)
+    print(f"{tag} injected {advances} (watermark advances), main cells alive {live0} at the "
+          f"start -> {live_main}, watermarks above their cell's image {over}, drive "
+          f"{drive:.6e}", flush=True)
+    return {"at least one cell injected": advances >= 1,
+            "main cells alive <= those at the start + the watermark advances":
+            live_main <= live0 + advances,
+            "the main domain's cells live (its cell path ran on live cells)": live_main >= 1,
+            "no image injected twice (no watermark above its cell's image)": over == 0,
+            "the drive finite and positive": np.isfinite(drive) and drive > 0.0}
+
+
+def domain_gates(tag, name, state, mass0):
+    """Finite state, max|u| < 0.1, mass drift per node < 1e-6."""
+    import torch
+
+    from hemocell_tpu_torch.fluid import lbm
+
+    N = int(np.prod(state.f.shape[1:]))
+    finite = bool(torch.isfinite(state.f).all()) and all(
+        bool(torch.isfinite(cs.pos).all() & torch.isfinite(cs.vel).all()
+             & torch.isfinite(cs.force).all()) for cs in state.cells)
+    umax = float(lbm.macroscopic(state.f)[1].abs().max())
+    dmass = abs(float(state.f.double().sum()) - mass0) / N
+    print(f"{tag} {name}: max|u| {umax:.4e} | mass drift per node {dmass:.3e}", flush=True)
+    return {f"{name} finite": finite, f"{name} max|u| < 0.1": umax < 0.1,
+            f"{name} mass drift per node < 1e-6": dmass < 1e-6}
+
+
+def raise_failed(what, checks):
+    for check, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"{what}: {check}")
+
+
+def small_preinlet(device):
+    """The reference test's coupling case (24x12x12, one cell, f32) on
+    ``device``: (stepper, state)."""
+    import torch
+
+    from hemocell_tpu_torch.cells.state import make_cell_state
+    from hemocell_tpu_torch.config.defaults import FLAG_VELOCITY, FLAG_WALL
+    from hemocell_tpu_torch.dynamics import StepConfig, TypeConfig, initial_sim_state
+    from hemocell_tpu_torch.mechanics import (MODEL_REGISTRY, MaterialConstants,
+                                              material_dict, topology_device_arrays)
+    from hemocell_tpu_torch.mesh import build_topology, icosphere
+    from hemocell_tpu_torch.utils.preinlet import (PreInletState, initial_crossings,
+                                                   make_coupled_stepper)
+
+    shape = PREINLET_SMALL_SHAPE
+    mesh = icosphere(80).scaled(2.0)
+    tc = TypeConfig(name="cell", model_fn=MODEL_REGISTRY["RbcHighOrderModel"],
+                    topo=topology_device_arrays(build_topology(mesh), device=device),
+                    material=material_dict(MaterialConstants(k_volume=2e-5, k_area=1.5e-5,
+                                                             k_link=1e-5, k_bend=1e-5)))
+    walls = np.zeros(shape, np.uint8)
+    walls[:, 0, :] = FLAG_WALL
+    walls[:, -1, :] = FLAG_WALL
+    mflags = walls.copy()
+    mflags[0, 1:-1, :] = FLAG_VELOCITY
+    pre_cfg = StepConfig(shape=shape, flags=torch.as_tensor(walls), omega=1.0, types=[tc],
+                         body_force=(1e-5, 0.0, 0.0), device=device)
+    main_cfg = StepConfig(shape=shape, flags=torch.as_tensor(mflags), omega=1.0, types=[tc],
+                          device=device)
+    pre = make_cell_state((mesh.vertices + np.array([20.0, 6.0, 6.0]))[None], device=device)
+    far = np.repeat(mesh.vertices[None] + np.array([-100.0, 6.0, 6.0]), 2, axis=0)
+    main = make_cell_state(far, device=device)
+    main = main._replace(alive=torch.zeros(2, dtype=torch.bool, device=device))
+    pre_state = initial_sim_state(pre_cfg, [pre])
+    main_state = initial_sim_state(main_cfg, [main])._replace(
+        bc_state=torch.zeros((3,) + shape, device=device))
+    st = PreInletState(pre=pre_state, main=main_state,
+                       body_force=torch.tensor(1e-5, device=device),
+                       crossings=initial_crossings(pre_state, shape[0]))
+    return make_coupled_stepper(pre_cfg, main_cfg, target_mean_velocity=1e-3), st
+
+
+def bump_preinlet(st, d=10.0):
+    """``st`` with the preinlet's cells moved by d lu in x (a forced crossing)."""
+    import torch
+
+    shift = torch.tensor([d, 0.0, 0.0], device=st.pre.f.device)
+    return st._replace(pre=st.pre._replace(
+        cells=tuple(cs._replace(pos=cs.pos + shift) for cs in st.pre.cells)))
+
+
+def phase_small_preinlet():
+    """The small preInlet case, 20 steps, a forced crossing, 21 more, on the
+    card and with the plain versions on the CPU: phase 5's tolerances."""
+    import torch
+
+    runs = []
+    for device in ("cuda", "cpu"):
+        step, st = small_preinlet(device)
+        for i in range(41):
+            st = step(bump_preinlet(st) if i == 20 else st)
+        runs.append(st)
+    gpu, cpu = runs
+    err_f = max(float((a.f.cpu() - b.f).abs().max()) for a, b in ((gpu.pre, cpu.pre),
+                                                                    (gpu.main, cpu.main)))
+    err_pos = max(float((a.pos.cpu() - b.pos).abs().max())
+                  for a, b in zip(gpu.main.cells + gpu.pre.cells, cpu.main.cells + cpu.pre.cells))
+    err_bc = float((gpu.main.bc_state.cpu() - cpu.main.bc_state).abs().max())
+    err_drive = abs(float(gpu.body_force) - float(cpu.body_force)) / float(cpu.body_force)
+    alive = [int(gpu.main.cells[0].alive.sum()), int(cpu.main.cells[0].alive.sum())]
+    same_x = all(torch.equal(a.cpu(), b) for a, b in zip(gpu.crossings, cpu.crossings))
+    print(f"[28] small preInlet {PREINLET_SMALL_SHAPE}, 41 coupled steps with a forced "
+          f"crossing, card vs plain CPU: max|df| {err_f:.3e} (tol 1e-6) | max|dpos| "
+          f"{err_pos:.3e} lu (tol 1e-4) | max|d bc_state| {err_bc:.3e} (tol 1e-6) | drive "
+          f"relative {err_drive:.3e} (tol 1e-5) | main alive {alive} | crossings equal "
+          f"{same_x}", flush=True)
+    if not (err_f <= 1e-6 and err_pos <= 1e-4 and err_bc <= 1e-6 and err_drive <= 1e-5
+            and alive[0] == alive[1] == 1 and same_x):
+        raise AssertionError("the small preInlet case disagrees with the plain CPU path")
+
+
+def k1_force_two_ways(f, flags, bf, omega):
+    """K1 with a uniform force read from device memory against the same
+    force by value, at pipeflow30's shapes: bitwise, both timed."""
+    import torch
+
+    from hemocell_tpu_torch.fluid.stream_collide import launch
+
+    host = torch.tensor(bf, dtype=torch.float32)
+    dev = host.to(f.device)
+    a, b = launch(f, dev, omega, flags), launch(f, host, omega, flags)
+    equal = torch.equal(a, b)
+    # halo mode on the whole domain as one slab (its own rows, as phase 16's
+    # slab of world size 1): the rows' nodes read the force from device
+    # memory too
+    halos = {"f": (f[:, -1:], f[:, :1]), "flags": (flags[-1:], flags[:1])}
+    halo = launch(f, dev, omega, flags, halos=halos)
+    equal_halo = torch.equal(halo, b)
+    ms_dev = time_ms(lambda: launch(f, dev, omega, flags), 50)
+    ms_val = time_ms(lambda: launch(f, host, omega, flags), 50)
+    print(f"[28] K1's uniform force from device memory against by value, {tuple(f.shape)}: "
+          f"bitwise equal {equal}, in halo mode on one slab {equal_halo} | {ms_dev:.4f} ms "
+          f"against {ms_val:.4f} ms", flush=True)
+    if not (equal and equal_halo):
+        raise AssertionError("K1 with the force from device memory differs from by value")
+    return dict(bitwise=equal, bitwise_halo_mode=equal_halo, ms=ms_dev, by_value_ms=ms_val)
+
+
+def phase_preinlet(smi):
+    """Phase 28: the preInlet on pipeflow30 at full width, single device,
+    the main domain filled with a copy of the preinlet's cells.  Returns (launches, the case, a copy of its state after the run, the K1
+    force comparison, (wall us/it, busy, idle))."""
+    import torch
+
+    from hemocell_tpu_torch.cases.pipeflow_with_preinlet import build
+    from hemocell_tpu_torch.io import load_preinlet_checkpoint, save_preinlet_checkpoint
+    from hemocell_tpu_torch.utils import preinlet as pi
+
+    t0 = time.time()
+    workdir = tempfile.mkdtemp(prefix="preinlet_")
+    try:
+        case = build(device="cuda", workdir=workdir, fill_main=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    Lp = int(case.pre_cfg.shape[0])
+    st0 = preinlet_to_boundary(case.state, Lp)
+    n_pre = [int(cs.alive.sum()) for cs in st0.pre.cells]
+    print(f"[28] preInlet pipeflow30 built in {time.time() - t0:.1f} s: preinlet "
+          f"{tuple(case.pre_cfg.shape)} with {n_pre} RBC/PLT, main {tuple(case.main_cfg.shape)} "
+          f"with {[int(cs.alive.sum()) for cs in st0.main.cells]} RBC/PLT in "
+          f"{[cs.alive.shape[0] for cs in st0.main.cells]} slots, inlet velocity "
+          f"nodes {int((case.main_cfg.flags == 2).sum())}, drive {float(st0.body_force):.4e} "
+          f"toward {case.target:.4e} lu", flush=True)
+    step = pi.make_coupled_stepper(case.pre_cfg, case.main_cfg,
+                                   target_mean_velocity=case.target)
+
+    def run(s, n):
+        for _ in range(n):
+            s = step(s)
+        return s
+
+    k1_two = k1_force_two_ways(st0.pre.f, case.pre_cfg.flags, (float(st0.body_force), 0.0, 0.0),
+                               float(case.pre_cfg.omega))
+    keep = clone_state(st0)
+    mass0 = (float(st0.pre.f.double().sum()), float(st0.main.f.double().sum()))
+    N2 = 2 * int(np.prod(case.pre_cfg.shape))
+    n = PREINLET_ITERATIONS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, launches, plain = counted(lambda: run(st0, n))
+    dt = time.perf_counter() - t0
+    wall_us = dt * 1e6 / n
+    print(f"[28] preInlet pipeflow30: {n} coupled iterations in {dt:.3f} s = "
+          f"{N2 * n / dt / 1e6:.1f} MLUPS (both domains' nodes) on {smi} | launches "
+          f"{launches} | plain calls {plain}", flush=True)
+    want = preinlet_counts(n, case.pre_cfg.particle_every)
+    checks = {"launch counts": launches == want,
+              "no plain version on the path": not any(plain.values())}
+    checks.update(domain_gates("[28]", "preinlet", st.pre, mass0[0]))
+    checks.update(domain_gates("[28]", "main domain", st.main, mass0[1]))
+    checks.update(preinlet_gates("[28]", st, st0, Lp))
+    raise_failed(f"preInlet pipeflow30 (expected launches {want})", checks)
+
+    # no host sync: the coupled step under the sync debug mode, where any
+    # sync raises and fails the phase
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = run(st, 100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("[28] 100 coupled iterations under torch.cuda.set_sync_debug_mode('error'): no host "
+          "sync", flush=True)
+
+    box = [st]
+
+    def advance(k):
+        box[0] = run(box[0], k)
+
+    prof = phase_profile("[28]", advance, wall_us)
+    busy, idle = prof if prof else (None, None)
+    after = clone_state(box[0])
+    del box, st
+
+    # restart: a checkpoint at iteration 107, resumed in a fresh stepper
+    ck = tempfile.mkdtemp(prefix="chip_smoke_preinlet_")
+    try:
+        a = run(keep, 107)
+        t0 = time.perf_counter()
+        save_preinlet_checkpoint(ck, a, meta={"iteration": 107})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        b, meta = load_preinlet_checkpoint(ck, dtype=torch.float32, device="cuda")
+        load_ms = (time.perf_counter() - t0) * 1e3
+        fresh = pi.make_coupled_stepper(case.pre_cfg, case.main_cfg,
+                                        target_mean_velocity=case.target)
+        for _ in range(200):
+            a, b = step(a), fresh(b)
+        torch.cuda.synchronize()
+        equal = states_equal(a, b)
+        print(f"[28] restart: saved at iteration {meta['iteration']} in {save_ms:.1f} ms, "
+              f"loaded in {load_ms:.1f} ms, 200 iterations in a fresh stepper: bitwise equal "
+              f"to the run that went on {equal}", flush=True)
+        if not equal:
+            raise AssertionError("the resumed preInlet run differs from the one that went on")
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    del a, b, keep
+    torch.cuda.empty_cache()
+    return launches, case, after, k1_two, (wall_us, busy, idle)
+
+
+def phase_preinlet_distributed(smi, mesh, case, state):
+    """Phase 29: the distributed coupled runner at world size 1 against the
+    single-device stepper from ``state``, 200 iterations; then
+    cases/preinlet_shear at 128x64x64 through it, 500 iterations.  Returns
+    the launches by path."""
+    import torch
+
+    from hemocell_tpu_torch.cases import preinlet_shear
+    from hemocell_tpu_torch.parallel import gather_state
+    from hemocell_tpu_torch.utils import preinlet as pi
+
+    by_path = {}
+    n = 200
+    single = pi.make_coupled_stepper(case.pre_cfg, case.main_cfg,
+                                     target_mean_velocity=case.target)
+    ref = clone_state(state)
+    for _ in range(n):
+        ref = single(ref)
+    run = pi.build_coupled_shardmap_runner(case.pre_cfg, case.main_cfg, mesh,
+                                           target_mean_velocity=case.target)
+    st0 = pi.shard_preinlet_state(state, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, launches, plain = counted(lambda: run(st0, n))
+    dt = time.perf_counter() - t0
+    by_path["preInlet pipeflow30 distributed"] = launches
+    main = gather_state(st.main, mesh)
+    d_pre = float((st.pre.f - ref.pre.f).abs().max())
+    d_main = float((main.f - ref.main.f).abs().max())
+    d_pos = max(float((a.pos - b.pos).abs().max()) for a, b in
+                zip(main.cells + st.pre.cells, ref.main.cells + ref.pre.cells))
+    d_bc = float((main.bc_state - ref.main.bc_state).abs().max())
+    alive_eq = all(torch.equal(a.alive, b.alive) for a, b in zip(main.cells, ref.main.cells))
+    live = [int(cs.alive.sum()) for cs in ref.main.cells]
+    bitwise = states_equal(st._replace(main=main), ref)
+    N2 = 2 * int(np.prod(case.pre_cfg.shape))
+    print(f"[29] the distributed coupled runner, world size 1 ({mesh.backend}), {n} "
+          f"iterations in {dt:.3f} s = {N2 * n / dt / 1e6:.1f} MLUPS on {smi}, against the "
+          f"single-device stepper: bitwise equal {bitwise} | max|df| preinlet {d_pre:.3e}, "
+          f"main {d_main:.3e} (tol 1e-5) | max|dpos| {d_pos:.3e} lu (tol 1e-3) | max|d "
+          f"bc_state| {d_bc:.3e} | main alive {live} RBC/PLT, equal {alive_eq} | launches "
+          f"{launches}", flush=True)
+    want = preinlet_counts(n, case.pre_cfg.particle_every, halo=True)
+    checks = {"launch counts": launches == want, "no plain version": not any(plain.values()),
+              "the main domain holds live cells": sum(live) >= 1,
+              "within phase 19's tolerance of the single device": d_pre <= 1e-5
+              and d_main <= 1e-5 and d_pos <= 1e-3 and d_bc <= 1e-5 and alive_eq}
+    raise_failed(f"the distributed preInlet (expected {want})", checks)
+    del ref, st, st0, main
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    workdir = tempfile.mkdtemp(prefix="preinlet_shear_")
+    try:
+        shear = preinlet_shear.build(64, device=mesh.device, workdir=workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    run = pi.build_coupled_shardmap_runner(shear.pre_cfg, shear.main_cfg, mesh,
+                                           target_mean_velocity=shear.target)
+    s0 = pi.shard_preinlet_state(shear.state, mesh)
+    mass0 = float(s0.pre.f.double().sum())
+    n = 500
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s, launches, plain = counted(lambda: run(s0, n))
+    dt = time.perf_counter() - t1
+    by_path["preinlet_shear distributed"] = launches
+    N2 = 2 * int(np.prod(shear.pre_cfg.shape))
+    print(f"[29] preinlet_shear {tuple(shear.main_cfg.shape)} (built in "
+          f"{time.time() - t0 - dt:.1f} s, preinlet cells {[int(cs.alive.sum()) for cs in s0.pre.cells]}): {n} "
+          f"iterations in {dt:.3f} s = {N2 * n / dt / 1e6:.1f} MLUPS | launches {launches}",
+          flush=True)
+    want = preinlet_counts(n, shear.pre_cfg.particle_every, halo=True)
+    checks = {"launch counts": launches == want, "no plain version": not any(plain.values())}
+    checks.update(domain_gates("[29]", "preinlet_shear preinlet", s.pre, mass0))
+    main = gather_state(s.main, mesh)
+    from hemocell_tpu_torch.fluid import lbm
+
+    # over the fluid nodes: the velocity nodes where the top wall meets the
+    # inlet plane take the preinlet's wall-node velocity (the reference
+    # case's flags), and their own moments drift
+    u = lbm.macroscopic(main.f)[1].abs().amax(0)
+    fluid = shear.main_cfg.flags == 0
+    umax, umax_all = float(u[fluid].max()), float(u.max())
+    drive = float(s.body_force)
+    print(f"[29] preinlet_shear main channel: max|u| over the fluid nodes {umax:.4e} (over "
+          f"every node {umax_all:.4e}), main cells "
+          f"{sum(int(cs.alive.sum()) for cs in main.cells)}, drive {drive:.4e}", flush=True)
+    checks.update({"main channel finite": bool(torch.isfinite(main.f).all()),
+                   "main channel max|u| < 0.1 over the fluid nodes": umax < 0.1,
+                   "the drive finite and positive": np.isfinite(drive) and drive > 0.0})
+    raise_failed(f"preinlet_shear (expected {want})", checks)
+    return by_path
+
+
+def away_from_the_x_wrap(state, margin=2.0):
+    """``state`` with every cell dead that has a vertex within ``margin`` lu
+    of the periodic x wrap or at a negative x, and the number of them.  The
+    sharded step wraps a vertex's position into the box before its kernels
+    and the single device's kernels wrap the node index only: the wrap of a
+    negative coordinate rounds (-0.3 becomes 247.7 in f32, its fraction
+    good to 1e-5), and K2 on the extended slab adds its collector row (the
+    nodes past the last row) to row 0 after its fixed-point sums.  Away
+    from the wrap the two are the same arithmetic."""
+    import torch
+
+    X = state.f.shape[1]
+    cells, n = [], 0
+    for cs in state.cells:
+        x = cs.pos[:, :, 0]
+        w = torch.remainder(x, X)
+        near = ((w < margin) | (w > X - 1 - margin) | (x < 0)).any(dim=1) & cs.alive
+        n += int(near.sum())
+        cells.append(cs._replace(alive=cs.alive & ~near))
+    return state._replace(cells=tuple(cells)), n
+
+
+def phase_x_mesh_features(smi, mesh, feat, le_case):
+    """Phase 30: the x mesh's features at world size 1: pipeflow30 with
+    interior viscosity and solidify (``feat``: phase 21's configuration and
+    state) and leesedwards128 (``le_case``), each against the single-device
+    run.  pipeflow30, without and with the features, runs with the cells
+    near the x wrap dead (``away_from_the_x_wrap``) and must then be bitwise
+    equal to the single device: the populations, the omega field, the
+    runtime flags, the binding sites, alive and the live cells' positions,
+    so that a halo-mode K1 that lost the per-call omega field or flags
+    rows would fail.  Returns the launches by path."""
+    import dataclasses
+
+    import torch
+
+    from hemocell_tpu_torch.cases.leesedwards import shear_profile_state
+    from hemocell_tpu_torch.dynamics import build_runner
+    from hemocell_tpu_torch.parallel import build_shardmap_runner, gather_state, shard_state
+
+    by_path = {}
+
+    def versus(tag, name, cfg, state, n, want, tol_f):
+        """``tol_f`` None: bitwise."""
+        single = build_runner(cfg)(clone_state(state), n)
+        run = build_shardmap_runner(cfg, mesh)
+        s0 = shard_state(state, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches, plain = counted(lambda: run(s0, n))
+        dt = time.perf_counter() - t0
+        out = gather_state(out, mesh)
+        d_f = float((out.f - single.f).abs().max())
+        live = [b.alive for b in single.cells]
+        d_pos = max((float((a.pos[m] - b.pos[m]).abs().max()) if m.any() else 0.0)
+                    for a, b, m in zip(out.cells, single.cells, live))
+        pos_eq = all(torch.equal(a.pos[m], b.pos[m])
+                     for a, b, m in zip(out.cells, single.cells, live))
+        alive_eq = all(torch.equal(a.alive, b.alive) for a, b in zip(out.cells, single.cells))
+        fields_eq = all(
+            (getattr(out, k) is None and getattr(single, k) is None)
+            or torch.equal(getattr(out, k), getattr(single, k))
+            for k in ("f", "omega_field", "flags_state", "binding_mask"))
+        n_om = n_int = 0
+        if out.omega_field is not None:
+            n_om = int((out.omega_field != single.omega_field).sum())
+            n_int = int((single.omega_field != float(cfg.omega)).sum())
+        N = int(np.prod(cfg.shape))
+        gate = "bitwise" if tol_f is None else f"max|df| <= {tol_f:.0e}, max|dpos| <= 1e-3 lu"
+        print(f"{tag} {name} distributed, world size 1: {n} iterations in {dt:.3f} s = "
+              f"{N * n / dt / 1e6:.1f} MLUPS on {smi}; against the single device ({gate}): "
+              f"populations, omega field, flags and binding sites bitwise {fields_eq} | live "
+              f"cells' positions bitwise {pos_eq} | max|df| {d_f:.3e} | max|dpos| {d_pos:.3e} "
+              f"lu | omega nodes differing {n_om} of {n_int} inside | alive equal {alive_eq} "
+              f"({sum(int(m.sum()) for m in live)} live) | launches {launches}", flush=True)
+        full = dict.fromkeys(KERNEL_ORDER, 0)
+        full.update(want)
+        close = (fields_eq and pos_eq if tol_f is None
+                 else d_f <= tol_f and d_pos <= 1e-3 and n_om == 0)
+        raise_failed(f"{name} distributed (expected {full})", {
+            "launch counts": launches == full, "no plain version": not any(plain.values()),
+            "equal to the single device": close and alive_eq})
+        return launches
+
+    cfg, state = feat
+    n = 200
+    state, n_dead = away_from_the_x_wrap(state)
+    print(f"[30] pipeflow30: {n_dead} cells near the x wrap set dead", flush=True)
+    base = state._replace(omega_field=None, flags_state=None, binding_mask=None)
+    versus("[30]", "pipeflow30 (no features)",
+           dataclasses.replace(cfg, interior_every=0, interior_entire_every=0,
+                               solidify_every=0), base, n,
+           {"stream_collide_halo": n, "spread": n, "interp": n // cfg.particle_every,
+            "wall_hit_cells": n}, None)
+    del base
+    by_path["pipeflow30 interior viscosity + solidify distributed"] = versus(
+        "[30]", "pipeflow30 + interior viscosity + solidify", cfg, state, n,
+        {"stream_collide_halo": n, "spread": n, "interp": n // cfg.particle_every,
+         "wall_hit_cells": n}, None)
+
+    # leesedwards128 keeps its cells across the wrap: within 1e-6
+    cfg, cells = le_case
+    n = 100
+    Z = cfg.shape[2]
+    le_state = shear_profile_state(cfg, list(cells), LE_VELOCITY / Z)
+    le_state = build_runner(cfg)(le_state, 7)  # a displacement with a fraction
+    by_path["leesedwards128 distributed"] = versus(
+        "[30]", "leesedwards128", cfg, le_state, n,
+        {"stream_collide_halo": n, "le_pair": n, "le_planes_from_pair": n, "spread": n,
+         "interp": n // cfg.particle_every, "repulsion": n // cfg.repulsion_every}, 1e-6)
+    return by_path
+
+
 def main() -> int:
     try:
         import torch
@@ -3647,6 +4248,7 @@ def main() -> int:
     by_path["suspension128"] = phase_suspension(susp, smi)
     phase_suspension_repeat(susp)
     by_path["leesedwards128"] = phase_lees_edwards(susp, smi)
+    le_case = (susp["le_cfg"], susp["cells"])  # for phase 30
     susp_pos = susp["cells"][0].pos.reshape(-1, 3).clone()
     del susp
     torch.cuda.empty_cache()
@@ -3691,6 +4293,7 @@ def main() -> int:
     by_path["pipeflow30 interior viscosity + solidify"], wall_us_per_it = \
         phase_pipeflow_features(hc, smi)
     phase_profile("[21]", hc.iterate, wall_us_per_it)
+    feat = (hc._step_cfg, clone_state(hc.local_state))  # for phase 30
     del hc
     torch.cuda.empty_cache()
     phase_small_features()
@@ -3706,6 +4309,27 @@ def main() -> int:
     rates.update(kolmogorov_rates)
     phase_small_three_types()
 
+    t28 = time.time()
+    by_path["preInlet pipeflow30"], pcase, pstate, k1_two, rates["preInlet pipeflow30"] = \
+        phase_preinlet(smi)
+    rows["stream_collide"]["uniform_force_from_device"] = k1_two
+    phase_small_preinlet()
+    pg_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    try:
+        mesh = init_distributed("cuda", init_method=f"file://{pg_dir}/pg", rank=0,
+                                world_size=1)
+        by_path.update(phase_preinlet_distributed(smi, mesh, pcase, pstate))
+        del pcase, pstate
+        torch.cuda.empty_cache()
+        by_path.update(phase_x_mesh_features(smi, mesh, feat, le_case))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(pg_dir, ignore_errors=True)
+    del feat, le_case
+    print(f"[28-30] the preInlet and the x mesh's features: {time.time() - t28:.1f} s",
+          flush=True)
+
     # ``launches`` is the count of the first full-size path that runs the
     # kernel (K11 and K12, which no path runs: phase 20's comparisons, the
     # path "standalone"); ``launches_by_path`` has every path's; K1-K3, K11
@@ -3717,7 +4341,7 @@ def main() -> int:
             "k1_ms_per_step", "k1_ms", "k10_ms", "k1_halo_ms", "at_pipe", "at_256", "by_k",
             "with_force_field", "gather_ms",
             "shape", "at_128", "with_omega_field", "capacity", "largest_slab", "overflow",
-            "device_launches_per_call")
+            "device_launches_per_call", "uniform_force_from_device", "planes_max_abs_err")
     kernels_line = {"kernels": []}
     for name in KERNEL_ORDER:
         per_path = {path: counts.get(name, 0) for path, counts in by_path.items()}
@@ -3741,7 +4365,7 @@ def main() -> int:
     print(f"speed gates: {len(SPEED_GATES) - len(missed)} of {len(SPEED_GATES)} below their "
           f"yardstick; not below: {missed}", flush=True)
     kernels_line["io_ms"] = io_times
-    # phases 25-26: wall us/it, device busy us/it and idle share by path
+    # phases 25-26 and 28: wall us/it, device busy us/it and idle share by path
     kernels_line["paths_us_per_it"] = {path: dict(zip(("wall", "busy", "idle"), r))
                                        for path, r in rates.items()}
     print(json.dumps(kernels_line))

@@ -42,8 +42,9 @@ SIGNATURES = {
     "hc_repulsion": [_P, _P, _P, _P, _F, _F, _I, _P, _I, _I, _I, _I, _P],
     "hc_bin_nodes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_repulsion_pairs": [_P, _P, _F, _F, _I, _P, _I, _I, _I, _I, _P],
-    # K7's corrected planes (csrc/le_planes.cu)
-    "hc_le_planes": [_P, _P, _P, _F, _I, _F, _F, _P, _I, _I, _I, _P],
+    # K7's corrected planes (csrc/le_planes.cu): the collided pair, then the planes
+    "hc_le_pair_collide": [_P, _P, _P, _F, _P, _I, _I, _I, _P],
+    "hc_le_planes_from_pair": [_P, _I, _F, _F, _P, _I, _I, _P],
     "hc_ad_stream_collide": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
     # K9 (k, then its schedule n_y, n_z, run, n_runs) and K8 (the schedule)
     # before the shape

@@ -6,6 +6,9 @@ The port's counterpart of ``examples/leesedwards.py``.
 
 Usage: python -m hemocell_tpu_torch.cases.leesedwards [--shearrate 100]
            [--iterations 2000] [--device cuda]
+       torchrun --nproc-per-node N -m hemocell_tpu_torch.cases.leesedwards --distribute
+           (the box on the x-slabs of the ranks; the sheared planes are
+           gathered along x every step)
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from .._device import resolve_device
 from ..dynamics import build_runner, initial_sim_state
 from ..fluid import lbm
 from ..presets import default_params, rbc_suspension
+from ._launch import case_mesh
 
 
 def shear_velocity(shape, gamma, dtype=torch.float32, device="cuda"):
@@ -64,25 +68,38 @@ def build(shearrate_si: float = 100.0, shape=(32, 32, 32), n_cells=4, repulsion=
     return cfg, state, meta, gamma
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--shearrate", type=float, default=100.0)
     ap.add_argument("--iterations", type=int, default=2000)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--distribute", action="store_true",
+                    help="run on the ranks of torchrun, one x-slab each")
+    args = ap.parse_args(argv)
 
-    cfg, state, meta, gamma = build(args.shearrate, device=args.device)
-    print(f"(leesEdwards) {meta['n_cells']} RBC, shear rate {args.shearrate}/s "
-          f"({gamma:.2e} per step), device {cfg.device}")
-    run = build_runner(cfg)
+    mesh, say = case_mesh(args)
+    device = mesh.device if mesh else args.device
+    cfg, state, meta, gamma = build(args.shearrate, device=device)
+    say(f"(leesEdwards) {meta['n_cells']} RBC, shear rate {args.shearrate}/s "
+        f"({gamma:.2e} per step), device {cfg.device}"
+        + (f", {mesh.size} ranks" if mesh else ""))
+    if mesh is None:
+        run = build_runner(cfg)
+    else:
+        from ..parallel import build_shardmap_runner, gather_state, shard_state
+
+        run = build_shardmap_runner(cfg, mesh)
+        state = shard_state(state, mesh)
     done = 0
     while done < args.iterations:
         n = min(500, args.iterations - done)
         state = run(state, n)
         done += n
-        print(f"(leesEdwards) iter {state.it}: alive {int(state.cells[0].alive.sum())} "
-              f"| measured du_x/dz {shear_slope(state):.3e} (imposed {gamma:.3e}) "
-              f"| displacement {float(state.le_displacement):.1f} lu")
+        whole = state if mesh is None else gather_state(state, mesh)
+        say(f"(leesEdwards) iter {state.it}: alive {int(state.cells[0].alive.sum())} "
+            f"| measured du_x/dz {shear_slope(whole):.3e} (imposed {gamma:.3e}) "
+            f"| displacement {float(state.le_displacement):.1f} lu")
+    return state
 
 
 if __name__ == "__main__":

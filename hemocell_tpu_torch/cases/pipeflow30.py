@@ -82,10 +82,11 @@ def pipe_flags(shape, radius):
 
 
 def pipeflow30_facade(shape=(248, 56, 56), radius: float = 25.0,
-                      workdir: str | None = None, device="cuda") -> HemoCell:
+                      workdir: str | None = None, device="cuda", flags=None) -> HemoCell:
     """The case's facade without cells: its configuration, the pipe's
-    lattice, the RBC and PLT types and the Poiseuille body force (what a
-    resumed run needs before it loads its checkpoint)."""
+    lattice (or ``flags``, a vessel of its own), the RBC and PLT types and
+    the Poiseuille body force (what a resumed run needs before it loads its
+    checkpoint)."""
     workdir = workdir or tempfile.mkdtemp(prefix="pipeflow30_")
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(workdir, "config.xml"), "w") as f:
@@ -96,7 +97,7 @@ def pipeflow30_facade(shape=(248, 56, 56), radius: float = 25.0,
 
     hc = HemoCell(os.path.join(workdir, "config.xml"), device=device)
     hc.params.pipe_flow_radius(hc.cfg, radius)
-    hc.initialize_lattice(flags=pipe_flags(shape, radius))
+    hc.initialize_lattice(flags=pipe_flags(shape, radius) if flags is None else flags)
     hc.add_cell_type("RBC", "RbcHighOrderModel")
     hc.cell_types[-1].minimum_distance_from_solid_um = 0.5
     hc.add_cell_type("PLT", "PltSimpleModel")
@@ -113,15 +114,21 @@ def build_pipeflow30(
     seed: int = 42,
     workdir: str | None = None,
     device="cuda",
+    flags=None,
 ) -> HemoCell:
     """Build the case; packs adaptively until the post-placement-denial
-    in-tube RBC hematocrit is within 1% (abs) of the target."""
+    in-tube RBC hematocrit is within 1% (abs) of the target.  ``flags``
+    (a vessel voxelized from an STL) replace the pipe; the hematocrit is
+    then counted over its fluid nodes."""
     workdir = workdir or tempfile.mkdtemp(prefix="pipeflow30_")
-    hc = pipeflow30_facade(shape, radius, workdir, device)
+    if flags is not None:
+        shape = tuple(int(s) for s in np.shape(flags))
+    hc = pipeflow30_facade(shape, radius, workdir, device, flags=flags)
     dx_um = hc.params.dx * 1e6
     box_um = tuple(s * dx_um for s in shape)
     v_rbc_lu = abs(hc.cell_types[0].topo.volume_eq)
-    pipe_vol_lu = math.pi * radius * radius * shape[0]
+    pipe_vol_lu = (math.pi * radius * radius * shape[0] if flags is None
+                   else float((np.asarray(flags) == 0).sum()))
 
     exe = packcells_binary()
     n_rbc = int(target_hematocrit * float(np.prod(shape)) / v_rbc_lu)

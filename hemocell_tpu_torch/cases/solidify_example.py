@@ -10,8 +10,14 @@ wall.  A platelet with a vertex within the distance threshold of a binding
 site under shear is tagged; at the next solidify step its interior nodes
 harden to bounce-back walls and binding sites, and the cell is removed.
 
+With ``--interior-viscosity`` the platelets' interiors also relax at the
+material's viscosity ratio (a membrane sweep every 10 steps, a raycast
+every 50).
+
 Usage: python -m hemocell_tpu_torch.cases.solidify_example [--iterations 200]
-           [--device cuda]
+           [--interior-viscosity] [--device cuda]
+       torchrun --nproc-per-node N -m hemocell_tpu_torch.cases.solidify_example --distribute
+           (the chamber on the x-slabs of the ranks)
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 from ..cells.state import place_cells
 from ..config.defaults import FLAG_VELOCITY, FLAG_WALL
 from ..hemocell import HemoCell
+from ._launch import case_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -49,7 +56,7 @@ WALL_GAP = 0.7
 
 
 def build(workdir: str, n: int = 24, shear_rate: float = 1000.0, every: int = 10,
-          device="cuda") -> HemoCell:
+          device="cuda", interior_viscosity: bool = False) -> HemoCell:
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(workdir, "config.xml"), "w") as f:
         f.write(CONFIG_XML.format(n=n, shear_rate=shear_rate))
@@ -73,6 +80,8 @@ def build(workdir: str, n: int = 24, shear_rate: float = 1000.0, every: int = 10
                         for cx, cy, cz in CENTRES])
     hc.set_cells(0, place_cells(ct.mesh.vertices, centres))
     hc.enable_solidify(0, every=every)
+    if interior_viscosity:
+        hc.enable_interior_viscosity(0, every=10, entire_every=50)
 
     # binding sites only on the bottom wall's two lowest z layers
     binding = np.zeros(hc.shape, bool)
@@ -93,20 +102,29 @@ def main(argv=None):
     ap.add_argument("--refdirn", type=int, default=24)
     ap.add_argument("--workdir", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--interior-viscosity", action="store_true",
+                    help="raise the viscosity inside the platelets")
+    ap.add_argument("--distribute", action="store_true",
+                    help="run on the ranks of torchrun, one x-slab each")
     args = ap.parse_args(argv)
 
+    mesh, say = case_mesh(args)
     workdir = args.workdir or tempfile.mkdtemp(prefix="solidify_")
-    hc = build(workdir, n=args.refdirn, device=args.device)
-    print(f"(solidify) domain {hc.shape}, PLT {hc.alive_count(0)}, device {hc.device}")
+    hc = build(workdir, n=args.refdirn, device=mesh.device if mesh else args.device,
+               interior_viscosity=args.interior_viscosity)
+    if mesh is not None:
+        hc.distribute(mesh)
+    say(f"(solidify) domain {hc.shape}, PLT {hc.alive_count(0)}, device {hc.device}"
+        + (f", {mesh.size} ranks" if mesh else ""))
     done = 0
     while done < args.iterations:
         n = min(50, args.iterations - done)
         hc.iterate(n)
         hc.block()
         done += n
-        print(f"(solidify) iter {hc.iter}: PLT alive {hc.alive_count(0)} | tagged "
-              f"{int(hc.state.cells[0].solidify.sum())} | solidified nodes "
-              f"{solidified_nodes(hc)}")
+        tagged = int(hc.state.cells[0].solidify.sum())
+        say(f"(solidify) iter {hc.iter}: PLT alive {hc.alive_count(0)} | tagged "
+            f"{tagged} | solidified nodes {solidified_nodes(hc)}")
     return hc
 
 

@@ -85,6 +85,8 @@ __device__ __forceinline__ void collide_push(
       Fx = fux; Fy = fuy; Fz = fuz;
     } else if (force_mode == 2) {
       Fx = force[g]; Fy = force[s + g]; Fz = force[2 * s + g];
+    } else if (force_mode == 3) {
+      Fx = force[0]; Fy = force[1]; Fz = force[2];
     }
   }
   const float om = omega_field ? omega_field[g] : omega;
@@ -113,7 +115,9 @@ __device__ __forceinline__ void collide_push(
   }
 }
 
-// force_mode: 0 none, 1 uniform (fu), 2 field [3, X, Y, Z].  HALO: the
+// force_mode: 0 none, 1 uniform (fu), 2 field [3, X, Y, Z], 3 uniform read
+// from the 3 floats at ``force`` in device memory (a force the card computed,
+// which the host never reads: the preInlet's adaptive drive).  HALO: the
 // slab kernel with the neighbours' rows (halo_rows.cuh) in place of the
 // periodic wrap in x; its threads cover the rows x = -1 .. X, and the two
 // neighbours' rows take their operands from the rows.
@@ -135,7 +139,8 @@ __global__ void stream_collide_kernel(
     const int side = n < 0 ? 0 : 1;
     const long long r = side ? n - N : n + YZ;
     const int ri = (int)r;
-    collide_push<true>(pick(rows.f, side), r, YZ, out, pick(rows.force, side), force_mode,
+    collide_push<true>(pick(rows.f, side), r, YZ, out,
+                       force_mode == 3 ? force : pick(rows.force, side), force_mode,
                        fux, fuy, fuz, pick(rows.omega, side), omega, pick(rows.flags, side),
                        pick(rows.bc, side), has_rho0, rho0, pick(rows.le, side), 0, 1,
                        side ? X : -1, ri / Z, ri % Z, X, Y, Z);

@@ -35,7 +35,11 @@ host scalar, so the timescale gates and the plane shifts cost no device
 sync, and the runner is a plain Python loop over ``step``.  A run with no
 vertices at all (the cell-free warm-up of a vessel case) leaves that loop:
 ``build_runner`` advances it k iterations per launch through the fused
-fluid kernels (K9, or K8 for two steps).  PreInlet is not ported yet.
+fluid kernels (K9, or K8 for two steps).  The preInlet
+(``utils/preinlet.py``) couples two such steps through the state's
+dynamic overrides: ``bc_state``, the velocity of the main domain's inlet
+nodes, and ``body_force_state``, the preinlet's adaptive drive, both on
+the card, so that the coupling never waits for it.
 """
 
 from __future__ import annotations
@@ -69,8 +73,10 @@ class SimState(NamedTuple):
     cepac: Any = None
     # Lees-Edwards accumulated x-displacement: 0-dim tensor on the host
     le_displacement: Any = None
-    # dynamic uniform body force [3] overriding cfg.body_force (the adaptive
-    # preInlet drive): a host tensor, as the kernels take it by value
+    # dynamic uniform body force [3] overriding cfg.body_force: on the host
+    # K1 takes it by value; on the card (the adaptive preInlet drive, which
+    # the card computes) K1 reads it from device memory, and the host never
+    # reads it
     body_force_state: Any = None
     # per-node relaxation frequency [X, Y, Z] (interior viscosity)
     omega_field: Any = None
@@ -78,6 +84,9 @@ class SimState(NamedTuple):
     # (solidify: hardened platelets turn fluid nodes into walls)
     flags_state: Any = None
     binding_mask: Any = None
+    # dynamic velocity-BC override [3, X, Y, Z] of cfg.bc_velocity (the
+    # preInlet writes its outlet plane into the main inlet's row)
+    bc_state: Any = None
 
 
 @dataclass
@@ -315,11 +324,12 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                 cells[k] = cells[k]._replace(force_repulsion=part)
 
         # ---- 2: spread capped forces + repulsion, add the body force -----
-        bf, bf_host = bf_view, bf_arg
+        bf, bf_uniform = bf_view, bf_arg
         if state.body_force_state is not None:
-            # the dynamic override is a uniform [3], kept on the host
-            bf_host = torch.as_tensor(state.body_force_state).to("cpu", dtype)
-            bf = bf_host.to(device)[:, None, None, None]
+            # the dynamic override is a uniform [3]: K1 takes a host one by
+            # value and reads one on the card where it lies
+            bf_uniform = torch.as_tensor(state.body_force_state).to(dtype=dtype)
+            bf = bf_uniform.to(device)[:, None, None, None]
         le_w = None
         if have_vertices:
             pos_lat = pos_flat  # the kernels wrap unwrapped positions
@@ -337,8 +347,8 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                 force = force + bf
             force_arg = force_view = force
         else:
-            # uniform [3] on the host / [3,1,1,1], the field twice, or None
-            force_arg, force_view = bf_host, bf
+            # uniform [3] / [3,1,1,1], the field twice, or None
+            force_arg, force_view = bf_uniform, bf
 
         # ---- 2b: interior viscosity omega field ---------------------------
         omega_now = omega
@@ -366,7 +376,8 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
             # particle mapping, and an unbounded accumulator loses precision
             le_disp_new = torch.remainder(state.le_displacement + le_u, shape[0])
         else:
-            f_new = stream_collide(state.f, force_arg, omega_now, flags_now, bc_velocity,
+            bc_now = bc_velocity if state.bc_state is None else state.bc_state
+            f_new = stream_collide(state.f, force_arg, omega_now, flags_now, bc_now,
                                    cfg.bc_density)
 
         u_new = None
@@ -499,10 +510,11 @@ def build_runner(cfg: StepConfig) -> Callable[[SimState, int], SimState]:
 
     def pure_fluid(state: SimState) -> bool:
         # no vertices of any cell type, and no state the fused kernels ignore
-        # (CEPAC, a per-node omega field, runtime flags)
+        # (CEPAC, a per-node omega field, runtime flags, a bc override)
         vertices = sum(cs.pos.shape[0] * cs.pos.shape[1] for cs in state.cells)
         bfs = state.body_force_state
         return (fused and vertices == 0 and state.cepac is None
+                and state.bc_state is None
                 and state.omega_field is None and state.flags_state is None
                 and (bfs is None or torch.as_tensor(bfs).dim() == 1))
 

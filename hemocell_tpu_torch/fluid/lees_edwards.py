@@ -17,10 +17,11 @@ The accumulated displacement (lu) is carried by the caller as a host scalar
 (a Python float or a 0-dim CPU tensor), wrapped mod Lx.
 
 ``le_stream_collide`` is the wrapper: the plain ``le_stream_collide_plain``
-on CPU tensors; on CUDA tensors two launches, ``le_planes`` (the corrected
-planes in their own kernel, ``csrc/le_planes.cu``; the reference package
-computes them outside its kernel) and the fused kernel with the planes
-substituted.
+on CPU tensors; on CUDA tensors three launches, the corrected planes in two
+(``csrc/le_planes.cu``; the reference package computes them outside its
+kernel): ``le_pair`` collides the two wrap planes and ``le_planes_from_pair``
+corrects them, and the fused kernel with the planes substituted.  On the x
+mesh the ranks gather their slabs' pairs along x between the two.
 """
 
 from __future__ import annotations
@@ -126,17 +127,22 @@ def stream_with_planes(post, planes):
     return torch.stack(outs, dim=0)
 
 
-def _corrected_planes(f, force, omega, displacement, shear_velocity):
-    """Post-collision z-boundary planes with the LE correction applied,
-    packed [38, X, Y] (top 0:19, bottom 19:38) for the kernel.  Collision is
-    node-local, so colliding the two boundary planes costs 2/Z of a full
-    collide."""
+def _collided_pair(f, force, omega):
+    """The two wrap planes z = Z-1 and z = 0 collided, [19, X, Y, 2].
+    Collision is node-local, so colliding the two boundary planes costs 2/Z
+    of a full collide."""
     Z = f.shape[3]
     f2 = torch.stack([f[:, :, :, Z - 1], f[:, :, :, 0]], dim=-1)
     force2 = torch.stack([force[:, :, :, Z - 1], force[:, :, :, 0]], dim=-1)
     if torch.is_tensor(omega) and omega.dim() > 0:  # the two planes of the field
         omega = torch.stack([omega[:, :, Z - 1], omega[:, :, 0]], dim=-1)
-    post2 = collide(f2, force2, omega, _zero_flags(f, 2))
+    return collide(f2, force2, omega, _zero_flags(f, 2))
+
+
+def _corrected_planes(f, force, omega, displacement, shear_velocity):
+    """Post-collision z-boundary planes with the LE correction applied,
+    packed [38, X, Y] (top 0:19, bottom 19:38) for the kernel."""
+    post2 = _collided_pair(f, force, omega)
     return corrected_planes_from_pair(post2[:, :, :, 0], post2[:, :, :, 1],
                                       displacement, shear_velocity)
 
@@ -148,40 +154,70 @@ def corrected_planes_from_pair(post_top, post_bot, displacement, shear_velocity)
     return torch.cat([top_c, bot_c], dim=0)
 
 
+def _omega_arg(omega, name, shape):
+    """(pointer, value) of a float or per-node omega for a kernel."""
+    if torch.is_tensor(omega) and omega.dim() > 0:
+        omega = _build.cuda_arg(omega, f"{name}: omega", torch.float32, shape)
+        return omega, omega.data_ptr(), 0.0
+    return None, None, float(omega)
+
+
+def le_pair(f, force, omega):
+    """The planes' first half: the collided wrap planes [19, X, Y, 2] of the
+    box or of one rank's slab ``f [19,X,Y,Z]`` (force field [3,X,Y,Z], omega
+    a float or the [X,Y,Z] field), on the x mesh gathered along x by the ranks:
+    ``_collided_pair`` on CPU tensors, ``hc_le_pair_collide`` of
+    ``csrc/le_planes.cu`` on CUDA tensors."""
+    if not f.is_cuda:
+        le_pair.plain_calls += 1
+        return _collided_pair(f, force, omega)
+    X, Y, Z = f.shape[1:]
+    f = _build.cuda_arg(f, "le_pair: f", torch.float32, (19, X, Y, Z))
+    force = _build.cuda_arg(force, "le_pair: force", torch.float32, (3, X, Y, Z))
+    omega, omega_ptr, omega_val = _omega_arg(omega, "le_pair", (X, Y, Z))
+    pair = torch.empty((19, X, Y, 2), dtype=torch.float32, device=f.device)
+    err = _build.lib().hc_le_pair_collide(
+        f.data_ptr(), force.data_ptr(), omega_ptr, omega_val, pair.data_ptr(), X, Y, Z,
+        torch.cuda.current_stream(f.device).cuda_stream)
+    _build.check(err, "hc_le_pair_collide")
+    le_pair.launches += 1
+    return pair
+
+
+def le_planes_from_pair(pair, displacement, shear_velocity):
+    """The planes' second half: the corrected planes [38, X, Y] of the whole
+    width from the (gathered) pair [19, X, Y, 2]: ``corrected_planes_from_pair``
+    on CPU tensors, ``hc_le_planes_from_pair`` on CUDA tensors."""
+    if not pair.is_cuda:
+        le_planes_from_pair.plain_calls += 1
+        return corrected_planes_from_pair(pair[..., 0], pair[..., 1], displacement,
+                                          shear_velocity)
+    X, Y = pair.shape[1:3]
+    pair = _build.cuda_arg(pair, "le_planes_from_pair: pair", torch.float32, (19, X, Y, 2))
+    i0, frac = _split_displacement(displacement, X)
+    planes = torch.empty((38, X, Y), dtype=torch.float32, device=pair.device)
+    err = _build.lib().hc_le_planes_from_pair(
+        pair.data_ptr(), i0, frac, float(shear_velocity), planes.data_ptr(), X, Y,
+        torch.cuda.current_stream(pair.device).cuda_stream)
+    _build.check(err, "hc_le_planes_from_pair")
+    le_planes_from_pair.launches += 1
+    return planes
+
+
 def le_planes(f, force, omega, displacement, shear_velocity):
     """The corrected planes [38, X, Y] of ``f [19,X,Y,Z]`` on the all-fluid
     box with the force field ``force [3,X,Y,Z]`` and omega a float or an
-    [X,Y,Z] field: ``_corrected_planes`` on CPU tensors, the kernel of
-    ``csrc/le_planes.cu`` on CUDA tensors."""
-    if not f.is_cuda:
-        le_planes.plain_calls += 1
-        return _corrected_planes(f, force, omega, displacement, shear_velocity)
-    X, Y, Z = f.shape[1:]
-    f = _build.cuda_arg(f, "le_planes: f", torch.float32, (19, X, Y, Z))
-    force = _build.cuda_arg(force, "le_planes: force", torch.float32, (3, X, Y, Z))
-    omega_ptr, omega_val = None, 0.0
-    if torch.is_tensor(omega) and omega.dim() > 0:
-        omega = _build.cuda_arg(omega, "le_planes: omega", torch.float32, (X, Y, Z))
-        omega_ptr = omega.data_ptr()
-    else:
-        omega_val = float(omega)
-    i0, frac = _split_displacement(displacement, X)
-    planes = torch.empty((38, X, Y), dtype=torch.float32, device=f.device)
-    err = _build.lib().hc_le_planes(
-        f.data_ptr(), force.data_ptr(), omega_ptr, omega_val, i0, frac,
-        float(shear_velocity), planes.data_ptr(), X, Y, Z,
-        torch.cuda.current_stream(f.device).cuda_stream)
-    _build.check(err, "hc_le_planes")
-    le_planes.launches += 1
-    return planes
+    [X,Y,Z] field: ``le_pair``, then ``le_planes_from_pair`` on the pair (on
+    CPU tensors their plain versions, which make ``_corrected_planes``)."""
+    return le_planes_from_pair(le_pair(f, force, omega), displacement, shear_velocity)
 
 
 def le_stream_collide(f, force, omega, displacement, shear_velocity):
     """One Lees-Edwards step of ``f [19,X,Y,Z]`` on an all-fluid box with the
     force field ``force [3,X,Y,Z]``; omega is a float or the per-node
     ``[X,Y,Z]`` field of interior viscosity, which the corrected planes and
-    the kernel both take.  On CUDA tensors: the planes kernel, then K1 with
-    the planes (two launches)."""
+    the kernel both take.  On CUDA tensors: the planes' two kernels, then K1
+    with the planes (three launches)."""
     if not f.is_cuda:
         le_stream_collide.plain_calls += 1
         return le_stream_collide_plain(f, force, omega, displacement, shear_velocity)
@@ -193,8 +229,10 @@ def le_stream_collide(f, force, omega, displacement, shear_velocity):
 
 le_stream_collide.launches = 0
 le_stream_collide.plain_calls = 0
-le_planes.launches = 0
-le_planes.plain_calls = 0
+le_pair.launches = 0
+le_pair.plain_calls = 0
+le_planes_from_pair.launches = 0
+le_planes_from_pair.plain_calls = 0
 
 
 def le_parameters(shear_rate_lbm: float, Z: int):

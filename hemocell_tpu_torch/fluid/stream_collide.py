@@ -44,7 +44,8 @@ def stream_collide(f, force, omega, flags, bc_velocity=None, bc_density=None, ha
     """One collide + push-stream step of the deviation populations
     ``f [19,X,Y,Z]``.
 
-    force: [3,X,Y,Z] field, uniform [3] tensor or None; omega: float or
+    force: [3,X,Y,Z] field, uniform [3] tensor (on the host: by value; on
+    the card: read there by the kernel) or None; omega: float or
     [X,Y,Z] tensor; flags: uint8 [X,Y,Z]; bc_velocity: [3,X,Y,Z] or None;
     bc_density: float or None; halos: the (lo, hi) x rows of the
     neighbours of a slab (``fluid/halo.py``) or None for the periodic box.
@@ -88,7 +89,7 @@ def launch(f, force, omega, flags, bc_velocity=None, bc_density=None, le_planes=
     ``flags`` may be None on an all-fluid box; ``le_planes [38,X,Y]`` are
     the pre-corrected Lees-Edwards wrap planes or None; ``halos`` the rows
     of the halo mode or None."""
-    a = fluid_args("stream_collide", f, force, flags, bc_velocity)
+    a = fluid_args("stream_collide", f, force, flags, bc_velocity, device_uniform=True)
     f = a.f
     X, Y, Z = f.shape[1:]
     omega_ptr, omega_val = None, 0.0

@@ -417,6 +417,7 @@ class HemoCell:
             dtype=self.dtype,
             device=self.device,
         )
+        self._step_cfg = cfg  # what a coupled preInlet run steps (utils/preinlet.py)
         if self._mesh is None:
             self._runner = build_runner(cfg)
             self._distributed_mode = "single"
@@ -445,14 +446,24 @@ class HemoCell:
                 self._state = shard_state(self._state, self._mesh)
         else:
             # keep fluid + iteration, adopt (possibly new) cell states; a
-            # feature enabled since the state was made gets its fields
-            self._state = with_feature_fields(
-                cfg, self._state._replace(cells=tuple(self.cell_states)))
+            # feature enabled since the state was made gets its fields (the
+            # rank's slab of them on a distributed facade)
+            old = self._state._replace(cells=tuple(self.cell_states))
+            self._state = with_feature_fields(cfg, old)
+            if self._mesh is not None:
+                from .parallel.sharding import shard_new_fields
+
+                self._state = shard_new_fields(old, self._state, self._mesh)
         if self._binding_sites is not None and self._state.binding_mask is not None:
             # binding only on wall nodes next to the fluid inside the mask
+            sites = torch.as_tensor(self._binding_sites)
+            if self._mesh is not None:
+                from .parallel.sharding import slab
+
+                x0, Xl = slab(self._mesh, sites.shape[0])
+                sites = sites[x0:x0 + Xl]
             self._state = self._state._replace(
-                binding_mask=self._state.binding_mask
-                & torch.as_tensor(self._binding_sites, device=self.device))
+                binding_mask=self._state.binding_mask & sites.to(self.device))
         self._dirty = False
 
     def distribute(self, mesh=None):

@@ -12,11 +12,15 @@ buffer); ``checkpoint.json`` holds the meta.
 Loading takes what the port has a field for.  A legacy file with full
 populations under ``f`` is converted to deviations.  ``ibm_overflow`` (the
 reference's guard of its TPU slab windows) has no counterpart and is
-dropped.  ``bc_state`` (the preInlet's velocity override) is refused until
-the preInlet is ported.  The Lees-Edwards displacement and the body-force
-override come back as host tensors, as the step holds them; everything else
-goes to the requested device.  The preInlet pair of the reference
-(``save/load_preinlet_checkpoint``) is not ported yet.
+dropped.  The Lees-Edwards displacement and the body-force override come
+back as host tensors (the step takes a host body force by value); everything
+else, ``bc_state`` included, goes to the requested device.
+
+A preInlet run (``utils/preinlet.PreInletState``) goes to
+``checkpoint_preinlet.npz`` with the reference's keys: the main state
+unprefixed, the preinlet under ``PRE_``, then ``preinlet_body_force``,
+``preinlet_crossings{k}`` and ``preinlet_n_crossings``; the meta to
+``checkpoint_preinlet.json``; the same atomic write and ``.old``.
 """
 
 from __future__ import annotations
@@ -33,8 +37,8 @@ from ..dynamics import SimState
 from ..fluid.d3q19 import W
 
 # the optional fields of SimState, in the reference's key names
-_OPT_FIELDS = ("cepac", "omega_field", "flags_state", "binding_mask", "body_force_state",
-               "le_displacement")
+_OPT_FIELDS = ("cepac", "omega_field", "flags_state", "binding_mask", "bc_state",
+               "body_force_state", "le_displacement")
 # the step holds these on the host (a device value would sync every step)
 _HOST_FIELDS = ("body_force_state", "le_displacement")
 
@@ -43,8 +47,9 @@ def _np(t):
     return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
 
-def state_arrays(state: SimState) -> dict:
-    """The state as named numpy arrays, in the reference's keys."""
+def state_arrays(state: SimState, prefix: str = "") -> dict:
+    """The state as named numpy arrays, in the reference's keys (each with
+    ``prefix``)."""
     arrays = {"h": _np(state.f), "it": np.asarray(int(state.it), np.int32)}
     for name in _OPT_FIELDS:
         val = getattr(state, name)
@@ -56,17 +61,15 @@ def state_arrays(state: SimState) -> dict:
             if val is not None:
                 arrays[f"cell{k}_{name}"] = _np(val)
     arrays["n_types"] = np.asarray(len(state.cells))
-    return arrays
+    return {prefix + key: val for key, val in arrays.items()}
 
 
-def state_from_arrays(data, dtype=None, device="cuda") -> SimState:
-    """A SimState from the arrays of a checkpoint (a mapping by key):
-    floating arrays in ``dtype`` (their own if None), on ``device`` but for
-    the host fields."""
-    if "bc_state" in data:
-        raise NotImplementedError(
-            "the checkpoint holds a bc_state (a preInlet run): the preInlet is not ported "
-            "yet (ROADMAP Queue 1 item 5)")
+def state_from_arrays(data, dtype=None, device="cuda", prefix: str = "") -> SimState:
+    """A SimState from the arrays of a checkpoint (a mapping by key, each
+    key with ``prefix``): floating arrays in ``dtype`` (their own if None),
+    on ``device`` but for the host fields."""
+    if prefix:
+        data = {key[len(prefix):]: data[key] for key in data if key.startswith(prefix)}
     device = resolve_device(device)
 
     def tensor(arr, where=device):
@@ -135,3 +138,44 @@ def load_checkpoint(directory: str, dtype=None, device="cuda"):
         with open(metapath) as fh:
             meta = json.load(fh)
     return state, meta
+
+
+def save_preinlet_checkpoint(directory: str, pstate, meta: dict | None = None) -> str:
+    """Write a coupled preInlet run to ``<directory>/checkpoint_preinlet.npz``:
+    both states (the preinlet under ``PRE_``), the crossings and the drive;
+    the meta to ``checkpoint_preinlet.json``.  Returns the path."""
+    arrays = state_arrays(pstate.main)
+    arrays.update(state_arrays(pstate.pre, "PRE_"))
+    arrays["preinlet_body_force"] = _np(pstate.body_force)
+    for k, c in enumerate(pstate.crossings):
+        arrays[f"preinlet_crossings{k}"] = _np(c)
+    arrays["preinlet_n_crossings"] = np.asarray(len(pstate.crossings))
+    path = _atomic_write(directory, "checkpoint_preinlet.npz", arrays)
+    if meta is not None:
+        with open(os.path.join(directory, "checkpoint_preinlet.json"), "w") as fh:
+            json.dump(meta, fh, indent=2)
+    return path
+
+
+def load_preinlet_checkpoint(directory: str, dtype=None, device="cuda"):
+    """(PreInletState, meta) from ``<directory>/checkpoint_preinlet.npz``,
+    written by either package (meta None without its json)."""
+    from ..utils.preinlet import PreInletState
+
+    dev = resolve_device(device)
+    with np.load(os.path.join(directory, "checkpoint_preinlet.npz")) as data:
+        data = dict(data)
+    main = state_from_arrays({k: v for k, v in data.items() if not k.startswith("PRE_")},
+                             dtype, dev)
+    pre = state_from_arrays(data, dtype, dev, prefix="PRE_")
+    bf = torch.from_numpy(np.array(data["preinlet_body_force"], copy=True))
+    if dtype is not None:
+        bf = bf.to(dtype)
+    crossings = tuple(torch.from_numpy(np.array(data[f"preinlet_crossings{k}"], copy=True))
+                      .to(dev) for k in range(int(data["preinlet_n_crossings"])))
+    meta = None
+    metapath = os.path.join(directory, "checkpoint_preinlet.json")
+    if os.path.exists(metapath):
+        with open(metapath) as fh:
+            meta = json.load(fh)
+    return PreInletState(pre=pre, main=main, body_force=bf.to(dev), crossings=crossings), meta

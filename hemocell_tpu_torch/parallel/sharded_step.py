@@ -26,8 +26,23 @@ every cell, and the ranks meet only in the collectives of
 
 A run with no vertices is the K1 halo-mode loop; the fused fluid kernels
 are single-device, as in the reference, whose shard_map runner fuses no
-steps.  Interior viscosity, solidify and Lees-Edwards are not sharded
-(``sharded_unsupported_reason``).
+steps.  The features of the reference's 1-D shard_map ride along:
+  2b. interior viscosity: the raycast and the membrane sweep of the
+      replicated cells restricted to the slab (``interior_mask`` and
+      ``membrane_omega_update`` with ``x_origin`` / ``x_extent``); the
+      omega field goes into K1 in halo mode with its rows;
+  3.  Lees-Edwards: each rank collides its slab's z = Z-1 and z = 0 plane
+      pair, the ranks gather the pairs along x, and the corrected planes of
+      the whole width are sliced to the slab and its two ``le`` halo rows
+      for K1 in halo mode (K7's two planes kernels, with the gather
+      between them);
+  4b. solidify: the tagged cells harden slab-locally; the binding and
+      Tresca test of the 27 neighbours reads one ghost row of the binding
+      mask and the Tresca field on each side, and the cell hits are summed
+      over the ranks; the runtime flags go into K1-K4 as per-call operands;
+and the preInlet's ``bc_state`` is a per-call operand of the fluid step
+(``fluid/sharded_pallas.py``).  What stays refused is in
+``sharded_unsupported_reason``.
 
 Every cell array stays bitwise identical on every rank: the replicated
 phases are deterministic functions of replicated inputs, and what a rank
@@ -44,28 +59,37 @@ import torch
 
 from .._device import constant
 from ..cells import repulsion as rep
+from ..cells.interior import interior_mask, membrane_omega_update
+from ..config.defaults import FLAG_FLUID, FLAG_WALL
 from ..dynamics import SimState, StepConfig, _split, cell_index, external_forces, is_field
 from ..fluid import advection_diffusion as ad
 from ..fluid import lbm
 from ..fluid import sharded_pallas as _sp
+from ..fluid.lees_edwards import le_pair, le_planes_from_pair
+from ..fluid.stream_collide import stream_collide_halo
+from ..fluid.tresca import tresca_field
 from ..ibm import kernels
 from . import comm
 from .sharding import shard_step_config, slab
 
-
 def sharded_unsupported_reason(cfg: StepConfig, mesh=None) -> Optional[str]:
-    """Why the sharded step does not cover ``cfg`` on ``mesh``, or None."""
+    """Why the sharded step does not cover ``cfg`` on ``mesh``, or None:
+    the reference's ``shardmap_supported`` on a 1-D mesh, and X divisible
+    by the ranks."""
     if mesh is not None and len(mesh.axis_names) > 1:
-        return "a 2-D device mesh (only the 1-D x mesh is ported)"
+        return ("a 2-D device mesh (only the 1-D x mesh is ported; ROADMAP Queue 1 item 7, "
+                "its 2-D part)")
     if cfg.lees_edwards_velocity is not None:
-        return "Lees-Edwards shear (distributed Lees-Edwards is not ported)"
-    if torch.is_tensor(cfg.omega) and cfg.omega.dim() > 0:
-        return "a per-node omega field (distributed interior viscosity is not ported)"
-    if cfg.interior_every:
-        return ("interior viscosity (distributed interior viscosity is not ported, "
-                "ROADMAP Queue 1 item 10c)")
-    if cfg.solidify_every:
-        return "solidify (distributed solidify is not ported, ROADMAP Queue 1 item 10c)"
+        # the sheared box is all fluid, and its planes take no CEPAC lattice
+        # and no interior-viscosity field (as the reference's)
+        if cfg.interior_every:
+            return "Lees-Edwards with interior viscosity"
+        if cfg.cepac_tau is not None:
+            return "Lees-Edwards with CEPAC"
+        if bool(torch.as_tensor(cfg.flags).any()):
+            return "Lees-Edwards with walls"
+        if cfg.solidify_every:
+            return "solidify with Lees-Edwards"
     if is_field(cfg.body_force):
         return "a field body force (only a uniform [3] body force is sharded)"
     if mesh is not None and int(cfg.shape[0]) % mesh.size:
@@ -103,22 +127,25 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
     lcfg = shard_step_config(cfg, mesh)
 
     flags_g = torch.as_tensor(cfg.flags)
-    has_boundaries = bool(flags_g.any())
-    omega = float(cfg.omega)
-    bf_cfg = bf_cfg_host = None
+    # solidify may create walls in a domain that has none
+    has_boundaries = bool(flags_g.any()) or bool(cfg.solidify_every)
+    omega = lcfg.omega if torch.is_tensor(lcfg.omega) else float(cfg.omega)
+    bf_cfg = bf_cfg_uniform = None
     if cfg.body_force is not None:
-        bf_cfg_host = torch.as_tensor(cfg.body_force, dtype=dtype)
-        bf_cfg = bf_cfg_host.to(device)[:, None, None, None]
+        bf_cfg_uniform = torch.as_tensor(cfg.body_force, dtype=dtype)
+        bf_cfg = bf_cfg_uniform.to(device)[:, None, None, None]
     bmask = None if cfg.boundary_mask is None else torch.as_tensor(cfg.boundary_mask).to(
         device, torch.uint8)
     rep_on = cfg.repulsion_constant > 0.0
     brep_on = cfg.boundary_repulsion_constant > 0.0 and bmask is not None
     ext_force = external_forces(cfg, device)
+    le_u = cfg.lees_edwards_velocity
+    fshape = constant(tuple(float(s) for s in shape), dtype, device)
 
     # static rows, exchanged once: the IBM grid is the slab plus the next
     # rank's row 0; CEPAC's operands get one row on each side
     flags_l = lcfg.flags
-    flags_ext = torch.cat([flags_l, comm.from_next(mesh, flags_l, 0)], dim=0)
+    flags_ext_static = torch.cat([flags_l, comm.from_next(mesh, flags_l, 0)], dim=0)
     cep_mask = cep_value = None
     if cfg.cepac_tau is not None and lcfg.cepac_dirichlet_mask is not None:
         (m_lo, m_hi), (v_lo, v_hi) = comm.halo_rows(
@@ -134,11 +161,83 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         return [torch.cat([lo, a, hi], dim=d)
                 for (lo, hi), a, d in zip(comm.halo_rows(mesh, fields, dims), fields, dims)]
 
+    def omega_raycast(cells):
+        """The slab's omega field from a raycast of the membranes."""
+        om = torch.full((Xl, Y, Z), float(cfg.omega), dtype=dtype, device=device)
+        for tc, cs in zip(cfg.types, cells):
+            if tc.omega_interior is not None:
+                m = interior_mask(cs.pos, tc.topo["tri"], cs.alive, shape, tc.interior_box,
+                                  x_origin=x0, x_extent=Xl)
+                om = om.masked_fill(m, tc.omega_interior)
+        return om
+
+    def omega_membrane(om, cells):
+        """The membrane sweep of the slab's omega field."""
+        for tc, cs in zip(cfg.types, cells):
+            if tc.omega_interior is not None:
+                om = membrane_omega_update(om, cs.pos, tc.topo["tri"], cs.alive,
+                                           tc.omega_interior, cfg.omega,
+                                           tc.topo["edge_mean_eq"], shape, x_origin=x0,
+                                           x_extent=Xl)
+        return om
+
+    def solidify(cells, flags_s, binding, f_new, force_view, omega_now):
+        """Phase A: harden the tagged cells' interiors in the slab.  Phase
+        B: tag the cells with an owned vertex within ``distance_threshold``
+        of a binding site whose Tresca stress exceeds ``shear_threshold``,
+        the 27 neighbours read from the slab with a ghost row on each side;
+        the hits summed over the ranks."""
+        for k, (tc, cs) in enumerate(zip(cfg.types, cells)):
+            if not tc.solidify:
+                continue
+            tagged = cs.solidify if cs.solidify is not None else torch.zeros_like(cs.alive)
+            marked = tagged & cs.alive
+            interior = interior_mask(cs.pos, tc.topo["tri"], marked, shape, tc.interior_box,
+                                     x_origin=x0, x_extent=Xl)
+            interior = interior & (flags_s == FLAG_FLUID)
+            flags_s = flags_s.masked_fill(interior, FLAG_WALL)
+            binding = binding | interior
+            cells[k] = cs._replace(alive=cs.alive & ~marked, solidify=tagged & ~marked)
+        tresca = torch.abs(tresca_field(f_new, force_view, omega_now) / 1e-7)
+        b_ext, t_ext = ext([binding.to(torch.uint8), tresca], [0, 0])
+        nbr = constant(rep._NBR, torch.long, device)
+        for k, (tc, cs) in enumerate(zip(cfg.types, cells)):
+            if not tc.solidify:
+                continue
+            nc, nv = cs.pos.shape[:2]
+            p = torch.remainder(cs.pos.reshape(-1, 3), fshape)
+            node = torch.floor(p + 0.5).long()
+            lx = torch.remainder(node[:, 0], X) - x0
+            owned = (lx >= 0) & (lx < Xl)
+            lx = torch.clamp(lx, 0, Xl - 1)
+            nn_x = lx[:, None] + nbr[None, :, 0] + 1  # rows of the extended slab
+            nn_y = torch.remainder(node[:, 1, None] + nbr[None, :, 1], Y)
+            nn_z = torch.remainder(node[:, 2, None] + nbr[None, :, 2], Z)
+            b = b_ext[nn_x, nn_y, nn_z] > 0
+            t = t_ext[nn_x, nn_y, nn_z]
+            # global neighbour coordinates: the minimum image folds x0 - 1
+            # and X alike
+            nn_g = torch.stack([x0 + nn_x - 1, nn_y, nn_z], dim=-1).to(dtype)
+            dv = p[:, None, :] - nn_g
+            dv = dv - torch.round(dv / fshape) * fshape
+            dist = torch.linalg.vector_norm(dv, dim=-1)
+            hit = (b & (dist <= tc.distance_threshold) & (t > tc.shear_threshold)
+                   & owned[:, None])
+            cell_hit = hit.any(dim=1).reshape(nc, nv).any(dim=1).to(torch.int32)
+            cell_hit = (comm.psum(mesh, cell_hit) > 0) & cs.alive
+            cells[k] = cs._replace(solidify=cs.solidify | cell_hit)
+        return flags_s, binding
+
     def step(state: SimState) -> SimState:
         it = state.it
         cells = list(state.cells)
         counts = tuple((cs.pos.shape[0], cs.pos.shape[1]) for cs in cells)
         have_vertices = sum(nc * nv for nc, nv in counts) > 0
+        # the runtime flags of solidify, and their IBM grid, every step
+        flags_now, flags_ext, flags_op = flags_l, flags_ext_static, None
+        if cfg.solidify_every and state.flags_state is not None:
+            flags_now = flags_op = state.flags_state
+            flags_ext = torch.cat([flags_now, comm.from_next(mesh, flags_now, 0)], dim=0)
 
         # ---- 0: flatten (replicated) ------------------------------------
         if have_vertices:
@@ -165,14 +264,22 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
                 cells[k] = cells[k]._replace(force_repulsion=part)
 
         # ---- 2: spread on the extended slab, collector row to next ------
-        bf, bf_host = bf_cfg, bf_cfg_host
+        bf, bf_uniform = bf_cfg, bf_cfg_uniform
         if state.body_force_state is not None:
-            bf_host = torch.as_tensor(state.body_force_state).to("cpu", dtype)
-            if bf_host.dim() != 1:
+            bf_uniform = torch.as_tensor(state.body_force_state).to(dtype=dtype)
+            if bf_uniform.dim() != 1:
                 raise ValueError("the sharded step takes a uniform [3] body_force_state only")
-            bf = bf_host.to(device)[:, None, None, None]
+            bf = bf_uniform.to(device)[:, None, None, None]
+        le_w = None
         if have_vertices:
-            pos_local, inside = _localize(pos_flat, x0, Xl, shape)
+            pos_lat = pos_flat
+            if le_u is not None:
+                # the Lees-Edwards image of a vertex in z-image w sees the
+                # fluid displaced by w*d(t) in x and moving at w*U
+                le_w = torch.floor(pos_flat[:, 2] / Z)
+                x_eff = pos_flat[:, 0] - le_w * float(state.le_displacement)
+                pos_lat = torch.stack([x_eff, pos_flat[:, 1], pos_flat[:, 2]], dim=1)
+            pos_local, inside = _localize(pos_lat, x0, Xl, shape)
             act_local = active * inside.to(dtype)
             f_vert = torch.cat([cs.force.reshape(-1, 3) for cs in cells])
             field_ext = kernels.spread(pos_local, f_vert, act_local, flags_ext, cfg.f_limit,
@@ -184,10 +291,45 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
                 force = force + bf
             force_arg = force_view = force
         else:
-            force_arg, force_view = bf_host, bf
+            force_arg, force_view = bf_uniform, bf
+
+        # ---- 2b: interior viscosity on the slab -------------------------
+        omega_now = omega
+        omega_field_new = state.omega_field
+        if cfg.interior_every and state.omega_field is not None:
+            entire = cfg.interior_entire_every or cfg.interior_every
+            if it % entire == 0:
+                omega_field_new = omega_raycast(cells)
+            if (cfg.interior_entire_every and entire != cfg.interior_every
+                    and it % cfg.interior_every == 0):
+                omega_field_new = omega_membrane(omega_field_new, cells)
+            omega_now = omega_field_new
 
         # ---- 3: fluid, K1 (or K10) in halo mode -------------------------
-        f_new = fluid_step(state.f, force_arg, omega)
+        le_disp_new = state.le_displacement
+        if le_u is not None:
+            force_field = force_view
+            if force_field is None or force_field.shape[1:] != (Xl, Y, Z):
+                force_field = torch.zeros((3, Xl, Y, Z), dtype=dtype, device=device)
+                if bf is not None:
+                    force_field = force_field + bf
+            # the slab's pair, gathered along x: the planes of the whole width
+            pair = comm.all_gather(mesh, le_pair(state.f, force_field, omega_now), 1)
+            planes = le_planes_from_pair(pair, state.le_displacement, le_u)
+            rows = [state.f, force_field]
+            dims = [1, 1]
+            if torch.is_tensor(omega_now) and omega_now.dim() > 0:
+                rows.append(omega_now), dims.append(0)
+            exch = comm.halo_rows(mesh, rows, dims)
+            halos = {"f": exch[0], "force": exch[1],
+                     "le": (planes[:, (x0 - 1) % X][:, None], planes[:, (x0 + Xl) % X][:, None])}
+            if len(exch) > 2:
+                halos["omega"] = exch[2]
+            f_new = stream_collide_halo(state.f, force_field, omega_now, None, None, None,
+                                        halos, le_planes=planes[:, x0:x0 + Xl].contiguous())
+            le_disp_new = torch.remainder(state.le_displacement + le_u, X)
+        else:
+            f_new = fluid_step(state.f, force_arg, omega_now, flags_op, state.bc_state)
 
         u_ext = None  # the velocity on the slab and the next rank's row 0
 
@@ -215,8 +357,19 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         if have_vertices and it % cfg.particle_every == 0:
             vel_flat = kernels.interp(velocity_ext(), pos_local, act_local, flags_ext)
             vel_flat = comm.psum(mesh, vel_flat)
+            if le_u is not None:
+                # the Galilean shift of the wrapped image, in the interp step
+                vel_flat[:, 0] += le_w * le_u
             for k, part in enumerate(_split(vel_flat, counts)):
                 cells[k] = cells[k]._replace(vel=part)
+
+        # ---- 4b: solidify on the slab -----------------------------------
+        flags_new, binding_new = state.flags_state, state.binding_mask
+        if (cfg.solidify_every and state.flags_state is not None
+                and it % cfg.solidify_every == 0):
+            flags_new, binding_new = solidify(cells, state.flags_state, state.binding_mask,
+                                              f_new, force_view, omega_now)
+            flags_ext = torch.cat([flags_new, comm.from_next(mesh, flags_new, 0)], dim=0)
 
         # ---- 5: advance + wall-contact deletion --------------------------
         new_pos = []
@@ -260,7 +413,9 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
                 full[lo:hi] = torch.where(cs.alive[lo:hi, None, None], ft, torch.zeros_like(ft))
             cells[k] = cs._replace(force=comm.psum(mesh, full))
 
-        return state._replace(f=f_new, it=it + 1, cells=tuple(cells), cepac=cepac_new)
+        return state._replace(f=f_new, it=it + 1, cells=tuple(cells), cepac=cepac_new,
+                              le_displacement=le_disp_new, omega_field=omega_field_new,
+                              flags_state=flags_new, binding_mask=binding_new)
 
     return step
 

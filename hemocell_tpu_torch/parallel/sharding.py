@@ -55,20 +55,50 @@ def _replicated(cells, mesh: XMesh):
                                  for t in cs]) for cs in cells)
 
 
+# the lattice fields of SimState and the dimension of their x axis
+_LATTICE_FIELDS = (("f", 1), ("cepac", 1), ("bc_state", 1), ("omega_field", 0),
+                   ("flags_state", 0), ("binding_mask", 0))
+
+
 def shard_state(state: SimState, mesh: XMesh) -> SimState:
-    """The rank's slab of ``f`` (and of ``cepac``) and the cells, replicated
-    from rank 0 (a collective).  Every rank passes the same global state."""
-    return state._replace(f=_slab_of(state.f, mesh, 1), cepac=_slab_of(state.cepac, mesh, 1),
-                          cells=_replicated(state.cells, mesh))
+    """The rank's slab of each lattice field (``f``, ``cepac``,
+    ``bc_state``, ``omega_field``, ``flags_state``, ``binding_mask``) and
+    the cells, replicated from rank 0 (a collective).  Every rank passes
+    the same global state."""
+    return state._replace(cells=_replicated(state.cells, mesh),
+                          **{name: _slab_of(getattr(state, name), mesh, dim)
+                             for name, dim in _LATTICE_FIELDS})
+
+
+def shard_new_fields(old: SimState, new: SimState, mesh: XMesh) -> SimState:
+    """``new`` with the rank's slab of each lattice field that ``old`` (a
+    rank's state) lacks: the global fields a feature enabled since brings."""
+    return new._replace(**{name: _slab_of(getattr(new, name), mesh, dim)
+                           for name, dim in _LATTICE_FIELDS
+                           if getattr(old, name) is None and getattr(new, name) is not None})
+
+
+def replicate_state(state: SimState, mesh: XMesh) -> SimState:
+    """The whole state on every rank, rank 0's bits (a collective): the
+    preinlet of the distributed preInlet, which every rank advances."""
+    def rep(t):
+        return None if t is None else comm.broadcast(mesh, t.to(mesh.device, copy=True))
+
+    return state._replace(cells=_replicated(state.cells, mesh),
+                          **{name: rep(getattr(state, name)) for name, _ in _LATTICE_FIELDS})
 
 
 def shard_step_config(cfg: StepConfig, mesh: XMesh) -> StepConfig:
     """``cfg`` with its static fields cut to the rank's slab: ``flags``,
-    ``bc_velocity`` and the CEPAC Dirichlet mask and value.  ``shape``
-    stays the global shape; the boundary-repulsion mask stays global (the
-    replicated vertices test it everywhere)."""
+    ``bc_velocity``, a per-node ``omega`` and the CEPAC Dirichlet mask and
+    value.  ``shape`` stays the global shape; the boundary-repulsion mask
+    stays global (the replicated vertices test it everywhere)."""
+    omega = cfg.omega
+    if torch.is_tensor(omega) and omega.dim() > 0:
+        omega = _slab_of(omega, mesh, 0, cfg.dtype)
     return dataclasses.replace(
         cfg,
+        omega=omega,
         flags=_slab_of(cfg.flags, mesh, 0, torch.uint8),
         bc_velocity=_slab_of(cfg.bc_velocity, mesh, 1, cfg.dtype),
         cepac_dirichlet_mask=_slab_of(cfg.cepac_dirichlet_mask, mesh, 0, torch.uint8),
@@ -77,8 +107,14 @@ def shard_step_config(cfg: StepConfig, mesh: XMesh) -> StepConfig:
 
 
 def gather_state(state: SimState, mesh: XMesh) -> SimState:
-    """The global state on every rank: the slabs of ``f`` and ``cepac``
+    """The global state on every rank: the slabs of each lattice field
     joined in rank order (a collective: every rank calls it)."""
-    f = comm.all_gather(mesh, state.f, 1)
-    cepac = None if state.cepac is None else comm.all_gather(mesh, state.cepac, 1)
-    return state._replace(f=f, cepac=cepac)
+    def gather(t, dim):
+        if t is None:
+            return None
+        if t.dtype == torch.bool:  # the backends move bytes
+            return comm.all_gather(mesh, t.to(torch.uint8), dim).bool()
+        return comm.all_gather(mesh, t, dim)
+
+    return state._replace(**{name: gather(getattr(state, name), dim)
+                             for name, dim in _LATTICE_FIELDS})

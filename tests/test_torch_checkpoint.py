@@ -8,8 +8,8 @@ reference's npz format:
   (b) a JAX checkpoint resumed and stepped by the port equals the JAX run
       in f64 (1e-9), and a port checkpoint resumed by the JAX facade equals
       the port's run; the JAX file's ``ibm_overflow`` is dropped;
-  (c) ``bc_state`` is refused, and a legacy file of full populations under
-      ``f`` is converted;
+  (c) ``bc_state`` (a preInlet run's) round-trips, and a legacy file of
+      full populations under ``f`` is converted;
   (d) a termination signal makes the next ``iterate`` write a checkpoint
       and raise SystemExit;
   (e) on 2 gloo ranks, the written checkpoint equals the gathered state,
@@ -34,7 +34,7 @@ from hemocell_tpu_torch.cases.pipeflow30 import pipe_flags
 from hemocell_tpu_torch.cells.state import place_cells
 from hemocell_tpu_torch.convert import state_to_numpy
 from hemocell_tpu_torch.fluid.d3q19 import W
-from hemocell_tpu_torch.io import load_checkpoint
+from hemocell_tpu_torch.io import load_checkpoint, save_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEMPLATES = os.path.join(REPO, "tools", "cell_templates")
@@ -175,11 +175,18 @@ def test_bc_state_refused_and_legacy_f(case_path, tmp_path):
     src = hc.save_checkpoint(str(tmp_path / "a"))
     with np.load(src) as data:
         arrays = dict(data)
-    # a preInlet run's file: refused, naming the item that ports it
+    # a preInlet run's file: its bc_state round-trips, on the device asked
+    # for and in the dtype asked for
+    bc = np.random.default_rng(5).standard_normal((3,) + SHAPE)
     os.makedirs(tmp_path / "b")
-    np.savez(tmp_path / "b" / "checkpoint.npz", bc_state=np.zeros((3,) + SHAPE), **arrays)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        HemoCell(case_path, device="cpu").load_checkpoint(str(tmp_path / "b"))
+    np.savez(tmp_path / "b" / "checkpoint.npz", bc_state=bc, **arrays)
+    state, _ = load_checkpoint(str(tmp_path / "b"), dtype=torch.float64, device="cpu")
+    assert state.bc_state.dtype == torch.float64
+    np.testing.assert_array_equal(state.bc_state.numpy(), bc)
+    save_checkpoint(str(tmp_path / "b2"), state)
+    back, _ = load_checkpoint(str(tmp_path / "b2"), device="cpu")
+    np.testing.assert_array_equal(back.bc_state.numpy(), bc)
+    np.testing.assert_array_equal(back.f.numpy(), state.f.numpy())
     # a legacy file: full populations under "f"
     legacy = dict(arrays)
     h = legacy.pop("h")

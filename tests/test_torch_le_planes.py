@@ -1,7 +1,7 @@
 """The corrected Lees-Edwards planes of kernel K7 (``lees_edwards.le_planes``,
-on the CPU its plain version, which the planes kernel of ``csrc/le_planes.cu``
-is held against on the card) against the JAX reference in f64 to 1e-12:
-with a scalar omega against ``_corrected_planes``, with an omega field
+on the CPU the plain versions of its two halves, which the planes' two
+kernels of ``csrc/le_planes.cu`` are held against on the card) against the
+JAX reference in f64 to 1e-12: with a scalar omega against ``_corrected_planes``, with an omega field
 against the JAX collision of the whole box and ``corrected_planes_from_pair``
 on its two wrap planes (the JAX ``_corrected_planes`` takes a scalar omega
 only).  Displacements with and without a fraction, negative, beyond the box
@@ -70,10 +70,13 @@ def test_fraction_near_one_is_kept_apart_from_the_next_node():
 
 
 def test_cpu_wrapper_counts_one_plain_call_and_no_launch():
+    """The planes are the pair's two wrappers: on the CPU one plain call of
+    each and no launch."""
     f, force, _ = _inputs(seed=13)
-    before = tle.le_planes.plain_calls, tle.le_planes.launches
+    halves = (tle.le_pair, tle.le_planes_from_pair)
+    before = [(w.plain_calls, w.launches) for w in halves]
     tle.le_planes(torch.tensor(f), torch.tensor(force), 1.0, torch.tensor(2.5), U)
-    assert (tle.le_planes.plain_calls, tle.le_planes.launches) == (before[0] + 1, before[1])
+    assert [(w.plain_calls, w.launches) for w in halves] == [(c + 1, n) for c, n in before]
 
 
 def test_split_displacement():

@@ -243,16 +243,17 @@ def _assert_matches_jax_shardmap(out):
 
 def test_unsupported_configurations_raise():
     """What the sharded step does not cover raises at build, before any
-    collective: a 2-D mesh, Lees-Edwards, interior viscosity (an omega
-    field), a field body force, and X not divisible by the ranks."""
+    collective: a 2-D mesh, Lees-Edwards with walls, a field body force,
+    and X not divisible by the ranks."""
     from hemocell_tpu_torch.parallel import XMesh, build_shardmap_step
 
     cfg, _ = _port_case("cepac")
+    walled, _ = _port_case("walled")
     mesh = XMesh(group=None, rank=0, size=2, device=torch.device("cpu"), backend="gloo")
     bad = {
         "2-D": (cfg, dataclasses.replace(mesh, axis_names=("x", "y"))),
-        "Lees-Edwards": (dataclasses.replace(cfg, lees_edwards_velocity=1e-3), mesh),
-        "omega field": (dataclasses.replace(cfg, omega=torch.ones(cfg.shape)), mesh),
+        "Lees-Edwards with walls": (dataclasses.replace(walled, lees_edwards_velocity=1e-3),
+                                    mesh),
         "field body force": (dataclasses.replace(cfg, body_force=np.zeros((3,) + cfg.shape)),
                              mesh),
         "not divisible": (cfg, dataclasses.replace(mesh, size=3)),

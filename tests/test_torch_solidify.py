@@ -246,15 +246,21 @@ def test_facade_reads_interior_viscosity_from_the_material_xml(chamber_dir):
     assert (thc.interior_every, thc.interior_entire_every) == (10, 100)
 
 
-def test_sharded_runner_refuses_interior_viscosity_and_solidify():
+def test_sharded_runner_refuses_solidify_with_lees_edwards():
+    """Solidify and interior viscosity ride the x mesh; solidify under
+    Lees-Edwards shear (an all-fluid box) stays refused, as in the
+    reference."""
     from hemocell_tpu_torch.parallel import XMesh, build_shardmap_step
     from hemocell_tpu_torch.parallel.sharded_step import sharded_unsupported_reason
 
     _, _, tcfg, _ = _plt_setup()
     mesh = XMesh(group=None, rank=0, size=2, device=torch.device("cpu"), backend="gloo")
-    for cfg, what in ((dataclasses.replace(tcfg, solidify_every=0, interior_every=2),
-                       "interior viscosity"), (tcfg, "solidify")):
-        reason = sharded_unsupported_reason(cfg, mesh)
-        assert reason is not None and what in reason and "10c" in reason
-        with pytest.raises(ValueError, match="does not cover"):
-            build_shardmap_step(cfg, mesh)
+    for cfg in (dataclasses.replace(tcfg, solidify_every=0, interior_every=2), tcfg,
+                dataclasses.replace(tcfg, interior_every=2)):
+        assert sharded_unsupported_reason(cfg, mesh) is None
+    cfg = dataclasses.replace(tcfg, flags=torch.zeros_like(tcfg.flags),
+                              lees_edwards_velocity=1e-3)
+    reason = sharded_unsupported_reason(cfg, mesh)
+    assert reason is not None and "solidify with Lees-Edwards" in reason
+    with pytest.raises(ValueError, match="does not cover"):
+        build_shardmap_step(cfg, mesh)
