@@ -240,11 +240,37 @@ Then the preInlet and the x mesh's features:
      equal in the populations, the omega field, the runtime flags, the
      binding sites, alive and the live cells' positions; leesedwards128,
      its cells across the wrap, within 1e-6 of the populations and 1e-3
-     lu.
+     lu;
+ 31. in the same group of one: the owner-computes runner
+     (parallel/owner_step.py; its cells in per-rank tables, K2 on the
+     E-extended grid, K3 from the E-extended velocity, K1 in halo mode, K5
+     over own and foreign tables, K6 with its two-hop halos): pipeflow30
+     (phase 4's state) and the suspension128 with repulsion and CEPAC, 20
+     iterations of each against the single device with the cells near the
+     x wrap dead, bitwise (the populations, CEPAC, alive, the live cells'
+     positions), 20 more with every host sync an error
+     (torch.cuda.set_sync_debug_mode) and no capacity violation; K2, K3,
+     K1 in halo mode and K6 on one step's operands at the owner's shapes
+     (K2/K3 on [3, 271, 56, 56] and [3, 149, 128, 128], K6 on [19, 130,
+     128, 128]) against their plain versions at phase 6's tolerances;
+     then 500 (pipeflow30) and 200 (suspension128) iterations
+     with exact counts, MLUPS and a profiler window (busy us/it, idle
+     share, launches an iteration), beside the replicated sharded runner on
+     the same state;
+ 32. pipeflow30 on a 1x1 (x, y) mesh (the y axis a ring of one), 200
+     iterations through the 2-D sharded step (y ghost columns, the
+     collector column, K1 in halo mode on [19, 248, 58, 56]) and through
+     the owner runner (its grid E-extended in y too), each with every host
+     sync an error, exact counts, bitwise equal to the single device with
+     the cells near the x wrap dead; the kernels at both paths' shapes
+     against their plain versions as in phase 31 (K2/K3 on [3, 271, 79,
+     56] and [3, 249, 57, 56], K1 on [19, 248, 58, 56], K4 exactly on
+     [249, 57, 56] with the owned mask).
 
 Then the speed gates in sum, the ``kernels`` JSON line (all sixteen: the
-twelve kernels, K7's two planes kernels, and the two halo modes; with the speed gates, phase 24's I/O times and the rates of
-phases 25-26 and 28), the card, and as the last line
+twelve kernels, K7's two planes kernels, and the two halo modes; with the speed gates, phase 24's I/O times, the rates of
+phases 25-26, 28 and 31, and the rows of phases 31-32 under
+``at_path_shapes``), the card, and as the last line
 ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py   (from the repository root, one GPU)
@@ -4205,6 +4231,342 @@ def phase_x_mesh_features(smi, mesh, feat, le_case):
     return by_path
 
 
+OWNER_PIPE_ITERATIONS = 500
+OWNER_SUSP_ITERATIONS = 200
+XY_ITERATIONS = 200
+
+
+def no_sync(fn):
+    """fn() with every host synchronisation an error
+    (``torch.cuda.set_sync_debug_mode``): True and the result, or False and
+    the error's first line."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    except RuntimeError as e:
+        return False, str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return True, out
+
+
+def operands_of_one_step(advance, targets):
+    """The operands of the first call of each kernel wrapper of
+    ``targets`` (key -> (module, attribute)) made by ``advance()``, cloned:
+    key -> (args, kwargs).  The wrappers are restored after."""
+    import torch
+
+    def cl(v):
+        if torch.is_tensor(v):
+            return v.clone()
+        if isinstance(v, (list, tuple)):
+            return type(v)(cl(x) for x in v)
+        if isinstance(v, dict):
+            return {k: cl(x) for k, x in v.items()}
+        return v
+
+    seen, saved = {}, []
+    for key, (mod, attr) in targets.items():
+        orig = getattr(mod, attr)
+
+        def wrap(*a, _orig=orig, _key=key, **k):
+            if _key not in seen:
+                seen[_key] = (cl(a), cl(k))
+            return _orig(*a, **k)
+
+        # a wrapper counts on the module's name for itself, now this one
+        wrap.launches = wrap.plain_calls = 0
+        saved.append((mod, attr, orig))
+        setattr(mod, attr, wrap)
+    try:
+        advance()
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    return seen
+
+
+def kernels_at_path_shapes(tag, label, advance, two_d_sharded=False):
+    """Each kernel wrapper that one step of a distributed path calls (K2,
+    K3, K1 in halo mode, K6 where the case has CEPAC, K4 on the 2-D
+    sharded step), called again on that step's operands at the path's own
+    shapes and held against its plain version on them: K2 within 1e-5 of
+    its largest value (fixed-point sums), K1-halo, K3 and K6 within 1e-6,
+    K4 exactly.  Returns name -> {label: row}."""
+    import torch
+
+    from hemocell_tpu_torch.dynamics import cell_index
+    from hemocell_tpu_torch.fluid import advection_diffusion as ad
+    from hemocell_tpu_torch.fluid import sharded_pallas
+    from hemocell_tpu_torch.fluid.halo import stream_collide_halo_plain
+    from hemocell_tpu_torch.fluid.stream_collide import stream_collide_halo
+    from hemocell_tpu_torch.ibm import coupling, kernels
+
+    targets = {"spread": (kernels, "spread"), "interp": (kernels, "interp"),
+               "stream_collide_halo": (sharded_pallas, "stream_collide"),
+               "ad_stream_collide": (ad, "ad_stream_collide")}
+    if two_d_sharded:
+        targets["wall_hit_cells"] = (kernels, "wall_hit_cells")
+    ops = operands_of_one_step(advance, targets)
+    rows = {}
+
+    def row(name, out, ref, tol, shape, call):
+        err = float((out.double() - ref.double()).abs().max())
+        ms = time_ms(call, 20)
+        print(f"{tag} {label}: {name} at {list(shape)}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+              f"against its plain version, {ms:.4f} ms", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{label}: {name} at {list(shape)} disagrees with its plain "
+                                 f"version ({err:.3e} > {tol:.3e})")
+        rows[name] = {label: dict(shape=list(shape), max_abs_err=err, tol=tol, ms=ms)}
+
+    a, k = ops["spread"]
+    ref = coupling.spread_forces(*a, **k)
+    row("spread", kernels.spread(*a, **k), ref, 1e-5 * float(ref.abs().max()),
+        ref.shape, lambda: kernels.spread(*a, **k))
+    a, k = ops["interp"]
+    row("interp", kernels.interp(*a, **k), coupling.interp_velocity(*a, **k), 1e-6,
+        a[0].shape, lambda: kernels.interp(*a, **k))
+    a, k = ops["stream_collide_halo"]
+    f, force, omega, flags, bc, rho0 = (list(a) + [None] * 6)[:6]
+    halos = k["halos"]
+    row("stream_collide_halo", stream_collide_halo(f, force, omega, flags, bc, rho0, halos),
+        stream_collide_halo_plain(f, force, omega, flags, bc, rho0, halos), 1e-6, f.shape,
+        lambda: stream_collide_halo(f, force, omega, flags, bc, rho0, halos))
+    if "ad_stream_collide" in ops:
+        a, k = ops["ad_stream_collide"]
+        row("ad_stream_collide", ad.ad_stream_collide(*a, **k),
+            ad.ad_stream_collide_plain(*a, **k), 1e-6, a[0].shape,
+            lambda: ad.ad_stream_collide(*a, **k))
+    if two_d_sharded:
+        a, k = ops["wall_hit_cells"]
+        positions, flags, owned = (list(a) + [k.get("owned")])[:3]
+        counts = tuple((p.shape[0], p.shape[1]) for p in positions)
+        n_cells = sum(nc for nc, _ in counts)
+        ref = coupling.wall_hit_cells(torch.cat([p.reshape(-1, 3) for p in positions]),
+                                      cell_index(counts, flags.device), flags, n_cells, owned)
+        row("wall_hit_cells", kernels.wall_hit_cells(positions, flags, owned), ref, 0.0,
+            flags.shape, lambda: kernels.wall_hit_cells(positions, flags, owned))
+    return rows
+
+
+def merge_rows(into, rows):
+    for name, by_label in rows.items():
+        into.setdefault(name, {}).update(by_label)
+
+
+def owner_versus(tag, name, cfg, state, mesh, n_cmp):
+    """The owner runner at world size 1 on ``mesh`` against the single
+    device: ``n_cmp`` iterations of each from ``state`` with the cells near
+    the x wrap dead (``away_from_the_x_wrap``), bitwise (the populations,
+    CEPAC, alive and the live cells' positions); ``n_cmp`` more under the
+    sync check; the kernels at the path's shapes.  Returns the runner, the
+    shard of ``state`` (every cell), the checks and the kernels' rows."""
+    import torch
+
+    from hemocell_tpu_torch.dynamics import build_runner
+    from hemocell_tpu_torch.parallel import (build_owner_runner, gather_state, shard_state,
+                                             suggest_envelope)
+    from hemocell_tpu_torch.parallel.comm import has_y
+
+    env = suggest_envelope(state.cells, resort_every=1)
+    run = build_owner_runner(cfg, mesh, envelope=env, resort_every=1)
+    s0 = shard_state(clone_state(state), mesh)
+    away, n_dead = away_from_the_x_wrap(state)
+    single = build_runner(cfg)(clone_state(away), n_cmp)
+    out = gather_state(run(shard_state(clone_state(away), mesh), n_cmp), mesh)
+    d_f = float((out.f - single.f).abs().max())
+    live = [b.alive for b in single.cells]
+    d_pos = max((float((a.pos[m] - b.pos[m]).abs().max()) if m.any() else 0.0)
+                for a, b, m in zip(out.cells, single.cells, live))
+    bitwise = torch.equal(out.f, single.f) and all(
+        torch.equal(a.pos[m], b.pos[m]) for a, b, m in zip(out.cells, single.cells, live))
+    alive_eq = all(torch.equal(a.alive, b.alive) for a, b in zip(out.cells, single.cells))
+    d_cep = 0.0
+    if single.cepac is not None:
+        d_cep = float((out.cepac - single.cepac).abs().max())
+        bitwise = bitwise and torch.equal(out.cepac, single.cepac)
+    synced, res = no_sync(lambda: run.advance(clone_state(s0), n_cmp))
+    overflow = int(res[1]) if synced else -1
+    X, Y, Z = cfg.shape
+    Yg = Y + 2 * env + 1 if has_y(mesh) else Y
+    print(f"{tag} {name} through the owner runner (envelope {env} lu, extended grid "
+          f"{X + 2 * env + 1} x {Yg} x {Z}), {n_cmp} iterations against the single device "
+          f"({n_dead} cells near the x wrap set dead): bitwise {bitwise} | max|df| {d_f:.3e} "
+          f"| max|dpos| {d_pos:.3e} lu | max|dCEPAC| {d_cep:.3e} | alive equal {alive_eq} "
+          f"({sum(int(m.sum()) for m in live)} live) | {n_cmp} more with every host sync an "
+          f"error: {'none' if synced else res} | overflow count {overflow}", flush=True)
+    checks = {"bitwise equal to the single device": bitwise, "alive equal": alive_eq,
+              "no host sync in the steps": synced, "no capacity violation": overflow == 0}
+    rows = kernels_at_path_shapes(
+        tag, f"{name} owner", lambda: run.advance(clone_state(s0), cfg.particle_every))
+    return run, s0, checks, rows
+
+
+def timed_paths(tag, name, cfg, paths, n, want, smi):
+    """Each (label, run, state) of ``paths`` for n iterations with the
+    counts read around the run, then a profiler window; the owner runner's
+    counts must equal ``want``.  Returns the launches and the rates by
+    label."""
+    import torch
+
+    N = int(np.prod(cfg.shape))
+    launches, rates = {}, {}
+    for label, run, s0 in paths:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, counts, plain = counted(lambda: run(clone_state(s0), n))
+        dt = time.perf_counter() - t0
+        launches[label] = counts
+        finite = bool(torch.isfinite(out.f).all()) and all(
+            bool(torch.isfinite(cs.pos).all()) for cs in out.cells)
+        live = sum(int(cs.alive.sum()) for cs in out.cells)
+        print(f"{tag} {name} {label}: {n} iterations in {dt:.3f} s = {N * n / dt / 1e6:.1f} "
+              f"MLUPS, {dt * 1e6 / n:.1f} us/it wall on {smi} | {live} cells alive | "
+              f"launches {counts} | plain calls {plain}", flush=True)
+        if not (finite and live > 0 and not any(plain.values())):
+            raise AssertionError(f"{name} {label}: not finite, no live cell or a plain call")
+        box = [out]
+
+        def advance(k):
+            box[0] = run(box[0], k)
+
+        prof = phase_profile(f"{tag} {label}", advance, dt * 1e6 / n)
+        rates[f"{name} {label}"] = (dt * 1e6 / n,) + (prof or (None, None))
+        del out, box
+        torch.cuda.empty_cache()
+    full = dict.fromkeys(KERNEL_ORDER, 0)
+    full.update(want)
+    if launches["owner"] != full:
+        raise AssertionError(f"{name} owner: launches {launches['owner']}, expected {full}")
+    return launches, rates
+
+
+def phase_owner(smi, mesh, p30, susp_case):
+    """Phase 31: the owner-computes runner at world size 1 (an NCCL group
+    of one): pipeflow30 (``p30``: phase 4's configuration and state) for
+    500 iterations and the suspension128 with repulsion and CEPAC
+    (``susp_case``) for 200, each beside the replicated sharded runner on
+    the same state; before them 20 iterations of each against the single
+    device (bitwise, the cells near the x wrap dead), 20 more with every
+    host sync an error, and the kernels at the owner's shapes against
+    their plain versions.  Returns the launches by path, the rates and the
+    kernels' rows."""
+    import torch
+
+    from hemocell_tpu_torch.dynamics import build_step, initial_sim_state
+    from hemocell_tpu_torch.parallel import build_shardmap_runner
+
+    by_path, rates, rows = {}, {}, {}
+    cfg, state = p30
+    run, s0, checks, r = owner_versus("[31]", "pipeflow30", cfg, state, mesh, 20)
+    raise_failed("pipeflow30 owner against the single device", checks)
+    merge_rows(rows, r)
+    n = OWNER_PIPE_ITERATIONS
+    want = {"stream_collide_halo": n, "spread": n, "interp": n // cfg.particle_every}
+    if cfg.repulsion_constant > 0.0:
+        want["repulsion"] = n // cfg.repulsion_every
+    launches, r = timed_paths("[31]", "pipeflow30", cfg, [
+        ("owner", run, s0), ("replicated", build_shardmap_runner(cfg, mesh), s0)], n, want,
+        smi)
+    by_path["pipeflow30 owner"] = launches["owner"]
+    rates.update(r)
+    del run, s0
+    torch.cuda.empty_cache()
+
+    cfg, cells = susp_case
+    state = build_step(cfg)(initial_sim_state(cfg, list(cells)))
+    run, s0, checks, r = owner_versus("[31]", "suspension128", cfg, state, mesh, 20)
+    raise_failed("suspension128 owner against the single device", checks)
+    merge_rows(rows, r)
+    n = OWNER_SUSP_ITERATIONS
+    want = {"stream_collide_halo": n, "spread": n, "interp": n // cfg.particle_every,
+            "repulsion": n // cfg.repulsion_every, "ad_stream_collide": n}
+    launches, r = timed_paths("[31]", "suspension128", cfg, [
+        ("owner", run, s0), ("replicated", build_shardmap_runner(cfg, mesh), s0)], n, want,
+        smi)
+    by_path["suspension128 owner"] = launches["owner"]
+    rates.update(r)
+    return by_path, rates, rows
+
+
+def phase_xy_mesh(smi, mesh, p30):
+    """Phase 32: pipeflow30 on a 1x1 (x, y) mesh (the y axis a ring of one):
+    200 iterations through the 2-D sharded step (the tile's y ghost
+    columns, the collector column, K1 on [19, 248, 58, 56]) and through the
+    owner runner (the grid E-extended in y too), each against the single
+    device, bitwise with the cells near the x wrap dead (as in phase 30),
+    exact counts, no host sync; the kernels at each path's shapes against
+    their plain versions.  Returns the launches by path and the kernels'
+    rows."""
+    import torch
+
+    from hemocell_tpu_torch.dynamics import build_runner
+    from hemocell_tpu_torch.parallel import (build_owner_runner, build_shardmap_runner,
+                                             gather_state, shard_state, suggest_envelope,
+                                             xy_mesh)
+
+    mesh2 = xy_mesh(mesh, (1, 1))
+    cfg, state = p30
+    _, _, checks, rows = owner_versus("[32]", "pipeflow30 on the 1x1 mesh", cfg, state,
+                                      mesh2, 20)
+    raise_failed("pipeflow30 owner on the 1x1 mesh against the single device", checks)
+    state, n_dead = away_from_the_x_wrap(state)
+    n = XY_ITERATIONS
+    single = build_runner(cfg)(clone_state(state), n)
+    live = [b.alive for b in single.cells]
+    env = suggest_envelope(state.cells, resort_every=1)
+    by_path = {}
+    for label, run in (("sharded", build_shardmap_runner(cfg, mesh2)),
+                       ("owner", build_owner_runner(cfg, mesh2, envelope=env))):
+        s0 = shard_state(clone_state(state), mesh2)
+        advance = run.advance if label == "owner" else (lambda s, k, run=run: (run(s, k), 0))
+        advance(clone_state(s0), 1)  # the first call fills the caches of its constants
+        if label == "sharded":
+            merge_rows(rows, kernels_at_path_shapes(
+                "[32]", "pipeflow30 on the 1x1 mesh sharded",
+                lambda: advance(clone_state(s0), cfg.particle_every), two_d_sharded=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (synced, res), launches, plain = counted(lambda: no_sync(lambda: advance(s0, n)))
+        dt = time.perf_counter() - t0
+        if not synced:
+            raise AssertionError(f"pipeflow30 on the 1x1 mesh, {label}: a host sync: {res}")
+        out, overflow = res
+        out = gather_state(out, mesh2)
+        d_f = float((out.f - single.f).abs().max())
+        d_pos = max((float((a.pos[m] - b.pos[m]).abs().max()) if m.any() else 0.0)
+                    for a, b, m in zip(out.cells, single.cells, live))
+        alive_eq = all(torch.equal(a.alive, b.alive) for a, b in zip(out.cells, single.cells))
+        bitwise = torch.equal(out.f, single.f) and all(
+            torch.equal(a.pos[m], b.pos[m]) for a, b, m in zip(out.cells, single.cells, live))
+        N = int(np.prod(cfg.shape))
+        print(f"[32] pipeflow30 on a 1x1 (x, y) mesh through the {label} runner ({n_dead} "
+              f"cells near the x wrap set dead): {n} iterations in {dt:.3f} s = "
+              f"{N * n / dt / 1e6:.1f} MLUPS on {smi}, no host sync; against the single "
+              f"device: bitwise {bitwise} | max|df| {d_f:.3e} | max|dpos| {d_pos:.3e} lu | "
+              f"alive equal {alive_eq} ({sum(int(m.sum()) for m in live)} live) | overflow "
+              f"{int(overflow)} | launches {launches}", flush=True)
+        want = dict.fromkeys(KERNEL_ORDER, 0)
+        want.update({"stream_collide_halo": n, "spread": n,
+                     "interp": n // cfg.particle_every})
+        if label == "sharded":
+            want["wall_hit_cells"] = n
+        if cfg.repulsion_constant > 0.0:
+            want["repulsion"] = n // cfg.repulsion_every
+        raise_failed(f"pipeflow30 on the 1x1 mesh, {label} (expected {want})", {
+            "launch counts": launches == want, "no plain version": not any(plain.values()),
+            "bitwise equal to the single device": bitwise and alive_eq,
+            "no capacity violation": int(overflow) == 0})
+        by_path[f"pipeflow30 1x1 mesh {label}"] = launches
+        del out, s0
+        torch.cuda.empty_cache()
+    return by_path, rows
+
+
 def main() -> int:
     try:
         import torch
@@ -4238,6 +4600,7 @@ def main() -> int:
     by_path["pipeflow30"], wall_us_per_it = phase_pipeflow(hc, smi)
     phase_profile("[4]", hc.iterate, wall_us_per_it)
     repeat_run("[4b]", "pipeflow30", hc._runner, hc.local_state, 200)
+    p30 = (hc._step_cfg, clone_state(hc.local_state))  # for phases 31-32
     phase_small_reference()
     del hc
     torch.cuda.empty_cache()
@@ -4249,6 +4612,7 @@ def main() -> int:
     phase_suspension_repeat(susp)
     by_path["leesedwards128"] = phase_lees_edwards(susp, smi)
     le_case = (susp["le_cfg"], susp["cells"])  # for phase 30
+    susp_case = (susp["cepac_cfg"], susp["cells"])  # for phase 31
     susp_pos = susp["cells"][0].pos.reshape(-1, 3).clone()
     del susp
     torch.cuda.empty_cache()
@@ -4322,13 +4686,28 @@ def main() -> int:
         del pcase, pstate
         torch.cuda.empty_cache()
         by_path.update(phase_x_mesh_features(smi, mesh, feat, le_case))
+        del feat, le_case
+        torch.cuda.empty_cache()
+        print(f"[28-30] the preInlet and the x mesh's features: {time.time() - t28:.1f} s",
+              flush=True)
+        t31 = time.time()
+        owner_paths, owner_rates, path_rows = phase_owner(smi, mesh, p30, susp_case)
+        by_path.update(owner_paths)
+        rates.update(owner_rates)
+        del susp_case
+        torch.cuda.empty_cache()
+        xy_paths, xy_rows = phase_xy_mesh(smi, mesh, p30)
+        by_path.update(xy_paths)
+        merge_rows(path_rows, xy_rows)
+        for name, by_label in path_rows.items():
+            rows[name]["at_path_shapes"] = by_label
+        print(f"[31-32] the owner runner and the 1x1 (x, y) mesh: {time.time() - t31:.1f} s",
+              flush=True)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
         shutil.rmtree(pg_dir, ignore_errors=True)
-    del feat, le_case
-    print(f"[28-30] the preInlet and the x mesh's features: {time.time() - t28:.1f} s",
-          flush=True)
+    del p30
 
     # ``launches`` is the count of the first full-size path that runs the
     # kernel (K11 and K12, which no path runs: phase 20's comparisons, the
@@ -4341,7 +4720,8 @@ def main() -> int:
             "k1_ms_per_step", "k1_ms", "k10_ms", "k1_halo_ms", "at_pipe", "at_256", "by_k",
             "with_force_field", "gather_ms",
             "shape", "at_128", "with_omega_field", "capacity", "largest_slab", "overflow",
-            "device_launches_per_call", "uniform_force_from_device", "planes_max_abs_err")
+            "device_launches_per_call", "uniform_force_from_device", "planes_max_abs_err",
+            "at_path_shapes")
     kernels_line = {"kernels": []}
     for name in KERNEL_ORDER:
         per_path = {path: counts.get(name, 0) for path, counts in by_path.items()}
@@ -4365,7 +4745,7 @@ def main() -> int:
     print(f"speed gates: {len(SPEED_GATES) - len(missed)} of {len(SPEED_GATES)} below their "
           f"yardstick; not below: {missed}", flush=True)
     kernels_line["io_ms"] = io_times
-    # phases 25-26 and 28: wall us/it, device busy us/it and idle share by path
+    # phases 25-26, 28 and 31: wall us/it, device busy us/it and idle share by path
     kernels_line["paths_us_per_it"] = {path: dict(zip(("wall", "busy", "idle"), r))
                                        for path, r in rates.items()}
     print(json.dumps(kernels_line))

@@ -82,35 +82,39 @@ def _cells_inside_local(pos, tri, box):
     return anchor, (count % 2) == 1
 
 
-def interior_mask(pos, tri, alive, shape, box, x_origin=0, x_extent=None):
+def interior_mask(pos, tri, alive, shape, box, x_origin=0, x_extent=None, y_origin=0,
+                  y_extent=None):
     """Union of the interiors of the live cells on the periodic lattice.
 
     pos: [NC, NV, 3] unwrapped; tri: [NT, 3]; alive: [NC] bool.  Returns
     bool [X, Y, Z], or with ``x_origin``/``x_extent`` the rows
-    ``x_origin .. x_origin + x_extent - 1`` (mod X) of it, [x_extent, Y, Z].
+    ``x_origin .. x_origin + x_extent - 1`` (mod X) of it, [x_extent, Y, Z],
+    and likewise the columns of ``y_origin``/``y_extent`` (a 2-D tile).
     """
     X, Y, Z = (int(s) for s in shape)
     xe = X if x_extent is None else int(x_extent)
+    ye = Y if y_extent is None else int(y_extent)
     box = int(box)
     device = pos.device
     tri = torch.as_tensor(tri, device=device).long()
     NC = pos.shape[0]
     # inside-votes per node, with a pad cell at xe * Y * Z for the nodes
     # outside the rows asked for (no boolean indexing: no host sync)
-    votes = torch.zeros(xe * Y * Z + 1, dtype=torch.int32, device=device)
+    votes = torch.zeros(xe * ye * Z + 1, dtype=torch.int32, device=device)
     chunk = max(1, _CHUNK_ENTRIES // (tri.shape[0] * box * box))
     g = torch.arange(box, device=device)
     for c0 in range(0, NC, chunk):
         anchor, inside = _cells_inside_local(pos[c0: c0 + chunk], tri, box)
         inside = inside & alive[c0: c0 + chunk, None, None, None]
         nx = torch.remainder(anchor[:, 0, None] + g - int(x_origin), X)  # [B, box]
-        ny = torch.remainder(anchor[:, 1, None] + g, Y)
+        ny = torch.remainder(anchor[:, 1, None] + g - int(y_origin), Y)
         nz = torch.remainder(anchor[:, 2, None] + g, Z)
-        lin = ((nx[:, :, None, None] * Y + ny[:, None, :, None]) * Z
+        lin = ((nx[:, :, None, None] * ye + ny[:, None, :, None]) * Z
                + nz[:, None, None, :])
-        lin = torch.where((nx < xe)[:, :, None, None], lin, torch.full_like(lin, xe * Y * Z))
+        keep = (nx < xe)[:, :, None, None] & (ny < ye)[:, None, :, None]
+        lin = torch.where(keep, lin, torch.full_like(lin, xe * ye * Z))
         votes.index_add_(0, lin.reshape(-1), inside.reshape(-1).to(torch.int32))
-    return (votes[:-1] > 0).reshape(xe, Y, Z)
+    return (votes[:-1] > 0).reshape(xe, ye, Z)
 
 
 def omega_field_from_mask(mask, omega_bulk, omega_interior, dtype=torch.float32):
@@ -121,7 +125,7 @@ def omega_field_from_mask(mask, omega_bulk, omega_interior, dtype=torch.float32)
 
 
 def membrane_omega_update(om, pos, tri, alive, omega_interior, omega_bg, edge_mean_eq,
-                          shape, x_origin=0, x_extent=None):
+                          shape, x_origin=0, x_extent=None, y_origin=0, y_extent=None):
     """The cheap refresh at the membrane between full raycasts: each vertex
     classifies the 8 nodes of its cell by the sign of dot(node - vertex,
     outward normal); nodes within ``edge_mean_eq`` of a vertex flip to
@@ -129,13 +133,15 @@ def membrane_omega_update(om, pos, tri, alive, omega_interior, omega_bg, edge_me
     vertices claim a node, the nearest decides: the squared distance and
     the verdict are packed into one int32 key, ``floor(d2 * 1e6) * 2 +
     inside``, and the node takes the smallest key (``scatter_reduce``
-    "amin"; masked entries land on a pad cell at ``xe * Y * Z``).  Other
+    "amin"; masked entries land on a pad cell at ``xe * ye * Z``).  Other
     nodes keep ``om``.
 
-    om: [xe, Y, Z]; pos: [NC, NV, 3] unwrapped."""
+    om: [xe, ye, Z], the rows and columns from ``x_origin`` and
+    ``y_origin`` (mod X, Y); pos: [NC, NV, 3] unwrapped."""
     NC, NV, _ = pos.shape
     X, Y, Z = (int(s) for s in shape)
     xe = X if x_extent is None else int(x_extent)
+    ye = Y if y_extent is None else int(y_extent)
     dtype, device = om.dtype, om.device
     tri = torch.as_tensor(tri, device=device).long()
 
@@ -160,9 +166,10 @@ def membrane_omega_update(om, pos, tri, alive, omega_interior, omega_bg, edge_me
     fshape = constant((float(X), float(Y), float(Z)), dtype, device)
     ni = torch.remainder(node, fshape).to(torch.int32).long()
     xl = torch.remainder(ni[..., 0] - int(x_origin), X)
-    lin = (xl * Y + ni[..., 1]) * Z + ni[..., 2]
-    dump = xe * Y * Z
-    near = near & (xl < xe)
+    yl = torch.remainder(ni[..., 1] - int(y_origin), Y)
+    lin = (xl * ye + yl) * Z + ni[..., 2]
+    dump = xe * ye * Z
+    near = near & (xl < xe) & (yl < ye)
 
     key = torch.floor(d2 * 1.0e6).to(torch.int32) * 2 + inside.to(torch.int32)
     big = torch.iinfo(torch.int32).max
@@ -173,7 +180,7 @@ def membrane_omega_update(om, pos, tri, alive, omega_interior, omega_bg, edge_me
     touched = acc < big
     om_new = torch.where((acc % 2) == 1, torch.full_like(om.reshape(-1), float(omega_interior)),
                          torch.full_like(om.reshape(-1), float(omega_bg)))
-    return torch.where(touched, om_new, om.reshape(-1)).reshape(xe, Y, Z)
+    return torch.where(touched, om_new, om.reshape(-1)).reshape(xe, ye, Z)
 
 
 def interior_tau(viscosity_ratio: float, tau: float) -> float:

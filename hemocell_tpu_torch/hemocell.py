@@ -11,10 +11,15 @@ in the reference package's format.  The facade runs on ``device="cuda"``
 unless the caller passes ``device="cpu"``, and raises when CUDA is asked
 for and absent.
 
-``distribute()`` runs it on a 1-D x mesh of ranks (``parallel/``), one per
-card, as the reference runs under ``mpirun -n N``: each rank holds an
-x-slab of the lattice and every cell, and steps through the sharded
-runner.  The getters return global values on every rank.  Every rank calls
+``distribute()`` runs it on a mesh of ranks (``parallel/``: a 1-D x mesh
+or a 2-D (x, y) mesh), one per card, as the reference runs under ``mpirun
+-n N``: each rank holds an x-slab or (x, y) tile of the lattice and, between
+calls, every cell.  It steps through the owner-computes runner (each rank
+pays for the cells in its tile) where that covers the configuration and
+the tile widths, else through the sharded runner (vertices replicated), as
+the reference chooses; a call that overflows the owner runner's capacities
+runs again, and the run goes on, through the sharded runner.  The getters
+return global values on every rank.  Every rank calls
 the getters of the global state, ``write_output`` and ``save_checkpoint``
 (the gather is a collective); rank 0 writes the files.
 """
@@ -22,7 +27,6 @@ the getters of the global state, ``write_output`` and ``save_checkpoint``
 from __future__ import annotations
 
 import functools
-import logging
 import os
 from dataclasses import dataclass
 from typing import Optional
@@ -54,11 +58,11 @@ from .mechanics import (
     topology_device_arrays,
 )
 from .mesh import build_topology, construct_mesh, mirror_inner_edges
+from .parallel.owner_step import OwnerCapacityError
 from .utils import cellinfo
 from .utils.logfile import hlog, print_header
 from .utils.profiler import Profiler
 
-_log = logging.getLogger(__name__)
 
 # each model's template when add_cell_type names none
 _CONSTRUCT = {
@@ -142,9 +146,9 @@ class HemoCell:
         self._state: Optional[SimState] = None
         self._runner = None
         self._dirty = True
-        self._mesh = None  # the x mesh after distribute()
+        self._mesh = None  # the mesh after distribute()
         self._distributed_mode = "single"
-        self._owner_note_logged = False
+        self.particle_sharding = None  # "replicated" forces the sharded runner
         self.profiler = Profiler("hemocell")
         self.outdir = None
         self._outputs = {}  # per-type cell datasets (setOutputs)
@@ -422,21 +426,7 @@ class HemoCell:
             self._runner = build_runner(cfg)
             self._distributed_mode = "single"
         else:
-            from .parallel import build_shardmap_runner, sharded_unsupported_reason
-
-            if sum(cs.pos.shape[0] for cs in self.cell_states) > 0 \
-                    and not self._owner_note_logged:
-                # the reference picks its owner-computes runner here
-                _log.warning("distribute: owner-computes waits for its port; running the "
-                             "vertex-replicated sharded runner")
-                self._owner_note_logged = True
-            reason = sharded_unsupported_reason(cfg, self._mesh)
-            if reason is not None:
-                raise NotImplementedError(
-                    f"distribute: the sharded runner does not cover {reason}, and the "
-                    "reference's GSPMD runner has no counterpart in the port")
-            self._runner = build_shardmap_runner(cfg, self._mesh)
-            self._distributed_mode = "shardmap"
+            self._runner, self._distributed_mode = self._distributed_runner(cfg)
         if self._state is None:
             self._state = initial_sim_state(cfg, self.cell_states, rho0=self._rho0,
                                             u0=self._u0, cepac0=self._cepac0)
@@ -458,22 +448,74 @@ class HemoCell:
             # binding only on wall nodes next to the fluid inside the mask
             sites = torch.as_tensor(self._binding_sites)
             if self._mesh is not None:
-                from .parallel.sharding import slab
+                from .parallel.sharding import tile_of
 
-                x0, Xl = slab(self._mesh, sites.shape[0])
-                sites = sites[x0:x0 + Xl]
+                sites = tile_of(sites, self._mesh, 0)
             self._state = self._state._replace(
                 binding_mask=self._state.binding_mask & sites.to(self.device))
         self._dirty = False
 
-    def distribute(self, mesh=None):
-        """Run domain-decomposed over an x mesh of ranks (``parallel.XMesh``;
-        default: the mesh of this process's group, read from torchrun's
-        environment, on the facade's kind of device).  An existing state is
-        cut into this rank's slab; the next iteration builds the sharded
-        runner.  Returns the mesh."""
+    def _distributed_runner(self, cfg):
+        """(runner, mode) on the mesh, chosen as the reference's facade
+        chooses: the owner-computes runner when it covers the
+        configuration, the mesh and the tile widths, else (with the reason
+        logged) the sharded runner; where the reference would take its
+        GSPMD runner, raise."""
+        from .parallel import build_shardmap_runner, sharded_unsupported_reason
+        from .parallel import owner_step
+
+        mesh = self._mesh
+        n_cells = sum(cs.pos.shape[0] for cs in self.cell_states)
+        reason = None
+        if self.particle_sharding != "replicated" and n_cells > 0:
+            nxm, nym = mesh.axis_size("x"), mesh.axis_size("y")
+            X, Y = int(self.shape[0]), int(self.shape[1])
+            reason = owner_step.owner_unsupported_reason(cfg, n_cells)
+            if X % nxm or Y % nym:
+                reason = reason or f"X={X} not divisible by the mesh"
+            else:
+                resort = owner_step.auto_resort_every(
+                    sum(cs.pos.shape[0] * cs.pos.shape[1] for cs in self.cell_states),
+                    getattr(self.params, "u_lbm_max", 0.1) or 0.1)
+                env = owner_step.suggest_envelope(self.cell_states, resort_every=resort)
+                need = owner_step.required_slab_width(self.cell_states, cfg, env,
+                                                      resort_every=resort)
+                xl = X // nxm
+                if nxm < 2:
+                    reason = reason or "single-shard mesh"
+                elif xl < need or X - xl < 2 * env:
+                    reason = reason or f"slab width {xl} < required {need} (envelope {env})"
+                elif nym > 1:
+                    yl = Y // nym
+                    if yl < need or Y - yl < 2 * env:
+                        reason = reason or (f"y tile width {yl} < required {need} "
+                                            f"(envelope {env})")
+            if reason is None:
+                return (owner_step.build_owner_runner(cfg, mesh, envelope=env,
+                                                      resort_every=resort), "owner")
+        unsupported = sharded_unsupported_reason(cfg, mesh)
+        if reason is not None:
+            hlog.log(f"distribute: owner-computes particle sharding unavailable ({reason}); "
+                     f"falling back to the vertex-replicated "
+                     f"{'shard_map' if unsupported is None else 'GSPMD'} runner")
+        if unsupported is not None:
+            raise NotImplementedError(
+                f"distribute: the sharded runner does not cover {unsupported}, and the "
+                "reference's GSPMD runner has no counterpart in the port")
+        return build_shardmap_runner(cfg, mesh), "shardmap"
+
+    def distribute(self, mesh=None, particle_sharding=None):
+        """Run domain-decomposed over a mesh of ranks (``parallel.Mesh``, x or
+        (x, y); default: the x mesh of this process's group,
+        read from torchrun's environment, on the facade's kind of device).
+        An existing state is cut into this rank's tile; the next iteration
+        builds the runner: owner-computes by default where it covers the
+        run, the sharded runner otherwise or with ``particle_sharding=
+        "replicated"``.  Returns the mesh."""
         from .parallel import make_mesh, shard_state
 
+        if particle_sharding is not None:
+            self.particle_sharding = particle_sharding
         if mesh is None:
             mesh = make_mesh(self.device.type)
         self._mesh = mesh
@@ -508,7 +550,17 @@ class HemoCell:
         if self._dirty or self._runner is None:
             self._build()
         with self.profiler("iterate"):
-            self._state = self._runner(self._state, n)
+            try:
+                self._state = self._runner(self._state, n)
+            except OwnerCapacityError as e:
+                # the call's result is void and the state untouched: run it
+                # again through the sharded runner, as the reference's
+                # facade falls back, and keep that runner
+                hlog.log(f"distribute: {e}; falling back to the vertex-replicated shard_map "
+                         "runner")
+                self.particle_sharding = "replicated"
+                self._runner, self._distributed_mode = self._distributed_runner(self._step_cfg)
+                self._state = self._runner(self._state, n)
         self.iter += n
         self.cell_states = list(self._state.cells)
         return self._state
@@ -818,13 +870,15 @@ class HemoCell:
             jobs.append(functools.partial(write_cells_hdf5, self.outdir, self.iter, ct.name,
                                           positions=pos.reshape(-1, 3), datasets=datasets,
                                           triangles=tris))
-            # atomic_block: the x-slab a cell's centre lies in on a
+            # atomic_block: the rank whose tile a cell's centre lies in on a
             # distributed facade (the reference reports its block id)
             centers = pos.mean(axis=1)
             blk = np.zeros(nca, int)
             if self._mesh is not None:
-                blk = (np.mod(centers[:, 0], self.shape[0])
-                       // max(1, self.shape[0] // self._mesh.size)).astype(int)
+                nxm, nym = self._mesh.axis_size("x"), self._mesh.axis_size("y")
+                bx = np.mod(centers[:, 0], self.shape[0]) // max(1, self.shape[0] // nxm)
+                by = np.mod(centers[:, 1], self.shape[1]) // max(1, self.shape[1] // nym)
+                blk = (bx * nym + by).astype(int)
             jobs.append(functools.partial(write_cell_csv, self.outdir, self.iter, ct.name,
                                           self._csv_rows(st, k, blk)))
         return jobs

@@ -1,10 +1,12 @@
-"""The coupled IB-LBM step on a 1-D x mesh of ranks, vertices replicated.
+"""The coupled IB-LBM step on a mesh of ranks, vertices replicated.
 
 Counterpart of ``hemocell_tpu/parallel/sharded_step.py``
-(``build_shardmap_step`` / ``build_shardmap_runner``) on a 1-D mesh: each
-rank runs this step on its x-slab of the lattice ``[x0, x0 + Xl)`` and holds
-every cell, and the ranks meet only in the collectives of
-``parallel/comm.py``.  Per phase of ``dynamics.build_step``:
+(``build_shardmap_step`` / ``build_shardmap_runner``): each rank runs this
+step on its x-slab of the lattice ``[x0, x0 + Xl)`` (a 1-D x mesh) or its
+tile ``[x0, x0 + Xl) x [y0, y0 + Yl)`` (a 2-D (x, y) mesh) and holds every
+cell, and the ranks meet only in the collectives of ``parallel/comm.py``.
+Per phase of ``dynamics.build_step`` (as on the x mesh; a 2-D mesh adds
+what follows the list):
 
   1. repulsion: inter-cell repulsion (K5) and boundary repulsion run
      replicated, on every rank, with the carried force on off-steps;
@@ -44,6 +46,15 @@ and the preInlet's ``bc_state`` is a per-call operand of the fluid step
 (``fluid/sharded_pallas.py``).  What stays refused is in
 ``sharded_unsupported_reason``.
 
+On a 2-D mesh a vertex is owned by the tile its base node lies in; K2 runs
+on the [3, Xl+1, Yl+1, Z] tile extended by a collector row and column,
+whose row goes to the next rank along x first and whose column then goes
+along y, so that a corner deposit rides both hops; the extended velocity,
+flags and fields of K3 and K4 come the same two hops (y first, then x on
+the y-extended block); K1 steps the tile with y ghost columns
+(``fluid/sharded_pallas.py``); CEPAC (K6), interior viscosity and solidify
+read y-extended operands and restrict their updates to the tile.
+
 Every cell array stays bitwise identical on every rank: the replicated
 phases are deterministic functions of replicated inputs, and what a rank
 computes alone reaches the others only through an ``all_reduce`` in which
@@ -70,15 +81,14 @@ from ..fluid.stream_collide import stream_collide_halo
 from ..fluid.tresca import tresca_field
 from ..ibm import kernels
 from . import comm
-from .sharding import shard_step_config, slab
+from .sharding import shard_step_config, tile
 
 def sharded_unsupported_reason(cfg: StepConfig, mesh=None) -> Optional[str]:
     """Why the sharded step does not cover ``cfg`` on ``mesh``, or None:
-    the reference's ``shardmap_supported`` on a 1-D mesh, and X divisible
-    by the ranks."""
-    if mesh is not None and len(mesh.axis_names) > 1:
-        return ("a 2-D device mesh (only the 1-D x mesh is ported; ROADMAP Queue 1 item 7, "
-                "its 2-D part)")
+    the reference's ``shardmap_supported`` on a 1-D or 2-D mesh, and X (Y)
+    divisible by the ranks along x (y)."""
+    if mesh is not None and len(mesh.axis_names) > 2:
+        return "a mesh of more than two axes"
     if cfg.lees_edwards_velocity is not None:
         # the sheared box is all fluid, and its planes take no CEPAC lattice
         # and no interior-viscosity field (as the reference's)
@@ -88,19 +98,27 @@ def sharded_unsupported_reason(cfg: StepConfig, mesh=None) -> Optional[str]:
             return "Lees-Edwards with CEPAC"
         if bool(torch.as_tensor(cfg.flags).any()):
             return "Lees-Edwards with walls"
+        if mesh is not None and len(mesh.axis_names) > 1:
+            # the planes are gathered along x; a y axis would need a second
+            return "Lees-Edwards on a 2-D mesh"
         if cfg.solidify_every:
             return "solidify with Lees-Edwards"
     if is_field(cfg.body_force):
         return "a field body force (only a uniform [3] body force is sharded)"
-    if mesh is not None and int(cfg.shape[0]) % mesh.size:
-        return f"X={int(cfg.shape[0])} not divisible by {mesh.size} ranks"
+    if mesh is not None:
+        ranks = ((mesh.axis_size("x"), mesh.axis_size("y")) if len(mesh.axis_names) > 1
+                 else (mesh.size, 1))
+        for axis, L, n in zip("XY", cfg.shape, ranks):
+            if int(L) % n:
+                return f"{axis}={int(L)} not divisible by {n} ranks"
     return None
 
 
-def _localize(pos, x0, Xl, shape):
-    """Slab-local positions of the vertices whose base node lies in the
-    slab, and the mask of those: [P,3], [P] bool.  The rest are parked at
-    x = Xl + 0.5 of the extended slab (they carry zero payload)."""
+def _localize(pos, x0, Xl, shape, y0=0, Yl=None):
+    """Tile-local positions of the vertices whose base node lies in the
+    tile, and the mask of those: [P,3], [P] bool.  The rest are parked at
+    x = Xl + 0.5 of the extended tile (and y = 0.5 on a 2-D mesh, ``Yl``
+    given); they carry zero payload."""
     fshape = constant(tuple(float(s) for s in shape), pos.dtype, pos.device)
     pos_w = torch.remainder(pos, fshape)
     # the remainder of a tiny negative coordinate rounds up to the box
@@ -108,14 +126,19 @@ def _localize(pos, x0, Xl, shape):
     pos_w = torch.where(pos_w >= fshape, pos_w - fshape, pos_w)
     xl = pos_w[:, 0] - x0  # exact: x0 is an integer below pos_w
     inside = (xl >= 0) & (xl < Xl)
+    if Yl is not None:
+        yl = pos_w[:, 1] - y0
+        inside = inside & (yl >= 0) & (yl < Yl)
+        pos_w[:, 1] = torch.where(inside, yl, 0.5)
     pos_w[:, 0] = torch.where(inside, xl, Xl + 0.5)
     return pos_w, inside
 
 
 def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]:
-    """This rank's ``step(state) -> state`` on ``mesh`` (an ``XMesh``);
-    ``cfg`` is the global configuration and ``state`` the rank's
-    (``sharding.shard_state``).  Raises for what it does not cover."""
+    """This rank's ``step(state) -> state`` on ``mesh`` (an x or an (x, y)
+    ``Mesh``); ``cfg`` is the global configuration and ``state`` the
+    rank's (``sharding.shard_state``).  Raises for what it does not
+    cover."""
     reason = sharded_unsupported_reason(cfg, mesh)
     if reason is not None:
         raise ValueError(f"the sharded step does not cover {reason}")
@@ -123,7 +146,8 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
     dtype = cfg.dtype
     shape = tuple(int(s) for s in cfg.shape)
     X, Y, Z = shape
-    x0, Xl = slab(mesh, X)
+    two_d = comm.has_y(mesh)
+    x0, Xl, y0, Yl = tile(mesh, X, Y)
     lcfg = shard_step_config(cfg, mesh)
 
     flags_g = torch.as_tensor(cfg.flags)
@@ -142,58 +166,66 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
     le_u = cfg.lees_edwards_velocity
     fshape = constant(tuple(float(s) for s in shape), dtype, device)
 
-    # static rows, exchanged once: the IBM grid is the slab plus the next
-    # rank's row 0; CEPAC's operands get one row on each side
-    flags_l = lcfg.flags
-    flags_ext_static = torch.cat([flags_l, comm.from_next(mesh, flags_l, 0)], dim=0)
-    cep_mask = cep_value = None
-    if cfg.cepac_tau is not None and lcfg.cepac_dirichlet_mask is not None:
-        (m_lo, m_hi), (v_lo, v_hi) = comm.halo_rows(
-            mesh, [lcfg.cepac_dirichlet_mask, lcfg.cepac_dirichlet_value], [0, 0])
-        cep_mask = torch.cat([m_lo, lcfg.cepac_dirichlet_mask, m_hi], dim=0)
-        cep_value = torch.cat([v_lo, lcfg.cepac_dirichlet_value, v_hi], dim=0)
-    fluid_step = _sp.make_sharded_stream_collide(mesh, flags_g, cfg.bc_velocity,
-                                                 cfg.bc_density, dtype=dtype)
+    def ibm_ext(a, d):
+        """The tile's field (x along ``d``) with the next rank's first row
+        and, on a 2-D mesh, first column: y first, then x on the
+        y-extended block, so that the corner is the diagonal neighbour's."""
+        if two_d:
+            a = torch.cat([a, comm.from_next(mesh, a, d + 1, "y")], dim=d + 1)
+        return torch.cat([a, comm.from_next(mesh, a, d, "x")], dim=d)
 
     def ext(fields, dims):
-        """Each field joined with the previous rank's last and the next
-        rank's first x row (one exchange for all)."""
-        return [torch.cat([lo, a, hi], dim=d)
-                for (lo, hi), a, d in zip(comm.halo_rows(mesh, fields, dims), fields, dims)]
+        """Each field with a ghost row on each side along x (and y on a 2-D
+        mesh, two hops)."""
+        return comm.extend_xy(mesh, fields, dims)
+
+    def own(pos):
+        return _localize(pos, x0, Xl, shape, y0, Yl if two_d else None)
+
+    # static rows, exchanged once: the IBM grid is the tile plus the next
+    # ranks' first row (and column); CEPAC's operands get a ghost a side
+    flags_l = lcfg.flags
+    flags_ext_static = ibm_ext(flags_l, 0)
+    cep_mask = cep_value = None
+    if cfg.cepac_tau is not None and lcfg.cepac_dirichlet_mask is not None:
+        cep_mask, cep_value = ext([lcfg.cepac_dirichlet_mask, lcfg.cepac_dirichlet_value],
+                                  [0, 0])
+    fluid_step = _sp.make_sharded_stream_collide(mesh, flags_g, cfg.bc_velocity,
+                                                 cfg.bc_density, dtype=dtype)
+    tile_kw = dict(x_origin=x0, x_extent=Xl, y_origin=y0, y_extent=Yl)
 
     def omega_raycast(cells):
-        """The slab's omega field from a raycast of the membranes."""
-        om = torch.full((Xl, Y, Z), float(cfg.omega), dtype=dtype, device=device)
+        """The tile's omega field from a raycast of the membranes."""
+        om = torch.full((Xl, Yl, Z), float(cfg.omega), dtype=dtype, device=device)
         for tc, cs in zip(cfg.types, cells):
             if tc.omega_interior is not None:
                 m = interior_mask(cs.pos, tc.topo["tri"], cs.alive, shape, tc.interior_box,
-                                  x_origin=x0, x_extent=Xl)
+                                  **tile_kw)
                 om = om.masked_fill(m, tc.omega_interior)
         return om
 
     def omega_membrane(om, cells):
-        """The membrane sweep of the slab's omega field."""
+        """The membrane sweep of the tile's omega field."""
         for tc, cs in zip(cfg.types, cells):
             if tc.omega_interior is not None:
                 om = membrane_omega_update(om, cs.pos, tc.topo["tri"], cs.alive,
                                            tc.omega_interior, cfg.omega,
-                                           tc.topo["edge_mean_eq"], shape, x_origin=x0,
-                                           x_extent=Xl)
+                                           tc.topo["edge_mean_eq"], shape, **tile_kw)
         return om
 
     def solidify(cells, flags_s, binding, f_new, force_view, omega_now):
-        """Phase A: harden the tagged cells' interiors in the slab.  Phase
+        """Phase A: harden the tagged cells' interiors in the tile.  Phase
         B: tag the cells with an owned vertex within ``distance_threshold``
         of a binding site whose Tresca stress exceeds ``shear_threshold``,
-        the 27 neighbours read from the slab with a ghost row on each side;
-        the hits summed over the ranks."""
+        the 27 neighbours read from the tile with a ghost row (and column)
+        on each side; the hits summed over the ranks."""
         for k, (tc, cs) in enumerate(zip(cfg.types, cells)):
             if not tc.solidify:
                 continue
             tagged = cs.solidify if cs.solidify is not None else torch.zeros_like(cs.alive)
             marked = tagged & cs.alive
             interior = interior_mask(cs.pos, tc.topo["tri"], marked, shape, tc.interior_box,
-                                     x_origin=x0, x_extent=Xl)
+                                     **tile_kw)
             interior = interior & (flags_s == FLAG_FLUID)
             flags_s = flags_s.masked_fill(interior, FLAG_WALL)
             binding = binding | interior
@@ -210,14 +242,21 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
             lx = torch.remainder(node[:, 0], X) - x0
             owned = (lx >= 0) & (lx < Xl)
             lx = torch.clamp(lx, 0, Xl - 1)
-            nn_x = lx[:, None] + nbr[None, :, 0] + 1  # rows of the extended slab
-            nn_y = torch.remainder(node[:, 1, None] + nbr[None, :, 1], Y)
+            nn_x = lx[:, None] + nbr[None, :, 0] + 1  # rows of the extended tile
+            if two_d:
+                ly = torch.remainder(node[:, 1], Y) - y0
+                owned = owned & (ly >= 0) & (ly < Yl)
+                ly = torch.clamp(ly, 0, Yl - 1)
+                nn_y = ly[:, None] + nbr[None, :, 1] + 1  # columns of the extended tile
+                gy = y0 + nn_y - 1
+            else:
+                nn_y = gy = torch.remainder(node[:, 1, None] + nbr[None, :, 1], Y)
             nn_z = torch.remainder(node[:, 2, None] + nbr[None, :, 2], Z)
             b = b_ext[nn_x, nn_y, nn_z] > 0
             t = t_ext[nn_x, nn_y, nn_z]
             # global neighbour coordinates: the minimum image folds x0 - 1
             # and X alike
-            nn_g = torch.stack([x0 + nn_x - 1, nn_y, nn_z], dim=-1).to(dtype)
+            nn_g = torch.stack([x0 + nn_x - 1, gy, nn_z], dim=-1).to(dtype)
             dv = p[:, None, :] - nn_g
             dv = dv - torch.round(dv / fshape) * fshape
             dist = torch.linalg.vector_norm(dv, dim=-1)
@@ -237,7 +276,7 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         flags_now, flags_ext, flags_op = flags_l, flags_ext_static, None
         if cfg.solidify_every and state.flags_state is not None:
             flags_now = flags_op = state.flags_state
-            flags_ext = torch.cat([flags_now, comm.from_next(mesh, flags_now, 0)], dim=0)
+            flags_ext = ibm_ext(flags_now, 0)
 
         # ---- 0: flatten (replicated) ------------------------------------
         if have_vertices:
@@ -263,7 +302,7 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
             for k, part in enumerate(_split(frep, counts)):
                 cells[k] = cells[k]._replace(force_repulsion=part)
 
-        # ---- 2: spread on the extended slab, collector row to next ------
+        # ---- 2: spread on the extended tile, collector row (column) to next
         bf, bf_uniform = bf_cfg, bf_cfg_uniform
         if state.body_force_state is not None:
             bf_uniform = torch.as_tensor(state.body_force_state).to(dtype=dtype)
@@ -279,21 +318,27 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
                 le_w = torch.floor(pos_flat[:, 2] / Z)
                 x_eff = pos_flat[:, 0] - le_w * float(state.le_displacement)
                 pos_lat = torch.stack([x_eff, pos_flat[:, 1], pos_flat[:, 2]], dim=1)
-            pos_local, inside = _localize(pos_lat, x0, Xl, shape)
+            pos_local, inside = own(pos_lat)
             act_local = active * inside.to(dtype)
             f_vert = torch.cat([cs.force.reshape(-1, 3) for cs in cells])
             field_ext = kernels.spread(pos_local, f_vert, act_local, flags_ext, cfg.f_limit,
                                        force_extra=frep)
+            # x first, then y on the x-merged field: a corner deposit rides
+            # both hops to the diagonal neighbour
             from_prev = comm.to_next(mesh, field_ext[:, Xl:])
             force = field_ext[:, :Xl].contiguous()
             force[:, 0] += from_prev[:, 0]
+            if two_d:
+                from_prev = comm.to_next(mesh, force[:, :, Yl:], "y")
+                force = force[:, :, :Yl].contiguous()
+                force[:, :, 0] += from_prev[:, :, 0]
             if bf is not None:
                 force = force + bf
             force_arg = force_view = force
         else:
             force_arg, force_view = bf_uniform, bf
 
-        # ---- 2b: interior viscosity on the slab -------------------------
+        # ---- 2b: interior viscosity on the tile -------------------------
         omega_now = omega
         omega_field_new = state.omega_field
         if cfg.interior_every and state.omega_field is not None:
@@ -331,16 +376,16 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         else:
             f_new = fluid_step(state.f, force_arg, omega_now, flags_op, state.bc_state)
 
-        u_ext = None  # the velocity on the slab and the next rank's row 0
+        u_ext = None  # the velocity on the IBM grid of the tile
 
         def velocity_ext():
             nonlocal u_ext
             if u_ext is None:
                 _, u_l = lbm.macroscopic(f_new, force_view)
-                u_ext = torch.cat([u_l, comm.from_next(mesh, u_l, 1)], dim=1)
+                u_ext = ibm_ext(u_l, 1)
             return u_ext
 
-        # ---- 3b: CEPAC on the slab extended by a row on each side --------
+        # ---- 3b: CEPAC on the tile extended by a ghost on each side ------
         cepac_new = state.cepac
         if cfg.cepac_tau is not None and state.cepac is not None:
             fields, dims = [f_new, state.cepac], [1, 1]
@@ -350,8 +395,11 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
             force_e = exts[2] if len(exts) > 2 else force_view
             _, u_e = lbm.macroscopic(exts[0], force_e)
             cepac_new = ad.ad_stream_collide(exts[1], u_e, cfg.cepac_tau, cep_mask,
-                                             cep_value)[:, 1:-1].contiguous()
-            u_ext = u_e[:, 1:].contiguous()
+                                             cep_value)[:, 1:-1]
+            u_ext = u_e[:, 1:]
+            if two_d:
+                cepac_new, u_ext = cepac_new[:, :, 1:-1], u_ext[:, :, 1:]
+            cepac_new, u_ext = cepac_new.contiguous(), u_ext.contiguous()
 
         # ---- 4: interpolate on the owner rank, then all_reduce ----------
         if have_vertices and it % cfg.particle_every == 0:
@@ -363,13 +411,13 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
             for k, part in enumerate(_split(vel_flat, counts)):
                 cells[k] = cells[k]._replace(vel=part)
 
-        # ---- 4b: solidify on the slab -----------------------------------
+        # ---- 4b: solidify on the tile -----------------------------------
         flags_new, binding_new = state.flags_state, state.binding_mask
         if (cfg.solidify_every and state.flags_state is not None
                 and it % cfg.solidify_every == 0):
             flags_new, binding_new = solidify(cells, state.flags_state, state.binding_mask,
                                               f_new, force_view, omega_now)
-            flags_ext = torch.cat([flags_new, comm.from_next(mesh, flags_new, 0)], dim=0)
+            flags_ext = ibm_ext(flags_new, 0)
 
         # ---- 5: advance + wall-contact deletion --------------------------
         new_pos = []
@@ -381,8 +429,7 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
                 new_pos.append(cs.pos + cs.vel)
         hits = None
         if has_boundaries and have_vertices:
-            p_local, owned = _localize(torch.cat([p.reshape(-1, 3) for p in new_pos]),
-                                       x0, Xl, shape)
+            p_local, owned = own(torch.cat([p.reshape(-1, 3) for p in new_pos]))
             # the vertices of other ranks count nowhere
             hits = comm.psum(mesh, kernels.wall_hit_cells(_split(p_local, counts), flags_ext,
                                                           owned))

@@ -215,6 +215,9 @@ def build_coupled_shardmap_runner(pre_cfg: StepConfig, main_cfg: StepConfig, mes
     ``bc_state`` block; the main domain runs the sharded step."""
     from ..parallel.sharded_step import build_shardmap_step, sharded_unsupported_reason
 
+    if len(mesh.axis_names) > 1:
+        # rank 0 writes the whole inlet plane into its rows of bc_state
+        raise ValueError("the distributed preInlet runs on a 1-D x mesh only")
     reason = sharded_unsupported_reason(main_cfg, mesh)
     if reason is not None:
         raise ValueError(f"the sharded step does not cover {reason}")

@@ -243,15 +243,17 @@ def _assert_matches_jax_shardmap(out):
 
 def test_unsupported_configurations_raise():
     """What the sharded step does not cover raises at build, before any
-    collective: a 2-D mesh, Lees-Edwards with walls, a field body force,
-    and X not divisible by the ranks."""
-    from hemocell_tpu_torch.parallel import XMesh, build_shardmap_step
+    collective: Lees-Edwards on a 2-D mesh, Lees-Edwards with walls, a
+    field body force, and X not divisible by the ranks."""
+    from hemocell_tpu_torch.parallel import XMesh, build_shardmap_step, xy_mesh
 
     cfg, _ = _port_case("cepac")
     walled, _ = _port_case("walled")
+    periodic, _ = _port_case("periodic")
     mesh = XMesh(group=None, rank=0, size=2, device=torch.device("cpu"), backend="gloo")
     bad = {
-        "2-D": (cfg, dataclasses.replace(mesh, axis_names=("x", "y"))),
+        "Lees-Edwards on a 2-D mesh": (
+            dataclasses.replace(periodic, lees_edwards_velocity=1e-3), xy_mesh(mesh, (2, 1))),
         "Lees-Edwards with walls": (dataclasses.replace(walled, lees_edwards_velocity=1e-3),
                                     mesh),
         "field body force": (dataclasses.replace(cfg, body_force=np.zeros((3,) + cfg.shape)),
@@ -280,7 +282,8 @@ def _case_worker(rank, world, tmp):
         assert hc.distribute() == mesh
         hc.iterate(4)
         st, ref = hc.state, single.state
-        assert hc._distributed_mode == "shardmap" and st.f.shape == ref.f.shape
+        # the reference's facade takes its owner-computes runner here
+        assert hc._distributed_mode == "owner" and st.f.shape == ref.f.shape
         np.savez(os.path.join(tmp, f"cepac_r{rank}.npz"),
                  df=float((st.f - ref.f).abs().max()),
                  dcepac=float((st.cepac - ref.cepac).abs().max()),
@@ -299,7 +302,8 @@ def _case_worker(rank, world, tmp):
 
 
 def test_facade_distribute_and_pipeflow30_case_on_two_ranks(tmp_path):
-    """The facade on 2 ranks equals the facade on one process to f32
+    """The facade on 2 ranks (the owner-computes runner, as the reference's
+    facade picks for this case) equals the facade on one process to f32
     rounding (populations and CEPAC 1e-6, positions 1e-5 lu, velocities
     1e-8 lu/step); the pipeflow30 case runs with --distribute."""
     from hemocell_tpu_torch.cases.pipeflow30 import packcells_binary
