@@ -267,9 +267,31 @@ Then the preInlet and the x mesh's features:
      56] and [3, 249, 57, 56], K1 on [19, 248, 58, 56], K4 exactly on
      [249, 57, 56] with the owned mask).
 
+Then, in the same group of one, the runs that the JAX package hands to its
+GSPMD runner, each 100 iterations on the sharded step against the single
+device with every host sync an error, exact counts and no plain call,
+bitwise equal (the populations, CEPAC, the omega field, the runtime flags,
+the binding sites, the displacement, alive and the live cells' positions)
+with the cells near the x wrap dead (near the y wrap too on a 1x1 mesh, and
+near or across the z wrap under shear), the kernels at the path's shapes
+against their plain versions, and a profiler window (busy, idle share,
+launches an iteration):
+
+ 33. kolmogorov128 (phase 26's state) on the x mesh and on the 1x1 (x, y)
+     mesh, and its cell-free box on both: K1 in halo mode with the tile's
+     field and its rows, K2 and K3 at the tile's shapes;
+ 34. the preInlet pipeflow30 (phase 28's state) on the 1x1 mesh: the rank
+     of x coordinate 0 writes its y tile of the plane into bc_state;
+ 35. leesedwards128 on the 1x1 mesh (the pair on the y-extended block,
+     [19, 128, 130, 128]), and with CEPAC and with interior viscosity
+     (ratio 5, the sweep every 10 steps, the raycast every 50) on the x
+     mesh: K1 in halo mode with the planes, le_pair, le_planes_from_pair on
+     the gathered pair and K6 on the extended slab against their plain
+     versions.
+
 Then the speed gates in sum, the ``kernels`` JSON line (all sixteen: the
 twelve kernels, K7's two planes kernels, and the two halo modes; with the speed gates, phase 24's I/O times, the rates of
-phases 25-26, 28 and 31, and the rows of phases 31-32 under
+phases 25-26, 28, 31 and 33-35, and the rows of phases 31-35 under
 ``at_path_shapes``), the card, and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -940,10 +962,11 @@ def phase_pipeflow(hc, smi, tag="[4]", fluid="stream_collide"):
     return launches, dt * 1e6 / ITERATIONS
 
 
-def phase_profile(tag, advance, wall_us_per_it, n=100):
+def phase_profile(tag, advance, wall_us_per_it, n=100, launches=False):
     """Device time by kernel over n more iterations of ``advance(k)``
     (torch.profiler), and the device's idle share of the unprofiled wall
-    time per iteration measured by the run before."""
+    time per iteration measured by the run before: (busy us/it, idle
+    share), with ``launches`` also the device launches an iteration."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -969,6 +992,8 @@ def phase_profile(tag, advance, wall_us_per_it, n=100):
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:15]:
         print(f"{tag}   {us:8.2f} us/it {100 * us / busy:5.1f}%  x{count:.2f}/it  {key[:90]}",
               flush=True)
+    if launches:
+        return busy, 1 - busy / wall_us_per_it, sum(r[2] for r in rows)
     return busy, 1 - busy / wall_us_per_it
 
 
@@ -3503,7 +3528,8 @@ def phase_kolmogorov(smi):
     bit; MLUPS and a profiler window.  Then the cell-free box through the
     facade's runner: 100 K1 launches with the field, no K8 or K9, u_x
     antisymmetric in y to 1e-5 of max|u|.  Returns ({path: launches},
-    {path: (wall us/it, busy, idle)})."""
+    {path: (wall us/it, busy, idle)}, the box's configuration and state
+    after the coupled run)."""
     import torch
 
     import hemocell_tpu_torch.dynamics as dyn
@@ -3566,6 +3592,7 @@ def phase_kolmogorov(smi):
         raise AssertionError("kolmogorov128: K1's force is not the spread plus the field")
     prof = phase_profile("[26]", hc.iterate, dt * 1e6 / n)
     rates["kolmogorov128"] = (dt * 1e6 / n,) + (prof or (None, None))
+    kolmo = (hc._step_cfg, clone_state(hc.local_state))  # for phase 33
     del hc, st, pos, active, direct, seen
     torch.cuda.empty_cache()
 
@@ -3589,7 +3616,7 @@ def phase_kolmogorov(smi):
     del hc
     torch.cuda.empty_cache()
     print(f"[26] kolmogorov128 in {time.time() - t_phase:.1f} s", flush=True)
-    return by_path, rates
+    return by_path, rates, kolmo
 
 
 # a WBC with a live rigid core (the mirror pairs as inner edges, a core of
@@ -4118,9 +4145,13 @@ def phase_preinlet_distributed(smi, mesh, case, state):
     return by_path
 
 
-def away_from_the_x_wrap(state, margin=2.0):
+def away_from_the_x_wrap(state, margin=2.0, axes=(0,)):
     """``state`` with every cell dead that has a vertex within ``margin`` lu
-    of the periodic x wrap or at a negative x, and the number of them.  The
+    of the periodic x wrap or at a negative x, and the number of them; with
+    1 in ``axes`` likewise at the y wrap (a 2-D mesh joins its collector
+    column to column 0 as the x mesh its row to row 0), with 2 also within
+    ``margin`` of the z wrap or across it (under Lees-Edwards such a vertex
+    takes an x displaced by the shear, which may cross the x wrap).  The
     sharded step wraps a vertex's position into the box before its kernels
     and the single device's kernels wrap the node index only: the wrap of a
     negative coordinate rounds (-0.3 becomes 247.7 in f32, its fraction
@@ -4129,12 +4160,16 @@ def away_from_the_x_wrap(state, margin=2.0):
     from the wrap the two are the same arithmetic."""
     import torch
 
-    X = state.f.shape[1]
     cells, n = [], 0
     for cs in state.cells:
-        x = cs.pos[:, :, 0]
-        w = torch.remainder(x, X)
-        near = ((w < margin) | (w > X - 1 - margin) | (x < 0)).any(dim=1) & cs.alive
+        near = torch.zeros_like(cs.alive)
+        for axis in axes:
+            L = state.f.shape[1 + axis]
+            x = cs.pos[:, :, axis]
+            w = torch.remainder(x, L)
+            out = (x < 0) | (x >= L) if axis == 2 else x < 0
+            near |= ((w < margin) | (w > L - 1 - margin) | out).any(dim=1)
+        near &= cs.alive
         n += int(near.sum())
         cells.append(cs._replace(alive=cs.alive & ~near))
     return state._replace(cells=tuple(cells)), n
@@ -4289,13 +4324,29 @@ def operands_of_one_step(advance, targets):
     return seen
 
 
-def kernels_at_path_shapes(tag, label, advance, two_d_sharded=False):
+def kernel_row(rows, tag, label, name, out, ref, tol, shape, call):
+    """Hold a kernel's output against its plain version's on the same
+    operands within ``tol``, time ``call()``, and keep the row under
+    ``rows[name][label]``."""
+    err = float((out.double() - ref.double()).abs().max())
+    ms = time_ms(call, 20)
+    print(f"{tag} {label}: {name} at {list(shape)}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+          f"against its plain version, {ms:.4f} ms", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"{label}: {name} at {list(shape)} disagrees with its plain "
+                             f"version ({err:.3e} > {tol:.3e})")
+    rows[name] = {label: dict(shape=list(shape), max_abs_err=err, tol=tol, ms=ms)}
+
+
+def kernels_at_path_shapes(tag, label, advance, two_d_sharded=False,
+                           required=("spread", "interp", "stream_collide_halo")):
     """Each kernel wrapper that one step of a distributed path calls (K2,
     K3, K1 in halo mode, K6 where the case has CEPAC, K4 on the 2-D
     sharded step), called again on that step's operands at the path's own
     shapes and held against its plain version on them: K2 within 1e-5 of
     its largest value (fixed-point sums), K1-halo, K3 and K6 within 1e-6,
-    K4 exactly.  Returns name -> {label: row}."""
+    K4 exactly; the step must call each of ``required``.  Returns name ->
+    {label: row}."""
     import torch
 
     from hemocell_tpu_torch.dynamics import cell_index
@@ -4314,22 +4365,20 @@ def kernels_at_path_shapes(tag, label, advance, two_d_sharded=False):
     rows = {}
 
     def row(name, out, ref, tol, shape, call):
-        err = float((out.double() - ref.double()).abs().max())
-        ms = time_ms(call, 20)
-        print(f"{tag} {label}: {name} at {list(shape)}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-              f"against its plain version, {ms:.4f} ms", flush=True)
-        if not err <= tol:
-            raise AssertionError(f"{label}: {name} at {list(shape)} disagrees with its plain "
-                                 f"version ({err:.3e} > {tol:.3e})")
-        rows[name] = {label: dict(shape=list(shape), max_abs_err=err, tol=tol, ms=ms)}
+        kernel_row(rows, tag, label, name, out, ref, tol, shape, call)
 
-    a, k = ops["spread"]
-    ref = coupling.spread_forces(*a, **k)
-    row("spread", kernels.spread(*a, **k), ref, 1e-5 * float(ref.abs().max()),
-        ref.shape, lambda: kernels.spread(*a, **k))
-    a, k = ops["interp"]
-    row("interp", kernels.interp(*a, **k), coupling.interp_velocity(*a, **k), 1e-6,
-        a[0].shape, lambda: kernels.interp(*a, **k))
+    missing = set(required) - set(ops)
+    if missing:
+        raise AssertionError(f"{label}: one step called none of {sorted(missing)}")
+    if "spread" in ops:
+        a, k = ops["spread"]
+        ref = coupling.spread_forces(*a, **k)
+        row("spread", kernels.spread(*a, **k), ref, 1e-5 * float(ref.abs().max()),
+            ref.shape, lambda: kernels.spread(*a, **k))
+    if "interp" in ops:
+        a, k = ops["interp"]
+        row("interp", kernels.interp(*a, **k), coupling.interp_velocity(*a, **k), 1e-6,
+            a[0].shape, lambda: kernels.interp(*a, **k))
     a, k = ops["stream_collide_halo"]
     f, force, omega, flags, bc, rho0 = (list(a) + [None] * 6)[:6]
     halos = k["halos"]
@@ -4567,6 +4616,285 @@ def phase_xy_mesh(smi, mesh, p30):
     return by_path, rows
 
 
+# ---- phases 33-35: the runs the JAX package hands to its GSPMD runner --------
+
+GSPMD_ITERATIONS = 100
+
+
+def kernels_under_shear(tag, label, advance):
+    """The kernels one sheared step of the sharded runner calls, again on
+    that step's operands at the path's shapes against their plain versions
+    within 1e-6: K1 in halo mode with the tile's planes and their ``le``
+    rows, ``le_pair`` on the tile's block (with its y ghost columns on a
+    2-D mesh), ``le_planes_from_pair`` on the gathered pair, and K6 on the
+    extended tile where the case has CEPAC.  Returns name -> {label: row}."""
+    from hemocell_tpu_torch.fluid import advection_diffusion as ad
+    from hemocell_tpu_torch.fluid import lees_edwards as le
+    from hemocell_tpu_torch.fluid.halo import stream_collide_halo_plain
+    from hemocell_tpu_torch.fluid.stream_collide import stream_collide_halo
+    from hemocell_tpu_torch.parallel import sharded_step
+
+    ops = operands_of_one_step(advance, {
+        "stream_collide_halo": (sharded_step, "stream_collide_halo"),
+        "le_pair": (sharded_step, "le_pair"),
+        "le_planes_from_pair": (sharded_step, "le_planes_from_pair"),
+        "ad_stream_collide": (ad, "ad_stream_collide")})
+    missing = {"stream_collide_halo", "le_pair", "le_planes_from_pair"} - set(ops)
+    if missing:
+        raise AssertionError(f"{label}: one step called none of {sorted(missing)}")
+    rows = {}
+    a, k = ops["stream_collide_halo"]
+    kernel_row(rows, tag, label, "stream_collide_halo", stream_collide_halo(*a, **k),
+               stream_collide_halo_plain(*a, **k), 1e-6, a[0].shape,
+               lambda: stream_collide_halo(*a, **k))
+    a, _ = ops["le_pair"]
+    kernel_row(rows, tag, label, "le_pair", le.le_pair(*a), le._collided_pair(*a), 1e-6,
+               a[0].shape, lambda: le.le_pair(*a))
+    (pair, disp, u), _ = ops["le_planes_from_pair"]
+    kernel_row(rows, tag, label, "le_planes_from_pair", le.le_planes_from_pair(pair, disp, u),
+               le.corrected_planes_from_pair(pair[..., 0], pair[..., 1], disp, u), 1e-6,
+               pair.shape, lambda: le.le_planes_from_pair(pair, disp, u))
+    if "ad_stream_collide" in ops:
+        a, k = ops["ad_stream_collide"]
+        kernel_row(rows, tag, label, "ad_stream_collide", ad.ad_stream_collide(*a, **k),
+                   ad.ad_stream_collide_plain(*a, **k), 1e-6, a[0].shape,
+                   lambda: ad.ad_stream_collide(*a, **k))
+    return rows
+
+
+def sharded_versus_single(tag, name, cfg, state, mesh, n, want, smi, shear=False):
+    """``cfg`` from ``state`` (its cells near the wraps already dead)
+    through the sharded runner on ``mesh`` at world size 1 against the
+    single device's runner: one first step; the kernels at the path's
+    shapes against their plain versions (``kernels_under_shear`` with
+    ``shear``, else phase 31's set); n iterations with the counts read
+    around them and every host sync an error, timed; gathered, bitwise
+    equal to the single device (the populations, CEPAC, the omega field,
+    the runtime flags, the binding sites, the displacement, alive and the
+    live cells' positions); a profiler window of 100 more.  Returns
+    (launches, (wall us/it, busy, idle, launches an iteration), rows)."""
+    import torch
+
+    from hemocell_tpu_torch.dynamics import build_runner
+    from hemocell_tpu_torch.parallel import build_shardmap_runner, gather_state, shard_state
+
+    single = build_runner(cfg)(clone_state(state), n)
+    run = build_shardmap_runner(cfg, mesh)
+    s0 = shard_state(clone_state(state), mesh)
+    run(clone_state(s0), 1)  # the first call fills the caches of its constants
+
+    def one_step():
+        return run(clone_state(s0), cfg.particle_every)
+
+    if shear:
+        rows = kernels_under_shear(tag, name, one_step)
+    else:
+        cells_on = any(cs.pos.shape[0] for cs in state.cells)
+        rows = kernels_at_path_shapes(tag, name, one_step, required=(
+            ("spread", "interp", "stream_collide_halo") if cells_on
+            else ("stream_collide_halo",)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (synced, out), launches, plain = counted(lambda: no_sync(lambda: run(s0, n)))
+    dt = time.perf_counter() - t0
+    if not synced:
+        raise AssertionError(f"{name}: a host sync in the steps: {out}")
+    whole = gather_state(out, mesh)
+    fields = ("f", "cepac", "omega_field", "flags_state", "binding_mask", "le_displacement")
+    unequal = [k for k in fields
+               if not ((getattr(whole, k) is None and getattr(single, k) is None)
+                       or torch.equal(getattr(whole, k), getattr(single, k)))]
+    live = [b.alive for b in single.cells]
+    pos_eq = all(torch.equal(a.pos[m], b.pos[m])
+                 for a, b, m in zip(whole.cells, single.cells, live))
+    alive_eq = all(torch.equal(a.alive, b.alive) for a, b in zip(whole.cells, single.cells))
+    d_f = float((whole.f - single.f).abs().max())
+    N = int(np.prod(cfg.shape))
+    print(f"{tag} {name}, world size 1: {n} iterations in {dt:.3f} s = {N * n / dt / 1e6:.1f} "
+          f"MLUPS, {dt * 1e6 / n:.1f} us/it wall on {smi}, no host sync; against the single "
+          f"device: fields bitwise {not unequal} (differing: {unequal}) | live cells' positions "
+          f"bitwise {pos_eq} | max|df| {d_f:.3e} | alive equal {alive_eq} "
+          f"({sum(int(m.sum()) for m in live)} live) | launches {launches}", flush=True)
+    full = dict.fromkeys(KERNEL_ORDER, 0)
+    full.update(want)
+    raise_failed(f"{name} (expected {full})", {
+        "launch counts": launches == full, "no plain version": not any(plain.values()),
+        "bitwise equal to the single device": not unequal and pos_eq and alive_eq})
+    box = [out]
+
+    def advance(k):
+        box[0] = run(box[0], k)
+
+    prof = phase_profile(f"{tag} {name}", advance, dt * 1e6 / n, launches=True)
+    del box, out, whole, single, s0
+    torch.cuda.empty_cache()
+    return launches, (dt * 1e6 / n,) + (prof or (None, None, None)), rows
+
+
+def phase_kolmogorov_mesh(smi, mesh, kolmo):
+    """Phase 33: kolmogorov128 (``kolmo``: phase 26's configuration and
+    state, 872 RBC under the [3, 128, 128, 128] field) on the x mesh and on
+    the 1x1 (x, y) mesh at world size 1, then its cell-free box on both;
+    each ``sharded_versus_single`` for 100 iterations, the cells near the x
+    or the y wrap dead: K1 in halo mode with the tile's field and its rows (K2's
+    merged tile force plus the field), K2 and K3 at the tile's shapes.
+    Returns the launches by path, the rates and the kernels' rows."""
+    import torch
+
+    from hemocell_tpu_torch.cases import kolmogorovflow
+    from hemocell_tpu_torch.parallel import xy_mesh
+
+    t_phase = time.time()
+    n = GSPMD_ITERATIONS
+    cfg, state = kolmo
+    state, n_dead = away_from_the_x_wrap(state, axes=(0, 1))
+    print(f"[33] kolmogorov128: {n_dead} cells near the x or the y wrap set dead", flush=True)
+    workdir = tempfile.mkdtemp(prefix="kolmogorov_free_")
+    try:
+        hc = kolmogorovflow.build(128, 0, workdir, device="cuda")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    free_state = clone_state(hc.local_state)  # builds the facade's step: its cfg
+    free = (hc._step_cfg, free_state)
+    del hc, free_state
+    by_path, rates, rows = {}, {}, {}
+    meshes = (("x mesh", mesh), ("1x1 mesh", xy_mesh(mesh, (1, 1))))
+    for case, (c, st), want in (
+            ("kolmogorov128", (cfg, state),
+             {"stream_collide_halo": n, "spread": n, "interp": n // cfg.particle_every}),
+            ("kolmogorov128 cell-free", free, {"stream_collide_halo": n})):
+        for label, m in meshes:
+            path = f"{case} {label}"
+            by_path[path], rates[path], r = sharded_versus_single("[33]", path, c, st, m, n,
+                                                                  want, smi)
+            merge_rows(rows, r)
+    del free
+    torch.cuda.empty_cache()
+    print(f"[33] kolmogorov128 on the meshes in {time.time() - t_phase:.1f} s", flush=True)
+    return by_path, rates, rows
+
+
+def phase_preinlet_xy(smi, mesh, case, state):
+    """Phase 34: the preInlet pipeflow30 (phase 28's case and state, the
+    main domain's cells near the x wrap dead) through the distributed
+    coupled runner on a 1x1 (x, y) mesh: the rank of x coordinate 0 writes
+    its y tile of the plane into its bc_state rows, the main domain runs
+    the 2-D sharded step; 100 iterations with every host sync an error,
+    exact counts, bitwise equal to the single-device stepper (both domains'
+    populations, bc_state, the live main cells' positions, alive, the
+    drive and the watermarks); a profiler window.  Returns the launches by
+    path and the rates."""
+    import torch
+
+    from hemocell_tpu_torch.parallel import gather_state, xy_mesh
+    from hemocell_tpu_torch.utils import preinlet as pi
+
+    mesh2 = xy_mesh(mesh, (1, 1))
+    main, n_dead = away_from_the_x_wrap(state.main)
+    state = state._replace(main=main)
+    n = GSPMD_ITERATIONS
+    single = pi.make_coupled_stepper(case.pre_cfg, case.main_cfg,
+                                     target_mean_velocity=case.target)
+    ref = clone_state(state)
+    for _ in range(n):
+        ref = single(ref)
+    run = pi.build_coupled_shardmap_runner(case.pre_cfg, case.main_cfg, mesh2,
+                                           target_mean_velocity=case.target)
+    st0 = pi.shard_preinlet_state(clone_state(state), mesh2)
+    run(clone_state(st0), 1)  # the first call fills the caches of its constants
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (synced, st), launches, plain = counted(lambda: no_sync(lambda: run(st0, n)))
+    dt = time.perf_counter() - t0
+    if not synced:
+        raise AssertionError(f"the preInlet on the 1x1 mesh: a host sync in the steps: {st}")
+    main = gather_state(st.main, mesh2)
+    live = [cs.alive for cs in ref.main.cells]
+    pos_eq = all(torch.equal(a.pos[m], b.pos[m])
+                 for a, b, m in zip(main.cells, ref.main.cells, live))
+    alive_eq = all(torch.equal(a.alive, b.alive) for a, b in zip(main.cells, ref.main.cells))
+    fields_eq = (torch.equal(main.f, ref.main.f) and torch.equal(st.pre.f, ref.pre.f)
+                 and torch.equal(main.bc_state, ref.main.bc_state)
+                 and torch.equal(st.body_force, ref.body_force)
+                 and all(torch.equal(a, b) for a, b in zip(st.crossings, ref.crossings)))
+    d_main = float((main.f - ref.main.f).abs().max())
+    N2 = 2 * int(np.prod(case.pre_cfg.shape))
+    print(f"[34] the preInlet pipeflow30 on a 1x1 (x, y) mesh, world size 1 ({n_dead} main "
+          f"cells near the x wrap set dead): {n} iterations in {dt:.3f} s = "
+          f"{N2 * n / dt / 1e6:.1f} MLUPS over both domains, {dt * 1e6 / n:.1f} us/it wall on "
+          f"{smi}, no host sync; against the single-device stepper: populations, bc_state, "
+          f"drive and watermarks bitwise {fields_eq} | live main cells' positions bitwise "
+          f"{pos_eq} | max|df| main {d_main:.3e} | alive equal {alive_eq} "
+          f"({sum(int(m.sum()) for m in live)} live) | launches {launches}", flush=True)
+    want = preinlet_counts(n, case.pre_cfg.particle_every, halo=True)
+    raise_failed(f"the preInlet on the 1x1 mesh (expected {want})", {
+        "launch counts": launches == want, "no plain version": not any(plain.values()),
+        "bitwise equal to the single device": fields_eq and pos_eq and alive_eq})
+    box = [st]
+
+    def advance(k):
+        box[0] = run(box[0], k)
+
+    prof = phase_profile("[34] preInlet pipeflow30 1x1 mesh", advance, dt * 1e6 / n,
+                         launches=True)
+    path = "preInlet pipeflow30 1x1 mesh"
+    return {path: launches}, {path: (dt * 1e6 / n,) + (prof or (None, None, None))}
+
+
+def phase_shear_mesh(smi, mesh, le_case, susp_case):
+    """Phase 35: leesedwards128 (``le_case``: phase 8's configuration, from
+    the linear profile and 7 steps, so that the displacement has a
+    fraction) on the 1x1 (x, y) mesh; the same box with CEPAC (phase 7's
+    Dirichlet slab) and with interior viscosity (ratio 5, the membrane
+    sweep every 10 steps, the raycast every 50) on the x mesh; each
+    ``sharded_versus_single`` for 100 iterations with the cells near the x
+    and the z wrap (and the y wrap on the 1x1 mesh) dead: K1 in halo mode with the planes of the block's
+    gathered pair, ``le_pair`` on the y-extended block, K6 on the extended
+    slab.  Returns the launches by path, the rates and the kernels' rows."""
+    import dataclasses
+
+    import torch
+
+    from hemocell_tpu_torch.cases.leesedwards import shear_profile_state
+    from hemocell_tpu_torch.cells.interior import interior_tau
+    from hemocell_tpu_torch.dynamics import build_runner
+    from hemocell_tpu_torch.parallel import xy_mesh
+
+    t_phase = time.time()
+    n = GSPMD_ITERATIONS
+    le_cfg, cells = le_case
+    cepac_cfg, _ = susp_case
+    Z = le_cfg.shape[2]
+    tc = le_cfg.types[0]
+    interior = dataclasses.replace(
+        le_cfg, interior_every=10, interior_entire_every=50,
+        types=[dataclasses.replace(tc, omega_interior=1.0 / interior_tau(
+            5.0, 1.0 / float(le_cfg.omega)))])
+    cepac = dataclasses.replace(cepac_cfg, body_force=None,
+                                lees_edwards_velocity=le_cfg.lees_edwards_velocity)
+    by_path, rates, rows = {}, {}, {}
+    for name, cfg, m, axes in (
+            ("leesedwards128 1x1 mesh", le_cfg, xy_mesh(mesh, (1, 1)), (0, 1, 2)),
+            ("leesedwards128 + CEPAC x mesh", cepac, mesh, (0, 2)),
+            ("leesedwards128 + interior viscosity x mesh", interior, mesh, (0, 2))):
+        state = shear_profile_state(cfg, list(cells), LE_VELOCITY / Z)
+        state = build_runner(cfg)(state, 7)  # a displacement with a fraction
+        state, n_dead = away_from_the_x_wrap(state, axes=axes)
+        print(f"[35] {name}: {n_dead} cells near the wraps of axes {axes} set dead",
+              flush=True)
+        want = {"stream_collide_halo": n, "le_pair": n, "le_planes_from_pair": n, "spread": n,
+                "interp": n // cfg.particle_every, "repulsion": n // cfg.repulsion_every}
+        if cfg.cepac_tau is not None:
+            want["ad_stream_collide"] = n
+        by_path[name], rates[name], r = sharded_versus_single("[35]", name, cfg, state, m, n,
+                                                              want, smi, shear=True)
+        merge_rows(rows, r)
+        del state
+        torch.cuda.empty_cache()
+    print(f"[35] Lees-Edwards on the meshes in {time.time() - t_phase:.1f} s", flush=True)
+    return by_path, rates, rows
+
+
 def main() -> int:
     try:
         import torch
@@ -4668,7 +4996,7 @@ def main() -> int:
 
     wbc_paths, rates = phase_wbc(smi)
     by_path.update(wbc_paths)
-    kolmogorov_paths, kolmogorov_rates = phase_kolmogorov(smi)
+    kolmogorov_paths, kolmogorov_rates, kolmo = phase_kolmogorov(smi)
     by_path.update(kolmogorov_paths)
     rates.update(kolmogorov_rates)
     phase_small_three_types()
@@ -4683,10 +5011,9 @@ def main() -> int:
         mesh = init_distributed("cuda", init_method=f"file://{pg_dir}/pg", rank=0,
                                 world_size=1)
         by_path.update(phase_preinlet_distributed(smi, mesh, pcase, pstate))
-        del pcase, pstate
         torch.cuda.empty_cache()
         by_path.update(phase_x_mesh_features(smi, mesh, feat, le_case))
-        del feat, le_case
+        del feat
         torch.cuda.empty_cache()
         print(f"[28-30] the preInlet and the x mesh's features: {time.time() - t28:.1f} s",
               flush=True)
@@ -4694,14 +5021,24 @@ def main() -> int:
         owner_paths, owner_rates, path_rows = phase_owner(smi, mesh, p30, susp_case)
         by_path.update(owner_paths)
         rates.update(owner_rates)
-        del susp_case
         torch.cuda.empty_cache()
         xy_paths, xy_rows = phase_xy_mesh(smi, mesh, p30)
         by_path.update(xy_paths)
         merge_rows(path_rows, xy_rows)
+        print(f"[31-32] the owner runner and the 1x1 (x, y) mesh: {time.time() - t31:.1f} s",
+              flush=True)
+        t33 = time.time()
+        for paths, more, new_rows in (phase_kolmogorov_mesh(smi, mesh, kolmo),
+                                      phase_preinlet_xy(smi, mesh, pcase, pstate) + ({},),
+                                      phase_shear_mesh(smi, mesh, le_case, susp_case)):
+            by_path.update(paths)
+            rates.update(more)
+            merge_rows(path_rows, new_rows)
+        del kolmo, pcase, pstate, le_case, susp_case
+        torch.cuda.empty_cache()
         for name, by_label in path_rows.items():
             rows[name]["at_path_shapes"] = by_label
-        print(f"[31-32] the owner runner and the 1x1 (x, y) mesh: {time.time() - t31:.1f} s",
+        print(f"[33-35] the runs JAX hands to its GSPMD runner: {time.time() - t33:.1f} s",
               flush=True)
     finally:
         if dist.is_initialized():
@@ -4745,8 +5082,9 @@ def main() -> int:
     print(f"speed gates: {len(SPEED_GATES) - len(missed)} of {len(SPEED_GATES)} below their "
           f"yardstick; not below: {missed}", flush=True)
     kernels_line["io_ms"] = io_times
-    # phases 25-26, 28 and 31: wall us/it, device busy us/it and idle share by path
-    kernels_line["paths_us_per_it"] = {path: dict(zip(("wall", "busy", "idle"), r))
+    # phases 25-26, 28, 31 and 33-35: wall us/it, device busy us/it, idle share
+    # and (33-35) device launches an iteration by path
+    kernels_line["paths_us_per_it"] = {path: dict(zip(("wall", "busy", "idle", "launches"), r))
                                        for path, r in rates.items()}
     print(json.dumps(kernels_line))
     print(smi)

@@ -14,10 +14,14 @@ centres of ``presets.grid_centers`` inside the box less a margin of 4 lu
 in y and z, where no rotation takes a vertex across the faces the
 placement holds (it wraps x only), turned by seeded random angles; their
 ``.pos`` file is written in code.  ``--cell-free`` drops the cells.
+``--distribute`` runs the box on the ranks of torchrun, one x-slab each
+(the facade's ``distribute()``: the owner runner refuses the field, so the
+sharded step runs it).
 
 Usage: python -m hemocell_tpu_torch.cases.kolmogorovflow [--n 128]
            [--cells 872] [--cell-free] [--iterations 2000] [--device cuda]
-           [--workdir DIR]
+           [--workdir DIR] [--distribute]
+       torchrun --nproc-per-node N -m hemocell_tpu_torch.cases.kolmogorovflow --distribute
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 
 from ..hemocell import HemoCell
 from ..presets import grid_centers
+from ._launch import case_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -129,16 +134,23 @@ def main(argv=None):
     ap.add_argument("--iterations", type=int, default=2000)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--workdir", default=None)
+    ap.add_argument("--distribute", action="store_true",
+                    help="run on the ranks of torchrun, one x-slab each")
     args = ap.parse_args(argv)
 
-    hc = build(args.n, 0 if args.cell_free else args.cells, args.workdir, device=args.device)
+    mesh, say = case_mesh(args)
+    hc = build(args.n, 0 if args.cell_free else args.cells, args.workdir,
+               device=mesh.device if mesh else args.device)
+    if mesh is not None:
+        hc.distribute(mesh)
     to_mps = hc.params.dx / hc.params.dt
-    print(f"(kolmogorov) {hc.shape}, cells {hc.alive_count(0)}, {hc.params.describe()}")
+    say(f"(kolmogorov) {hc.shape}, cells {hc.alive_count(0)}, {hc.params.describe()}"
+        + (f", {mesh.size} ranks" if mesh else ""))
     while hc.iter < args.iterations:
         hc.iterate(min(500, args.iterations - hc.iter))
         top, bottom = half_velocities(hc)
-        print(f"(kolmogorov) iter {hc.iter}: u_top {top * to_mps:.4g} m/s, u_bottom "
-              f"{bottom * to_mps:.4g} m/s | cells {hc.alive_count(0)}")
+        say(f"(kolmogorov) iter {hc.iter}: u_top {top * to_mps:.4g} m/s, u_bottom "
+            f"{bottom * to_mps:.4g} m/s | cells {hc.alive_count(0)}")
     return hc
 
 

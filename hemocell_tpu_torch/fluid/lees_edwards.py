@@ -20,8 +20,9 @@ The accumulated displacement (lu) is carried by the caller as a host scalar
 on CPU tensors; on CUDA tensors three launches, the corrected planes in two
 (``csrc/le_planes.cu``; the reference package computes them outside its
 kernel): ``le_pair`` collides the two wrap planes and ``le_planes_from_pair``
-corrects them, and the fused kernel with the planes substituted.  On the x
-mesh the ranks gather their slabs' pairs along x between the two.
+corrects them, and the fused kernel with the planes substituted.  On a
+mesh the ranks of each row along x gather their blocks' pairs between the
+two (``parallel/sharded_step.py``).
 """
 
 from __future__ import annotations
@@ -164,8 +165,8 @@ def _omega_arg(omega, name, shape):
 
 def le_pair(f, force, omega):
     """The planes' first half: the collided wrap planes [19, X, Y, 2] of the
-    box or of one rank's slab ``f [19,X,Y,Z]`` (force field [3,X,Y,Z], omega
-    a float or the [X,Y,Z] field), on the x mesh gathered along x by the ranks:
+    box or of one rank's block ``f [19,X,Y,Z]`` (force field [3,X,Y,Z], omega
+    a float or the [X,Y,Z] field), on a mesh gathered along x by the ranks:
     ``_collided_pair`` on CPU tensors, ``hc_le_pair_collide`` of
     ``csrc/le_planes.cu`` on CUDA tensors."""
     if not f.is_cuda:

@@ -11,9 +11,9 @@ the reference's: the pre-collision ``f``, the force field where there is
 one, the flags and the bc velocity, so that one exchange serves K1, K10 and
 the plain version alike.  Static flags and bc rows are taken once; the
 runtime flags of solidify and the preInlet's ``bc_state`` change between
-steps (rank 0's row 0 of ``bc_state`` every step, which rank n-1 collides
-as its upper halo row), so they are per-call operands whose rows go with
-the ``f`` rows on every call.
+steps (row 0 of ``bc_state`` on the ranks of x coordinate 0 every step,
+which the last ranks along x collide as their upper halo row), so they are
+per-call operands whose rows go with the ``f`` rows on every call.
 
 On a 2-D (x, y) mesh every operand is first extended by one y ghost column
 a side (the y neighbours' columns), and the x halo rows are taken from the

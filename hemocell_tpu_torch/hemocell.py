@@ -459,8 +459,9 @@ class HemoCell:
         """(runner, mode) on the mesh, chosen as the reference's facade
         chooses: the owner-computes runner when it covers the
         configuration, the mesh and the tile widths, else (with the reason
-        logged) the sharded runner; where the reference would take its
-        GSPMD runner, raise."""
+        logged) the sharded runner, which also runs what the reference hands
+        to its GSPMD runner on a 1-D or (x, y) mesh; a mesh of more axes
+        raises."""
         from .parallel import build_shardmap_runner, sharded_unsupported_reason
         from .parallel import owner_step
 
@@ -875,10 +876,17 @@ class HemoCell:
             centers = pos.mean(axis=1)
             blk = np.zeros(nca, int)
             if self._mesh is not None:
-                nxm, nym = self._mesh.axis_size("x"), self._mesh.axis_size("y")
-                bx = np.mod(centers[:, 0], self.shape[0]) // max(1, self.shape[0] // nxm)
-                by = np.mod(centers[:, 1], self.shape[1]) // max(1, self.shape[1] // nym)
-                blk = (bx * nym + by).astype(int)
+                from .parallel.sharding import split
+
+                def block(c, L, axis):
+                    """The tile index along ``axis`` (of even or uneven
+                    widths) that coordinates ``c`` lie in."""
+                    n = self._mesh.axis_size(axis)
+                    ends = np.array([sum(split(L, n, i)) for i in range(n)])
+                    return np.searchsorted(ends, np.mod(c, L), side="right")
+
+                blk = (block(centers[:, 0], self.shape[0], "x") * self._mesh.axis_size("y")
+                       + block(centers[:, 1], self.shape[1], "y")).astype(int)
             jobs.append(functools.partial(write_cell_csv, self.outdir, self.iter, ct.name,
                                           self._csv_rows(st, k, blk)))
         return jobs

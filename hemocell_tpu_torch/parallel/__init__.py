@@ -5,7 +5,9 @@ into x-slabs or (x, y) tiles.
 Counterpart of ``hemocell_tpu/parallel/``: its shard_map runner
 (``sharded_step.py``, the cells replicated) and its owner-computes runner
 (``owner_step.py``, each rank's cells in fixed-capacity tables).  The GSPMD
-runner has no counterpart.
+runner has no counterpart: what the reference hands to it on a 1-D or an
+(x, y) mesh (a field body force, the Lees-Edwards combinations, a domain
+the ranks do not divide) runs on the sharded step.
 """
 
 from .comm import Mesh, XMesh, init_distributed, xy_mesh

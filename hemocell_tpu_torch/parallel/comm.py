@@ -7,12 +7,15 @@ Counterpart of the ``jax.lax`` collectives that
 ``psum``; ``all_gather``): ``shift`` along an axis, ``from_next``,
 ``to_next``, ``halo_rows`` (both neighbours' rows at once), ``extend`` and
 ``extend_xy`` (the two-hop extension that carries the corners), ``psum``,
-``all_gather``, ``all_gather_tiles``, ``broadcast`` and ``barrier``.
+``gather_parts``, ``all_gather``, ``all_gather_tiles`` (parts of uneven
+widths padded for the collective), ``broadcast`` and ``barrier``.
 
 One ``Mesh`` type: along ``("x",)`` a periodic ring (rank r holds the slab
 ``[r Xl, (r+1) Xl)``; ``XMesh`` names it), along ``("x", "y")`` an (nx, ny)
 grid of ranks, rank ``r = ix * ny + iy`` holding the tile ``[ix Xl, (ix+1)
-Xl) x [iy Yl, (iy+1) Yl)`` (JAX's ``make_mesh(n, axes=("x", "y"))`` order).  Each axis is a
+Xl) x [iy Yl, (iy+1) Yl)`` (JAX's ``make_mesh(n, axes=("x", "y"))`` order;
+a domain the ranks do not divide is cut into tiles of uneven widths,
+``sharding.tiles``).  Each axis is a
 periodic ring; an axis of one rank is a ring whose neighbours are the rank
 itself, so a shift along it is a local copy, as a ``ppermute`` to self is.
 JAX drops a y axis of size 1; the port keeps it live, so that a 1x1 mesh
@@ -262,24 +265,53 @@ def barrier(mesh) -> None:
         dist.barrier(group=mesh.group)
 
 
-def all_gather(mesh, t: torch.Tensor, dim: int) -> torch.Tensor:
-    """The ranks' tensors joined along ``dim`` in rank order."""
+def gather_parts(mesh, t: torch.Tensor, dims, extents=None) -> list:
+    """Every rank's ``t``, in rank order.  The parts may differ in their
+    extents along ``dims`` (uneven tiles): ``extents`` holds each rank's
+    tuple of them, or None to exchange them first (one more, tiny,
+    collective).  Each part is padded with zeros to the largest for the
+    collective, whose parts must be equal, and cut back."""
     t = t.contiguous()
     _check(mesh, t, "all_gather")
-    parts = [torch.empty_like(t) for _ in range(mesh.size)]
-    dist.all_gather(parts, t, group=mesh.group)
-    return torch.cat(parts, dim=dim)
+    dims = list(dims)
+    if extents is None:
+        if mesh.size == 1:
+            extents = [tuple(t.shape[d] for d in dims)]
+        else:
+            mine = torch.tensor([t.shape[d] for d in dims], dtype=torch.int64, device=t.device)
+            got = [torch.empty_like(mine) for _ in range(mesh.size)]
+            dist.all_gather(got, mine, group=mesh.group)
+            extents = [tuple(int(v) for v in g.tolist()) for g in got]
+    top = [max(e[i] for e in extents) for i in range(len(dims))]
+    padded = t
+    if any(t.shape[d] != m for d, m in zip(dims, top)):
+        shape = list(t.shape)
+        for d, m in zip(dims, top):
+            shape[d] = m
+        padded = t.new_zeros(shape)
+        padded[tuple(slice(0, n) for n in t.shape)] = t
+    parts = [torch.empty_like(padded) for _ in range(mesh.size)]
+    dist.all_gather(parts, padded, group=mesh.group)
+    out = []
+    for part, ext in zip(parts, extents):
+        for d, n in zip(dims, ext):
+            part = part.narrow(d, 0, n)
+        out.append(part)
+    return out
+
+
+def all_gather(mesh, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' tensors, of even or uneven extents along ``dim``, joined
+    along it in rank order."""
+    return torch.cat(gather_parts(mesh, t, [dim]), dim=dim)
 
 
 def all_gather_tiles(mesh, t: torch.Tensor, dim: int) -> torch.Tensor:
-    """The ranks' tiles joined into the global field: x along ``dim`` and,
-    on an (x, y) mesh, y along ``dim + 1``."""
+    """The ranks' tiles, of even or uneven widths, joined into the global
+    field: x along ``dim`` and, on an (x, y) mesh, y along ``dim + 1``."""
     if not has_y(mesh):
         return all_gather(mesh, t, dim)
-    t = t.contiguous()
-    _check(mesh, t, "all_gather_tiles")
-    parts = [torch.empty_like(t) for _ in range(mesh.size)]
-    dist.all_gather(parts, t, group=mesh.group)
+    parts = gather_parts(mesh, t, [dim, dim + 1])
     ny = mesh.axis_size("y")
     rows = [torch.cat(parts[ix * ny:(ix + 1) * ny], dim=dim + 1)
             for ix in range(mesh.axis_size("x"))]

@@ -47,10 +47,11 @@ the steps never wait for the host.  The capacity violations (owned cells
 over a table's capacity, migrants over a buffer, vertices outside the
 extended grid) are counted on the card; ``run`` reads the count once per
 call, after the last step, and raises on a nonzero count with the
-capacities named (``OwnerCapacityError``).  The reference retries with a
-larger margin and then falls back to its replicated runners; the port's
-facade falls back to the sharded runner on the same state, and a direct
-caller gets the error.
+capacities named (``OwnerCapacityError``).  On a mesh the reference's
+facade falls back at once to its replicated runners (its retry with a
+larger margin runs only without a mesh, where it re-plans the single
+device's slab windows); the port's facade falls back likewise, to the
+sharded runner on the same state, and a direct caller gets the error.
 
 Where the port differs on purpose: an axis of one rank is a ring whose
 neighbours are the rank itself (the reference flattens a y axis of one and
@@ -77,7 +78,7 @@ from ..fluid import lbm
 from ..fluid import sharded_pallas as _sp
 from ..ibm import kernels
 from . import comm
-from .sharding import shard_step_config, tile
+from .sharding import divides, shard_step_config, tile
 
 
 class OwnedType(NamedTuple):
@@ -237,6 +238,11 @@ def build_owner_runner(cfg: StepConfig, mesh, envelope: int = 25, margin: float 
     two_d = comm.has_y(mesh)
     nx = mesh.axis_size("x")
     ny = mesh.axis_size("y") if two_d else 1
+    if not divides(mesh, X, Y):
+        # the reference's facade refuses such a mesh too (its tables home a
+        # cell by its centre's tile, of one width)
+        raise ValueError(f"the owner runner does not cover X={X}, Y={Y} over a mesh of "
+                         f"{nx} x {ny} ranks: the ranks must divide the domain")
     x0, Xl, y0, Yl = tile(mesh, X, Y)
     E = int(envelope)
     if Xl < E:

@@ -28,23 +28,35 @@ what follows the list):
 
 A run with no vertices is the K1 halo-mode loop; the fused fluid kernels
 are single-device, as in the reference, whose shard_map runner fuses no
-steps.  The features of the reference's 1-D shard_map ride along:
+steps.  A [3, X, Y, Z] body force field is cut to the tile
+(``sharding.shard_step_config``) and added to K2's merged tile force, or
+is K1's force operand, with its rows, in a run with no vertices.  The
+features of the reference's 1-D shard_map ride along:
   2b. interior viscosity: the raycast and the membrane sweep of the
       replicated cells restricted to the slab (``interior_mask`` and
       ``membrane_omega_update`` with ``x_origin`` / ``x_extent``); the
       omega field goes into K1 in halo mode with its rows;
-  3.  Lees-Edwards: each rank collides its slab's z = Z-1 and z = 0 plane
-      pair, the ranks gather the pairs along x, and the corrected planes of
-      the whole width are sliced to the slab and its two ``le`` halo rows
-      for K1 in halo mode (K7's two planes kernels, with the gather
-      between them);
+  3.  Lees-Edwards: the sheared fluid steps as an all-fluid box, as on one
+      device (the flags drive the IBM, the wall hits and the boundary
+      repulsion only); each rank collides its block's z = Z-1 and z = 0
+      plane pair, the ranks of its row along x gather the pairs, and the
+      corrected planes of the whole width are sliced to the slab and its
+      two ``le`` halo rows for K1 in halo mode (K7's two planes kernels,
+      with the gather between them), with the omega field of interior
+      viscosity in both; CEPAC and solidify run beside it as without
+      shear;
   4b. solidify: the tagged cells harden slab-locally; the binding and
       Tresca test of the 27 neighbours reads one ghost row of the binding
       mask and the Tresca field on each side, and the cell hits are summed
       over the ranks; the runtime flags go into K1-K4 as per-call operands;
 and the preInlet's ``bc_state`` is a per-call operand of the fluid step
-(``fluid/sharded_pallas.py``).  What stays refused is in
-``sharded_unsupported_reason``.
+(``fluid/sharded_pallas.py``).  What the reference runs on its GSPMD runner
+(the field, the Lees-Edwards combinations, the 2-D mesh under shear, a
+domain the ranks do not divide) runs here; only a mesh of more than two
+axes is refused (``sharded_unsupported_reason``).  The tiles may be of
+uneven widths (``sharding.tiles``): every exchange is between neighbours
+that share the exchanged extent, and the Lees-Edwards pairs are padded
+for their gather.
 
 On a 2-D mesh a vertex is owned by the tile its base node lies in; K2 runs
 on the [3, Xl+1, Yl+1, Z] tile extended by a collector row and column,
@@ -53,7 +65,9 @@ along y, so that a corner deposit rides both hops; the extended velocity,
 flags and fields of K3 and K4 come the same two hops (y first, then x on
 the y-extended block); K1 steps the tile with y ghost columns
 (``fluid/sharded_pallas.py``); CEPAC (K6), interior viscosity and solidify
-read y-extended operands and restrict their updates to the tile.
+read y-extended operands and restrict their updates to the tile; under
+shear the pair is taken on the y-extended block, so that the planes of the
+y ghost columns are those of the neighbours' columns.
 
 Every cell array stays bitwise identical on every rank: the replicated
 phases are deterministic functions of replicated inputs, and what a rank
@@ -81,36 +95,18 @@ from ..fluid.stream_collide import stream_collide_halo
 from ..fluid.tresca import tresca_field
 from ..ibm import kernels
 from . import comm
-from .sharding import shard_step_config, tile
+from .sharding import shard_step_config, tiles
 
 def sharded_unsupported_reason(cfg: StepConfig, mesh=None) -> Optional[str]:
-    """Why the sharded step does not cover ``cfg`` on ``mesh``, or None:
-    the reference's ``shardmap_supported`` on a 1-D or 2-D mesh, and X (Y)
-    divisible by the ranks along x (y)."""
+    """Why the sharded step does not cover ``cfg`` on ``mesh``, or None.  It
+    covers every configuration on a 1-D or a 2-D mesh: those that the
+    reference's shard_map step takes (``shardmap_supported``) and those
+    that the reference hands to its GSPMD runner (a field body force;
+    Lees-Edwards with walls, CEPAC, interior viscosity or solidify, or on a
+    2-D mesh; a domain the ranks do not divide).  A tile narrower than
+    ``sharding.MIN_TILE`` raises at build (``sharding.tiles``)."""
     if mesh is not None and len(mesh.axis_names) > 2:
         return "a mesh of more than two axes"
-    if cfg.lees_edwards_velocity is not None:
-        # the sheared box is all fluid, and its planes take no CEPAC lattice
-        # and no interior-viscosity field (as the reference's)
-        if cfg.interior_every:
-            return "Lees-Edwards with interior viscosity"
-        if cfg.cepac_tau is not None:
-            return "Lees-Edwards with CEPAC"
-        if bool(torch.as_tensor(cfg.flags).any()):
-            return "Lees-Edwards with walls"
-        if mesh is not None and len(mesh.axis_names) > 1:
-            # the planes are gathered along x; a y axis would need a second
-            return "Lees-Edwards on a 2-D mesh"
-        if cfg.solidify_every:
-            return "solidify with Lees-Edwards"
-    if is_field(cfg.body_force):
-        return "a field body force (only a uniform [3] body force is sharded)"
-    if mesh is not None:
-        ranks = ((mesh.axis_size("x"), mesh.axis_size("y")) if len(mesh.axis_names) > 1
-                 else (mesh.size, 1))
-        for axis, L, n in zip("XY", cfg.shape, ranks):
-            if int(L) % n:
-                return f"{axis}={int(L)} not divisible by {n} ranks"
     return None
 
 
@@ -147,17 +143,24 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
     shape = tuple(int(s) for s in cfg.shape)
     X, Y, Z = shape
     two_d = comm.has_y(mesh)
-    x0, Xl, y0, Yl = tile(mesh, X, Y)
+    all_tiles = tiles(mesh, X, Y)
+    x0, Xl, y0, Yl = all_tiles[mesh.rank]
     lcfg = shard_step_config(cfg, mesh)
 
     flags_g = torch.as_tensor(cfg.flags)
     # solidify may create walls in a domain that has none
     has_boundaries = bool(flags_g.any()) or bool(cfg.solidify_every)
     omega = lcfg.omega if torch.is_tensor(lcfg.omega) else float(cfg.omega)
-    bf_cfg = bf_cfg_uniform = None
-    if cfg.body_force is not None:
-        bf_cfg_uniform = torch.as_tensor(cfg.body_force, dtype=dtype)
-        bf_cfg = bf_cfg_uniform.to(device)[:, None, None, None]
+    # the body force as K1 takes it (bf_arg: a uniform [3] on the host or
+    # the tile's field) and as it adds to a field (bf_view: [3,1,1,1] or the
+    # tile's [3,Xl,Yl,Z]), as in dynamics.build_step
+    bf_view = bf_arg = None
+    field_force = is_field(cfg.body_force)
+    if field_force:
+        bf_view = bf_arg = lcfg.body_force
+    elif cfg.body_force is not None:
+        bf_arg = torch.as_tensor(cfg.body_force, dtype=dtype)
+        bf_view = bf_arg.to(device)[:, None, None, None]
     bmask = None if cfg.boundary_mask is None else torch.as_tensor(cfg.boundary_mask).to(
         device, torch.uint8)
     rep_on = cfg.repulsion_constant > 0.0
@@ -193,6 +196,42 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
     fluid_step = _sp.make_sharded_stream_collide(mesh, flags_g, cfg.bc_velocity,
                                                  cfg.bc_density, dtype=dtype)
     tile_kw = dict(x_origin=x0, x_extent=Xl, y_origin=y0, y_extent=Yl)
+
+    # Lees-Edwards: the planes are sheared along x only, so a tile's planes
+    # need the collided pairs of its row of ranks along x (the ranks of its
+    # y coordinate), each taken on the block K1 steps (the tile with its y
+    # ghost columns on a 2-D mesh); one all_gather over the mesh, of which
+    # each rank keeps its row
+    ny = mesh.axis_size("y")
+    yw = 2 if two_d else 0  # the y ghost columns of the block
+    pair_extents = [(xl, yl + yw) for _, xl, _, yl in all_tiles]
+    x_row = [ix * ny + mesh.coord("y") for ix in range(mesh.axis_size("x"))]
+
+    def le_fluid(state, force_field, bf, omega_now):
+        """One sheared step of the tile: the all-fluid box, as
+        ``le_stream_collide`` steps it on one device (flags and bc velocity
+        drive the IBM and the wall hits only).  ``force_field`` is the tile's
+        force field or None (then ``bf``, uniform or None, fills one)."""
+        if force_field is None:
+            force_field = torch.zeros((3, Xl, Yl, Z), dtype=dtype, device=device)
+            if bf is not None:
+                force_field = force_field + bf
+        om_field = torch.is_tensor(omega_now) and omega_now.dim() > 0
+        arrays, dims = [state.f, force_field], [1, 1]
+        if om_field:
+            arrays.append(omega_now), dims.append(0)
+        if two_d:
+            arrays = comm.extend(mesh, arrays, [d + 1 for d in dims], "y")
+        f_b, force_b = arrays[:2]
+        omega_b = arrays[2] if om_field else omega_now
+        parts = comm.gather_parts(mesh, le_pair(f_b, force_b, omega_b), [1, 2], pair_extents)
+        planes = le_planes_from_pair(torch.cat([parts[r] for r in x_row], dim=1),
+                                     state.le_displacement, le_u)
+        halos = dict(zip(("f", "force", "omega"), comm.halo_rows(mesh, arrays, dims)))
+        halos["le"] = (planes[:, (x0 - 1) % X][:, None], planes[:, (x0 + Xl) % X][:, None])
+        f_new = stream_collide_halo(f_b, force_b, omega_b, None, None, None, halos,
+                                    le_planes=planes[:, x0:x0 + Xl].contiguous())
+        return f_new[:, :, 1:-1].contiguous() if two_d else f_new
 
     def omega_raycast(cells):
         """The tile's omega field from a raycast of the membranes."""
@@ -303,7 +342,7 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
                 cells[k] = cells[k]._replace(force_repulsion=part)
 
         # ---- 2: spread on the extended tile, collector row (column) to next
-        bf, bf_uniform = bf_cfg, bf_cfg_uniform
+        bf, bf_uniform = bf_view, bf_arg
         if state.body_force_state is not None:
             bf_uniform = torch.as_tensor(state.body_force_state).to(dtype=dtype)
             if bf_uniform.dim() != 1:
@@ -336,7 +375,10 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
                 force = force + bf
             force_arg = force_view = force
         else:
+            # uniform [3] / [3,1,1,1], the tile's field twice, or None
             force_arg, force_view = bf_uniform, bf
+        # the force is the tile's [3,Xl,Yl,Z] field (rows to exchange)
+        force_is_field = have_vertices or (field_force and state.body_force_state is None)
 
         # ---- 2b: interior viscosity on the tile -------------------------
         omega_now = omega
@@ -353,25 +395,7 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         # ---- 3: fluid, K1 (or K10) in halo mode -------------------------
         le_disp_new = state.le_displacement
         if le_u is not None:
-            force_field = force_view
-            if force_field is None or force_field.shape[1:] != (Xl, Y, Z):
-                force_field = torch.zeros((3, Xl, Y, Z), dtype=dtype, device=device)
-                if bf is not None:
-                    force_field = force_field + bf
-            # the slab's pair, gathered along x: the planes of the whole width
-            pair = comm.all_gather(mesh, le_pair(state.f, force_field, omega_now), 1)
-            planes = le_planes_from_pair(pair, state.le_displacement, le_u)
-            rows = [state.f, force_field]
-            dims = [1, 1]
-            if torch.is_tensor(omega_now) and omega_now.dim() > 0:
-                rows.append(omega_now), dims.append(0)
-            exch = comm.halo_rows(mesh, rows, dims)
-            halos = {"f": exch[0], "force": exch[1],
-                     "le": (planes[:, (x0 - 1) % X][:, None], planes[:, (x0 + Xl) % X][:, None])}
-            if len(exch) > 2:
-                halos["omega"] = exch[2]
-            f_new = stream_collide_halo(state.f, force_field, omega_now, None, None, None,
-                                        halos, le_planes=planes[:, x0:x0 + Xl].contiguous())
+            f_new = le_fluid(state, force_view if force_is_field else None, bf, omega_now)
             le_disp_new = torch.remainder(state.le_displacement + le_u, X)
         else:
             f_new = fluid_step(state.f, force_arg, omega_now, flags_op, state.bc_state)
@@ -389,7 +413,7 @@ def build_shardmap_step(cfg: StepConfig, mesh) -> Callable[[SimState], SimState]
         cepac_new = state.cepac
         if cfg.cepac_tau is not None and state.cepac is not None:
             fields, dims = [f_new, state.cepac], [1, 1]
-            if have_vertices:  # the force is the slab's field
+            if force_is_field:
                 fields.append(force_view), dims.append(1)
             exts = ext(fields, dims)
             force_e = exts[2] if len(exts) > 2 else force_view

@@ -7,7 +7,10 @@ Counterpart of ``hemocell_tpu/parallel/sharding.py`` (``make_mesh``,
 JAX keeps one global array with a sharding; here each rank holds its own
 tile tensor, and ``gather_state`` rebuilds the global state (for output,
 the facade's getters and tests).  The GSPMD runner of that module has no
-counterpart: PyTorch has no auto-partitioner.
+counterpart: PyTorch has no auto-partitioner.  What JAX hands to it on a
+1-D or (x, y) mesh runs here on the sharded step, a domain that the ranks
+do not divide among them: the tiles are then of uneven widths
+(``tiles``).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import math
 import torch
 
 from ..cells.state import CellTypeState
-from ..dynamics import SimState, StepConfig
+from ..dynamics import SimState, StepConfig, is_field
 from . import comm
 
 
@@ -37,16 +40,46 @@ def make_mesh(device=None, axes: tuple = ("x",)):
     return comm.xy_mesh(mesh, (nx, mesh.size // nx))
 
 
+# The narrowest tile the sharded step takes along a decomposed axis.  A
+# vertex's trilinear stencil spans its base node and the next (K2's
+# collector row, K3's and K4's extension by the next rank's first row), the
+# fluid, CEPAC and solidify read one ghost row a side (two hops for the
+# corners), and K1 in halo mode steps a tile of any width with its two
+# rows: every rank needs one node along each axis, no more.
+MIN_TILE = 1
+
+
+def split(L: int, n: int, i: int) -> tuple[int, int]:
+    """(start, width) of part ``i`` of ``L`` nodes cut into ``n`` parts: the
+    first ``L % n`` parts one node wider, as ``numpy.array_split`` cuts."""
+    q, r = divmod(int(L), int(n))
+    return i * q + min(i, r), q + (1 if i < r else 0)
+
+
+def tiles(mesh, X: int, Y: int) -> list[tuple[int, int, int, int]]:
+    """(x0, Xl, y0, Yl) of every rank of ``mesh``, in rank order (rank ``ix *
+    ny + iy``).  X (Y) need not be divisible by the ranks along x (y): the
+    tiles form a regular grid, so x neighbours share Yl and y neighbours
+    share Xl.  Raises ValueError where a tile would be narrower than
+    ``MIN_TILE``."""
+    nx, ny = mesh.axis_size("x"), mesh.axis_size("y")
+    for axis, L, n in (("x", X, nx), ("y", Y, ny)):
+        if int(L) // n < MIN_TILE:
+            raise ValueError(f"{axis.upper()}={int(L)} over {n} ranks along {axis} gives tiles "
+                             f"of {[split(L, n, i)[1] for i in range(n)]} nodes; the sharded "
+                             f"step needs at least {MIN_TILE} a rank")
+    return [split(X, nx, ix) + split(Y, ny, iy) for ix in range(nx) for iy in range(ny)]
+
+
 def tile(mesh, X: int, Y: int) -> tuple[int, int, int, int]:
     """(x0, Xl, y0, Yl): the first global x row and y column of this rank's
-    tile and its widths (Yl = Y on a 1-D mesh)."""
-    nx, ny = mesh.axis_size("x"), mesh.axis_size("y")
-    if X % nx:
-        raise ValueError(f"X={X} is not divisible by {nx} ranks along x")
-    if Y % ny:
-        raise ValueError(f"Y={Y} is not divisible by {ny} ranks along y")
-    Xl, Yl = X // nx, Y // ny
-    return mesh.coord("x") * Xl, Xl, mesh.coord("y") * Yl, Yl
+    tile and its widths (Yl = Y on a 1-D mesh); see ``tiles``."""
+    return tiles(mesh, X, Y)[mesh.rank]
+
+
+def divides(mesh, X: int, Y: int) -> bool:
+    """The ranks along x (y) divide X (Y): every tile has one shape."""
+    return int(X) % mesh.axis_size("x") == 0 and int(Y) % mesh.axis_size("y") == 0
 
 
 def tile_of(t, mesh, dim: int, dtype=None):
@@ -101,15 +134,20 @@ def replicate_state(state: SimState, mesh) -> SimState:
 
 def shard_step_config(cfg: StepConfig, mesh) -> StepConfig:
     """``cfg`` with its static fields cut to the rank's tile: ``flags``,
-    ``bc_velocity``, a per-node ``omega`` and the CEPAC Dirichlet mask and
-    value.  ``shape`` stays the global shape; the boundary-repulsion mask
-    stays global (the replicated vertices test it everywhere)."""
+    ``bc_velocity``, a per-node ``omega``, a [3, X, Y, Z] body force field
+    (a uniform [3] stays as it is) and the CEPAC Dirichlet mask and value.
+    ``shape`` stays the global shape; the boundary-repulsion mask stays
+    global (the replicated vertices test it everywhere)."""
     omega = cfg.omega
     if torch.is_tensor(omega) and omega.dim() > 0:
         omega = tile_of(omega, mesh, 0, cfg.dtype)
+    body_force = cfg.body_force
+    if is_field(body_force):
+        body_force = tile_of(body_force, mesh, 1, cfg.dtype)
     return dataclasses.replace(
         cfg,
         omega=omega,
+        body_force=body_force,
         flags=tile_of(cfg.flags, mesh, 0, torch.uint8),
         bc_velocity=tile_of(cfg.bc_velocity, mesh, 1, cfg.dtype),
         cepac_dirichlet_mask=tile_of(cfg.cepac_dirichlet_mask, mesh, 0, torch.uint8),
@@ -119,7 +157,8 @@ def shard_step_config(cfg: StepConfig, mesh) -> StepConfig:
 
 def gather_state(state: SimState, mesh) -> SimState:
     """The global state on every rank: the tiles of each lattice field
-    joined in rank order (a collective: every rank calls it)."""
+    joined in rank order, of even or uneven widths (a collective: every
+    rank calls it)."""
     def gather(t, dim):
         if t is None:
             return None

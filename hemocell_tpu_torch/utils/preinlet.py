@@ -27,10 +27,11 @@ The main domain's cell arrays need spare dead slots (positions far outside,
 ``alive`` False) to receive injections.
 
 ``build_coupled_shardmap_runner`` is the same coupling with the main domain
-on the x-slabs of a mesh (``parallel/sharded_step.py``) and the preinlet
-replicated: every rank advances the preinlet identically, so the coupling
-needs no collective; the rank that owns global row 0 writes the plane into
-its block of ``bc_state``.
+on the x-slabs or (x, y) tiles of a mesh (``parallel/sharded_step.py``)
+and the preinlet replicated: every rank advances the preinlet identically,
+so the coupling needs no collective; each rank that owns global row 0 (x
+coordinate 0) writes its y tile of the plane into its block of
+``bc_state``.
 """
 
 from __future__ import annotations
@@ -206,18 +207,18 @@ def build_coupled_shardmap_runner(pre_cfg: StepConfig, main_cfg: StepConfig, mes
                                   drive_gain: float = 1e-3, pulse_profile=None,
                                   pulse_period_steps: int = 0):
     """``run(st, n)``: n coupled steps along x with the main domain on this
-    rank's x-slab of ``mesh`` (``parallel.XMesh``) and the preinlet replicated.
+    rank's x-slab or (x, y) tile of ``mesh`` (``parallel.Mesh``) and the
+    preinlet replicated.
 
     ``st`` is the rank's state (``shard_preinlet_state``): the main state's
-    slabs, with its slab of ``bc_state``, and the whole preinlet.  Every
+    tiles, with its tile of ``bc_state``, and the whole preinlet.  Every
     rank computes the drive, the preinlet step, the plane and the injection
-    identically; rank 0, which owns global row 0, writes the plane into its
-    ``bc_state`` block; the main domain runs the sharded step."""
+    identically; each rank of x coordinate 0, which owns global row 0,
+    writes its y tile of the plane into its ``bc_state`` block (the
+    reference's ``plane_local``); the main domain runs the sharded step."""
     from ..parallel.sharded_step import build_shardmap_step, sharded_unsupported_reason
+    from ..parallel.sharding import tile
 
-    if len(mesh.axis_names) > 1:
-        # rank 0 writes the whole inlet plane into its rows of bc_state
-        raise ValueError("the distributed preInlet runs on a 1-D x mesh only")
     reason = sharded_unsupported_reason(main_cfg, mesh)
     if reason is not None:
         raise ValueError(f"the sharded step does not cover {reason}")
@@ -225,6 +226,8 @@ def build_coupled_shardmap_runner(pre_cfg: StepConfig, main_cfg: StepConfig, mes
     local_main = build_shardmap_step(main_cfg, mesh)
     Lp = int(pre_cfg.shape[0])
     dtype = main_cfg.dtype
+    _, _, y0, Yl = tile(mesh, *main_cfg.shape[:2])
+    inlet = mesh.coord("x") == 0
 
     def step(st: PreInletState) -> PreInletState:
         if st.main.bc_state is None:
@@ -233,9 +236,9 @@ def build_coupled_shardmap_runner(pre_cfg: StepConfig, main_cfg: StepConfig, mes
             st, pre_step, Lp, dtype, target_mean_velocity, drive_gain, pulse_profile,
             pulse_period_steps)
         bc = st.main.bc_state
-        if mesh.rank == 0:
+        if inlet:
             bc = bc.clone()
-            bc[:, 0] = plane
+            bc[:, 0] = plane[:, y0:y0 + Yl]
         main2 = local_main(st.main._replace(bc_state=bc, cells=tuple(main_cells)))
         return PreInletState(pre=pre2, main=main2, body_force=bf, crossings=new_crossings)
 
@@ -248,7 +251,7 @@ def build_coupled_shardmap_runner(pre_cfg: StepConfig, main_cfg: StepConfig, mes
 
 
 def shard_preinlet_state(st: PreInletState, mesh) -> PreInletState:
-    """The rank's PreInletState: the main state's slabs (``bc_state``
+    """The rank's PreInletState: the main state's tiles (``bc_state``
     included) and, replicated from rank 0, the preinlet, the drive and the
     crossings (a collective: every rank passes the same global state)."""
     from ..parallel import comm

@@ -48,7 +48,6 @@ from hemocell_tpu_torch.fluid.stream_collide import stream_collide
 from hemocell_tpu_torch.fluid.stream_collide_2x import stream_collide_2x
 from hemocell_tpu_torch.fluid.stream_collide_kx import stream_collide_kx
 from hemocell_tpu_torch.parallel import sharded_unsupported_reason
-from hemocell_tpu_torch.parallel.sharded_step import build_shardmap_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEMPLATES = os.path.join(REPO, "tools", "cell_templates")
@@ -380,21 +379,38 @@ def test_cell_free_runner_does_not_fuse_a_field(fluid_k):
             np.testing.assert_allclose(out.f.numpy(), np.asarray(ref.f), rtol=0, atol=1e-12)
 
 
-def test_distribute_refuses_a_field(case_dir):
+def test_distribute_refuses_a_field(case_dir, monkeypatch):
+    """The owner runner refuses a field body force, as JAX's does; the
+    sharded step covers it (JAX hands it to its GSPMD runner), so the
+    facade of a distributed run logs the owner's refusal and takes the
+    sharded step (its run on 2 ranks: tests/test_torch_sharded_gspmd_runs.py)."""
+    from hemocell_tpu_torch import hemocell as thmod
+    from hemocell_tpu_torch import parallel
+    from hemocell_tpu_torch.parallel import XMesh, owner_unsupported_reason
+
     cfg = fluid_config_from_numpy(_flags(), 1.1, body_force=_field(), device="cpu")
     mesh = SimpleNamespace(axis_names=("x",), size=2, rank=0, device=torch.device("cpu"))
-    reason = sharded_unsupported_reason(cfg, mesh)
-    assert "field body force" in reason
-    with pytest.raises(ValueError, match="field body force"):
-        build_shardmap_step(cfg, mesh)
+    assert sharded_unsupported_reason(cfg, mesh) is None
+    assert owner_unsupported_reason(cfg, 2) == "non-uniform body-force field"
     uniform = fluid_config_from_numpy(_flags(), 1.1, body_force=(1e-5, 0, 0), device="cpu")
     assert sharded_unsupported_reason(uniform, mesh) is None
-    # the facade of a distributed run refuses when it builds its runner
+    # the facade of a distributed run falls back when it builds its runner
     _, thc = _facades(case_dir)
+    thc.load_particles()
     thc.set_body_force(_field())
-    thc._mesh = mesh
-    with pytest.raises(NotImplementedError, match="field body force"):
-        thc.iterate(1)
+    thc._build()
+    messages, built = [], []
+    monkeypatch.setattr(thmod.hlog, "log", lambda *parts, **_: messages.append(
+        " ".join(str(p) for p in parts)))
+    monkeypatch.setattr(parallel, "build_shardmap_runner",
+                        lambda c, m: built.append((c, m)) or "sharded runner")
+    thc._mesh = XMesh(group=None, rank=0, size=2, device=torch.device("cpu"),
+                      backend="gloo")
+    assert thc._distributed_runner(thc._step_cfg) == ("sharded runner", "shardmap")
+    assert built == [(thc._step_cfg, thc._mesh)]
+    assert messages == ["distribute: owner-computes particle sharding unavailable "
+                        "(non-uniform body-force field); falling back to the "
+                        "vertex-replicated shard_map runner"]
 
 
 def test_write_output_force_under_a_field(case_dir, tmp_path):

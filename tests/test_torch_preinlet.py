@@ -102,7 +102,7 @@ def port_case(centres, slots, dtype=torch.float64, device="cpu", shape=SHAPE, **
 _JAX_STEPPERS = {}
 
 
-def jax_case(centres, slots, **stepper):
+def jax_case(centres, slots, shape=SHAPE, **stepper):
     """(stepper, PreInletState) of the JAX reference in f64; the jitted
     stepper is cached per option set."""
     import jax.numpy as jnp
@@ -120,21 +120,22 @@ def jax_case(centres, slots, **stepper):
     tc = TypeConfig(name="cell", model_fn=MODEL_REGISTRY["RbcHighOrderModel"],
                     topo=topology_device_arrays(build_topology(mesh), dtype=dtype),
                     material=material_dict(MaterialConstants(**MATERIAL)))
-    walls, mflags = _flags()
-    pre_cfg = StepConfig(shape=SHAPE, flags=jnp.asarray(walls), omega=1.0, types=[tc],
+    walls, mflags = _flags(shape)
+    pre_cfg = StepConfig(shape=shape, flags=jnp.asarray(walls), omega=1.0, types=[tc],
                          body_force=jnp.asarray([DRIVE, 0, 0], dtype), dtype=dtype,
                          use_pallas=False)
-    main_cfg = StepConfig(shape=SHAPE, flags=jnp.asarray(mflags), omega=1.0, types=[tc],
+    main_cfg = StepConfig(shape=shape, flags=jnp.asarray(mflags), omega=1.0, types=[tc],
                           dtype=dtype, use_pallas=False)
     pre_cells = make_cell_state(mesh.vertices[None] + np.array(centres)[:, None], dtype=dtype)
     far = np.repeat(mesh.vertices[None] + np.array([-100.0, 6.0, 6.0]), slots, axis=0)
     main_cells = make_cell_state(far, dtype=dtype)._replace(alive=jnp.zeros(slots, bool))
     pre_state = initial_sim_state(pre_cfg, [pre_cells])
     main_state = initial_sim_state(main_cfg, [main_cells])._replace(
-        bc_state=jnp.zeros((3,) + SHAPE, dtype))
+        bc_state=jnp.zeros((3,) + tuple(shape), dtype))
     st = PreInletState(pre=pre_state, main=main_state, body_force=jnp.asarray(DRIVE, dtype),
-                       crossings=initial_crossings(pre_state, SHAPE[0]))
-    key = (len(centres), slots, tuple(sorted((k, str(v)) for k, v in stepper.items())))
+                       crossings=initial_crossings(pre_state, shape[0]))
+    key = (len(centres), slots, tuple(shape),
+           tuple(sorted((k, str(v)) for k, v in stepper.items())))
     if key not in _JAX_STEPPERS:
         _JAX_STEPPERS[key] = make_coupled_stepper(pre_cfg, main_cfg, **stepper)
     return _JAX_STEPPERS[key], st

@@ -17,7 +17,8 @@ gloo ranks against the JAX reference on the CPU.
   * On 4 ranks, the f32 periodic box against the JAX shard_map runner on a
     4-device mesh, at the tolerances of ``tests/test_shardmap_step.py``.
   * Every cell array is bitwise equal on every rank.
-  * Every configuration the sharded runner does not cover raises.
+  * What the sharded runner does not cover raises: a mesh of three axes
+    and a tile below the smallest.
   * ``HemoCell.distribute()`` against the single-device facade, and
     ``cases/pipeflow30 --distribute --device cpu``, on 2 gloo ranks.
 
@@ -243,15 +244,27 @@ def _assert_matches_jax_shardmap(out):
 
 def test_unsupported_configurations_raise():
     """What the sharded step does not cover raises at build, before any
-    collective: Lees-Edwards on a 2-D mesh, Lees-Edwards with walls, a
-    field body force, and X not divisible by the ranks."""
+    collective: a mesh of three axes, and a tile below the smallest (more
+    ranks along an axis than nodes).  What JAX hands to its GSPMD runner
+    (Lees-Edwards on a 2-D mesh or with walls, a field body force, X not
+    divisible by the ranks) is covered."""
     from hemocell_tpu_torch.parallel import XMesh, build_shardmap_step, xy_mesh
+    from hemocell_tpu_torch.parallel.sharded_step import sharded_unsupported_reason
 
     cfg, _ = _port_case("cepac")
     walled, _ = _port_case("walled")
     periodic, _ = _port_case("periodic")
     mesh = XMesh(group=None, rank=0, size=2, device=torch.device("cpu"), backend="gloo")
-    bad = {
+    three = dataclasses.replace(mesh, size=8, shape=(2, 2, 2), axis_names=("x", "y", "z"))
+    with pytest.raises(ValueError, match="does not cover a mesh of more than two axes"):
+        build_shardmap_step(cfg, three)
+    narrow = dataclasses.replace(mesh, size=17, rank=16)  # X = 32 over 17: a row a rank
+    assert sharded_unsupported_reason(cfg, narrow) is None
+    with pytest.raises(ValueError, match=r"Y=16 over 17 ranks along y gives tiles of "
+                                         r"\[1, 1, .*, 0\] nodes"):
+        build_shardmap_step(cfg, dataclasses.replace(mesh, size=17, shape=(1, 17),
+                                                     axis_names=("x", "y")))
+    covered = {
         "Lees-Edwards on a 2-D mesh": (
             dataclasses.replace(periodic, lees_edwards_velocity=1e-3), xy_mesh(mesh, (2, 1))),
         "Lees-Edwards with walls": (dataclasses.replace(walled, lees_edwards_velocity=1e-3),
@@ -260,10 +273,8 @@ def test_unsupported_configurations_raise():
                              mesh),
         "not divisible": (cfg, dataclasses.replace(mesh, size=3)),
     }
-    for what, (c, m) in bad.items():
-        with pytest.raises(ValueError, match="does not cover"):
-            build_shardmap_step(c, m)
-            pytest.fail(f"{what} was accepted")
+    for what, (c, m) in covered.items():
+        assert sharded_unsupported_reason(c, m) is None, what
 
 
 def _case_worker(rank, world, tmp):
