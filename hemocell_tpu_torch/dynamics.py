@@ -40,6 +40,13 @@ fluid kernels (K9, or K8 for two steps).  The preInlet
 dynamic overrides: ``bc_state``, the velocity of the main domain's inlet
 nodes, and ``body_force_state``, the preinlet's adaptive drive, both on
 the card, so that the coupling never waits for it.
+
+Each phase that runs on an iteration opens a span (``utils/profiler.span``):
+``repulsion``, ``spread``, ``interior``, ``fluid``, ``velocity`` (where the
+lazy Guo-shifted velocity first runs), ``cepac``, ``interp``, ``solidify``,
+``advance`` and ``mechanics``.  A call of the runner is one ``runner.run``
+span, and its fused launches one ``fluid``.  Unless a profiler records, a
+span is off and costs one check.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from .fluid.stream_collide_2x import stream_collide_2x
 from .fluid.stream_collide_kx import SUPPORTED_K, stream_collide_kx
 from .fluid.tresca import tresca_field
 from .ibm import kernels
+from .utils.profiler import span
 
 
 class SimState(NamedTuple):
@@ -307,19 +315,25 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
         frep = None
         if have_vertices and (rep_on or brep_on):
             frep = torch.cat([cs.force_repulsion.reshape(-1, 3) for cs in cells])
-            if rep_on and it % cfg.repulsion_every == 0:
-                frep = rep.repulsion(pos_flat, cell_index(counts, device), active, shape,
-                                     cfg.repulsion_constant, cfg.repulsion_cutoff)
-            if brep_on and it % cfg.boundary_repulsion_every == 0:
-                fb = rep.boundary_repulsion_forces(
-                    pos_flat, active, bmask, shape,
-                    cfg.boundary_repulsion_constant, cfg.boundary_repulsion_cutoff)
-                # With inner repulsion on, its recompute zeroes the carried
-                # force and the boundary force adds on top.  Boundary-only:
-                # nothing would ever zero the carried force, so (a deliberate
-                # deviation shared with the reference package) the boundary
-                # recompute REPLACES the carried value at its timescale.
-                frep = frep + fb if rep_on else fb
+            rep_now = rep_on and it % cfg.repulsion_every == 0
+            brep_now = brep_on and it % cfg.boundary_repulsion_every == 0
+            if rep_now or brep_now:
+                with span("repulsion", state.f):
+                    if rep_now:
+                        frep = rep.repulsion(pos_flat, cell_index(counts, device), active,
+                                             shape, cfg.repulsion_constant,
+                                             cfg.repulsion_cutoff)
+                    if brep_now:
+                        fb = rep.boundary_repulsion_forces(
+                            pos_flat, active, bmask, shape,
+                            cfg.boundary_repulsion_constant, cfg.boundary_repulsion_cutoff)
+                        # With inner repulsion on, its recompute zeroes the
+                        # carried force and the boundary force adds on top.
+                        # Boundary-only: nothing would ever zero the carried
+                        # force, so (a deliberate deviation shared with the
+                        # reference package) the boundary recompute REPLACES
+                        # the carried value at its timescale.
+                        frep = frep + fb if rep_on else fb
             for k, part in enumerate(_split(frep, counts)):
                 cells[k] = cells[k]._replace(force_repulsion=part)
 
@@ -332,19 +346,20 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
             bf = bf_uniform.to(device)[:, None, None, None]
         le_w = None
         if have_vertices:
-            pos_lat = pos_flat  # the kernels wrap unwrapped positions
-            if le_u is not None:
-                # Lees-Edwards image mapping: a vertex in z-image w sees the
-                # fluid displaced by w*d(t) in x and moving at w*U
-                le_w = torch.floor(pos_flat[:, 2] / shape[2])
-                x_eff = pos_flat[:, 0] - le_w * float(state.le_displacement)
-                pos_lat = torch.stack([x_eff, pos_flat[:, 1], pos_flat[:, 2]], dim=1)
-            f_vert = torch.cat([cs.force.reshape(-1, 3) for cs in cells])
-            # total = constitutive (capped) + repulsion (uncapped)
-            force = kernels.spread(pos_lat, f_vert, active, flags_now, cfg.f_limit,
-                                   force_extra=frep)
-            if bf is not None:
-                force = force + bf
+            with span("spread", state.f):
+                pos_lat = pos_flat  # the kernels wrap unwrapped positions
+                if le_u is not None:
+                    # Lees-Edwards image mapping: a vertex in z-image w sees
+                    # the fluid displaced by w*d(t) in x and moving at w*U
+                    le_w = torch.floor(pos_flat[:, 2] / shape[2])
+                    x_eff = pos_flat[:, 0] - le_w * float(state.le_displacement)
+                    pos_lat = torch.stack([x_eff, pos_flat[:, 1], pos_flat[:, 2]], dim=1)
+                f_vert = torch.cat([cs.force.reshape(-1, 3) for cs in cells])
+                # total = constitutive (capped) + repulsion (uncapped)
+                force = kernels.spread(pos_lat, f_vert, active, flags_now, cfg.f_limit,
+                                       force_extra=frep)
+                if bf is not None:
+                    force = force + bf
             force_arg = force_view = force
         else:
             # uniform [3] / [3,1,1,1], the field twice, or None
@@ -355,53 +370,64 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
         omega_field_new = state.omega_field
         if cfg.interior_every and state.omega_field is not None:
             entire = cfg.interior_entire_every or cfg.interior_every
-            if it % entire == 0:
-                omega_field_new = omega_raycast(cells)
-            if (cfg.interior_entire_every and entire != cfg.interior_every
-                    and it % cfg.interior_every == 0):
-                omega_field_new = omega_membrane(omega_field_new, cells)
+            raycast = it % entire == 0
+            sweep = (cfg.interior_entire_every and entire != cfg.interior_every
+                     and it % cfg.interior_every == 0)
+            if raycast or sweep:
+                with span("interior", state.f):
+                    if raycast:
+                        omega_field_new = omega_raycast(cells)
+                    if sweep:
+                        omega_field_new = omega_membrane(omega_field_new, cells)
             omega_now = omega_field_new
 
         # ---- 3: fluid collide + stream -----------------------------------
         le_disp_new = state.le_displacement
-        if le_u is not None:
-            force_field = force_view
-            if force_field is None or force_field.shape[1:] != shape:
-                force_field = torch.zeros((3,) + shape, dtype=dtype, device=device)
-                if bf is not None:
-                    force_field = force_field + bf
-            f_new = le_stream_collide(state.f, force_field, omega_now,
-                                      state.le_displacement, le_u)
-            # wrap by X: only disp mod X enters the image shift and the
-            # particle mapping, and an unbounded accumulator loses precision
-            le_disp_new = torch.remainder(state.le_displacement + le_u, shape[0])
-        else:
-            bc_now = bc_velocity if state.bc_state is None else state.bc_state
-            f_new = stream_collide(state.f, force_arg, omega_now, flags_now, bc_now,
-                                   cfg.bc_density)
+        with span("fluid", state.f):
+            if le_u is not None:
+                force_field = force_view
+                if force_field is None or force_field.shape[1:] != shape:
+                    force_field = torch.zeros((3,) + shape, dtype=dtype, device=device)
+                    if bf is not None:
+                        force_field = force_field + bf
+                f_new = le_stream_collide(state.f, force_field, omega_now,
+                                          state.le_displacement, le_u)
+                # wrap by X: only disp mod X enters the image shift and the
+                # particle mapping, and an unbounded accumulator loses
+                # precision
+                le_disp_new = torch.remainder(state.le_displacement + le_u, shape[0])
+            else:
+                bc_now = bc_velocity if state.bc_state is None else state.bc_state
+                f_new = stream_collide(state.f, force_arg, omega_now, flags_now, bc_now,
+                                       cfg.bc_density)
 
         u_new = None
 
         def velocity():
             nonlocal u_new
             if u_new is None:
-                _, u_new = lbm.macroscopic(f_new, force_view)
+                with span("velocity", f_new):
+                    _, u_new = lbm.macroscopic(f_new, force_view)
             return u_new
 
         # ---- 3b: CEPAC advection-diffusion (one-way velocity coupling) ---
         cepac_new = state.cepac
         if cfg.cepac_tau is not None and state.cepac is not None:
-            cepac_new = ad.ad_stream_collide(state.cepac, velocity(), cfg.cepac_tau,
-                                             cepac_mask, cepac_value)
+            u = velocity()  # a phase of its own, outside this one
+            with span("cepac", state.f):
+                cepac_new = ad.ad_stream_collide(state.cepac, u, cfg.cepac_tau,
+                                                 cepac_mask, cepac_value)
 
         # ---- 4: interpolate the fluid velocity to the vertices -----------
         if have_vertices and it % cfg.particle_every == 0:
-            vel_flat = kernels.interp(velocity(), pos_lat, active, flags_now)
-            if le_u is not None:
-                # Galilean frame shift of the wrapped image, inside the
-                # interp step only: the carried velocity already holds its
-                # own shift
-                vel_flat[:, 0] += le_w * le_u
+            u = velocity()
+            with span("interp", state.f):
+                vel_flat = kernels.interp(u, pos_lat, active, flags_now)
+                if le_u is not None:
+                    # Galilean frame shift of the wrapped image, inside the
+                    # interp step only: the carried velocity already holds
+                    # its own shift
+                    vel_flat[:, 0] += le_w * le_u
             for k, part in enumerate(_split(vel_flat, counts)):
                 cells[k] = cells[k]._replace(vel=part)
 
@@ -409,40 +435,47 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
         flags_new, binding_new = state.flags_state, state.binding_mask
         if (cfg.solidify_every and state.flags_state is not None
                 and it % cfg.solidify_every == 0):
-            flags_new, binding_new = solidify(cells, state.flags_state, state.binding_mask,
-                                              f_new, force_view, omega_now)
+            with span("solidify", state.f):
+                flags_new, binding_new = solidify(cells, state.flags_state,
+                                                  state.binding_mask, f_new, force_view,
+                                                  omega_now)
             flags_now = flags_new
 
         # ---- 5: advance + wall-contact deletion --------------------------
-        new_pos = []
-        for k, cs in enumerate(cells):
-            if cfg.material_integration == 2 and cs.vel_prev is not None:
-                new_pos.append(cs.pos + 1.5 * cs.vel - 0.5 * cs.vel_prev)
-                cells[k] = cs._replace(vel_prev=cs.vel)
-            else:
-                new_pos.append(cs.pos + cs.vel)
-        hits = None
-        if has_boundaries and have_vertices:
-            hits = kernels.wall_hit_cells(new_pos, flags_now)
-        off = 0
-        for k, (cs, (nc, _)) in enumerate(zip(cells, counts)):
-            alive = cs.alive
-            if hits is not None:
-                alive = alive & ~(hits[off: off + nc] > 0)
-            off += nc
-            cells[k] = cs._replace(pos=new_pos[k], alive=alive,
-                                   restime=cs.restime + alive.to(torch.int32))
+        if cells:
+            with span("advance", state.f):
+                new_pos = []
+                for k, cs in enumerate(cells):
+                    if cfg.material_integration == 2 and cs.vel_prev is not None:
+                        new_pos.append(cs.pos + 1.5 * cs.vel - 0.5 * cs.vel_prev)
+                        cells[k] = cs._replace(vel_prev=cs.vel)
+                    else:
+                        new_pos.append(cs.pos + cs.vel)
+                hits = None
+                if has_boundaries and have_vertices:
+                    hits = kernels.wall_hit_cells(new_pos, flags_now)
+                off = 0
+                for k, (cs, (nc, _)) in enumerate(zip(cells, counts)):
+                    alive = cs.alive
+                    if hits is not None:
+                        alive = alive & ~(hits[off: off + nc] > 0)
+                    off += nc
+                    cells[k] = cs._replace(pos=new_pos[k], alive=alive,
+                                           restime=cs.restime + alive.to(torch.int32))
 
         # ---- 6: constitutive model ---------------------------------------
-        for k, (tc, cs) in enumerate(zip(cfg.types, cells)):
-            if cs.pos.shape[0] == 0 or it % tc.material_every != 0:
-                continue
-            ft = tc.model_fn(cs.pos, cs.vel, tc.topo, tc.material).total
-            if ext_force[k] is not None:
-                ft = ft + ext_force[k]
-            # dead slots may hold degenerate geometry (NaN forces)
-            ft = torch.where(cs.alive[:, None, None], ft, torch.zeros_like(ft))
-            cells[k] = cs._replace(force=ft)
+        due = [k for k, (tc, cs) in enumerate(zip(cfg.types, cells))
+               if cs.pos.shape[0] and it % tc.material_every == 0]
+        if due:
+            with span("mechanics", state.f):
+                for k in due:
+                    tc, cs = cfg.types[k], cells[k]
+                    ft = tc.model_fn(cs.pos, cs.vel, tc.topo, tc.material).total
+                    if ext_force[k] is not None:
+                        ft = ft + ext_force[k]
+                    # dead slots may hold degenerate geometry (NaN forces)
+                    ft = torch.where(cs.alive[:, None, None], ft, torch.zeros_like(ft))
+                    cells[k] = cs._replace(force=ft)
 
         return state._replace(f=f_new, it=it + 1, cells=tuple(cells), cepac=cepac_new,
                               le_displacement=le_disp_new, omega_field=omega_field_new,
@@ -520,10 +553,13 @@ def build_runner(cfg: StepConfig) -> Callable[[SimState, int], SimState]:
 
     def run(state: SimState, n: int) -> SimState:
         n = int(n)
-        if pure_fluid(state):
-            state, n = fluid_loop(state, n)
-        for _ in range(n):
-            state = step(state)
+        with span("runner.run", state.f):
+            # n >= 2: at least one fused launch
+            if n >= 2 and pure_fluid(state):
+                with span("fluid", state.f):
+                    state, n = fluid_loop(state, n)
+            for _ in range(n):
+                state = step(state)
         return state
 
     return run

@@ -290,7 +290,7 @@ def test_logfile_profiler_and_directories(case_dir, tmp_path):
     prof = Profiler("run")
     for _ in range(2):
         with prof("iterate"):
-            with prof("spread", block=True):
+            with prof("spread"):
                 pass
     report = prof.report().splitlines()
     assert [line.split(":")[0] for line in report] == ["run", "  iterate", "    spread"]
