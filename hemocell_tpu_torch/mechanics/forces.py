@@ -10,6 +10,11 @@ CUDA), so a force evaluation on the card repeats bit for bit.  Force terms,
 nonlinearities and stability clamps are the same formulas, for all five
 models of the reference's registry: the RBC high-order, PLT simple, WBC
 high-order (with its rigid core) and malaria models and the NoOp tracer.
+Two expressions differ, each equal in exact arithmetic and each keeping in
+float32 the digits that coordinates of 100-250 lu would take: the volume's
+triple products are taken about each cell's first vertex (``cell_origin``),
+not the lattice's origin, and the bending's ring centroid less its vertex
+is summed from the differences, not from the positions.
 """
 
 from __future__ import annotations
@@ -126,13 +131,32 @@ def _add(out, table, src):
     return out + pad[:, table].sum(dim=2)
 
 
+def cell_origin(pos):
+    """Each cell's reference point for its volume, its first vertex: [NC, 1,
+    3] of ``pos [NC, NV, 3]``.  A vertex of the cell, taken as it is, costs
+    no reduction and rounds alike in every implementation; it lies within a
+    cell's diameter of every other vertex."""
+    return pos[:, :1]
+
+
+def _vol6(v0, cr, origin):
+    """Six times each triangle's signed volume about ``origin``:
+    (v0 - o) . ((v1 - v0) x (v2 - v0)) = (v0 - o) . ((v1 - o) x (v2 - o)),
+    with ``cr`` the second factor.  A closed mesh's volume does not depend
+    on o; about the cell's own origin the products are of the cell's size,
+    not of its coordinates, and keep their digits in float32 (about the
+    lattice's origin, at coordinates of 100-250 lu, float32 rounding eats a
+    change of volume of a few percent)."""
+    return _dot(v0 - origin, cr)
+
+
 def _triangle_geometry(pos, tri):
     v0, v1, v2 = pos[:, tri[:, 0]], pos[:, tri[:, 1]], pos[:, tri[:, 2]]
     cr = _cross(v1 - v0, v2 - v0)
     dbl_area = _norm(cr)
     area = 0.5 * dbl_area
     normal = cr / torch.clamp(dbl_area, min=1e-30)[..., None]
-    vol6 = _dot(v0, _cross(v1, v2))
+    vol6 = _vol6(v0, cr, cell_origin(pos))
     return v0, v1, v2, area, normal, vol6
 
 
@@ -191,9 +215,11 @@ def _patch_bending_forces(pos, t, k_bend, fb):
     """High-order patch-normal bending (RBC)."""
     ring, mask, ring_n, pairs = t["ring"], t["ring_mask"], t["ring_n"], t["ring_pairs"]
     NC, NV = pos.shape[0], pos.shape[1]
-    nbr = pos[:, ring]  # [NC, NV, 6, 3]
-    centroid = torch.sum(nbr * mask[..., None], dim=2) / ring_n[:, None]
-    dev = centroid - pos
+    # the ring's centroid less the vertex, summed from the differences: a
+    # centroid of the positions themselves would lose the deviation's digits
+    # to float32 rounding at coordinates of 100-250 lu
+    rel = pos[:, ring] - pos[:, :, None, :]  # [NC, NV, 6, 3]
+    dev = torch.sum(rel * mask[..., None], dim=2) / ring_n[:, None]
 
     a = pos[:, pairs[..., 0]] - pos[:, :, None, :]
     b = pos[:, pairs[..., 1]] - pos[:, :, None, :]
@@ -341,9 +367,10 @@ MODEL_REGISTRY = {
 
 def cell_volume(pos, tri):
     """Signed volumes [NC] of a batch of cells ``pos [NC, NV, 3]`` (the
-    expansion the models use): one [NC, NT] gather of each corner."""
+    expansion the models use, about each cell's first vertex): one [NC, NT]
+    gather of each corner."""
     v0, v1, v2 = pos[:, tri[:, 0]], pos[:, tri[:, 1]], pos[:, tri[:, 2]]
-    return torch.sum(_dot(v0, _cross(v1, v2)), dim=-1) / 6.0
+    return torch.sum(_vol6(v0, _cross(v1 - v0, v2 - v0), cell_origin(pos)), dim=-1) / 6.0
 
 
 def cell_area(pos, tri):

@@ -7,7 +7,8 @@ phase 4b) against the JAX reference on the CPU:
     and binding sites and removed; a shear threshold that is never met
     blocks it.  ``flags_state``, ``binding_mask``, ``alive`` and
     ``solidify`` equal the reference's exactly after every step, the
-    populations to 1e-9 (f64);
+    populations to 1e-9 (f64; where the run is rounding alone, against the
+    reference with the port's volume);
   * both facades (f32) on a walled chamber with a platelet on the binding
     wall (``enable_solidify``, ``populate_binding_sites``) and an RBC with
     ``enable_interior_viscosity``: the same runtime flags, binding sites,
@@ -33,6 +34,7 @@ from hemocell_tpu.cells.state import place_cells
 from hemocell_tpu.config.defaults import FLAG_VELOCITY, FLAG_WALL
 from hemocell_tpu.fluid import tresca as jt
 from hemocell_tpu.mechanics import MODEL_REGISTRY, MaterialConstants, material_dict
+from hemocell_tpu.mechanics import forces as jforces
 from hemocell_tpu.mechanics import topology_device_arrays
 from hemocell_tpu.mesh import build_topology, ellipsoid_from_sphere
 from hemocell_tpu_torch import HemoCell
@@ -138,7 +140,52 @@ def test_solidify_pipeline_matches_jax():
     assert b[12, 12, 4] or b[12, 12, 3]
 
 
-def test_solidify_threshold_blocks_like_jax():
+def _geometry_about_first_vertex(pos, tri):
+    """The JAX package's ``_triangle_geometry`` in the port's form
+    (``hemocell_tpu_torch/mechanics/forces.py``): each triangle's triple
+    product about its cell's first vertex, not the lattice's origin.  Equal
+    in exact arithmetic: it changes the rounding alone."""
+    v0, v1, v2 = pos[tri[:, 0]], pos[tri[:, 1]], pos[tri[:, 2]]
+    cr = jnp.cross(v1 - v0, v2 - v0)
+    dbl_area = jnp.linalg.norm(cr, axis=1)
+    normal = cr / jnp.maximum(dbl_area, 1e-30)[:, None]
+    return v0, v1, v2, 0.5 * dbl_area, normal, jnp.sum((v0 - pos[0]) * cr, axis=-1)
+
+
+@pytest.fixture
+def jax_volume_about_first_vertex(monkeypatch):
+    """The JAX package with the port's volume, for a run that amplifies
+    rounding past its 1e-9 (``test_solidify_threshold_run_is_rounding``)."""
+    monkeypatch.setattr(jforces, "_triangle_geometry", _geometry_about_first_vertex)
+
+
+def _jax_run(steps=4):
+    jcfg, js, _, _ = _plt_setup(shear_threshold=1e12)
+    jstep = jax.jit(jdyn.build_step(jcfg))
+    for _ in range(steps):
+        js = jstep(js)
+    return np.asarray(js.f)
+
+
+def test_solidify_threshold_run_is_rounding(monkeypatch):
+    """The platelet at rest carries forces of rounding alone: after 4 steps
+    the JAX package against itself with the volume about the first vertex
+    differs by about as much as its populations hold (1.7e-8 measured, the
+    largest population 1.7e-8), and with the positions its membrane
+    geometry sees scaled by 1 + 1e-15 by more (4.6e-8).  So a 1e-9 comparison holds the port to the JAX
+    package only where both take the volume about the same point."""
+    plain = _jax_run()
+    geometry = jforces._triangle_geometry
+    variants = {"scaled": lambda pos, tri: geometry(pos * (1.0 + 1e-15), tri),
+                "first vertex": _geometry_about_first_vertex}
+    for name, fn in variants.items():
+        with monkeypatch.context() as m:
+            m.setattr(jforces, "_triangle_geometry", fn)
+            gap = np.abs(_jax_run() - plain).max()
+        assert gap > 10 * 1e-9 and gap > 0.5 * np.abs(plain).max(), (name, gap)
+
+
+def test_solidify_threshold_blocks_like_jax(jax_volume_about_first_vertex):
     jcfg, js, tcfg, ts = _plt_setup(shear_threshold=1e12)
     jstep, tstep = jax.jit(jdyn.build_step(jcfg)), tdyn.build_step(tcfg)
     for _ in range(4):
