@@ -476,10 +476,14 @@ def repeat_run(tag, name, run, state, n):
 
 
 def tile_bins_check(tag, pos, force, active, flags, f_lim):
-    """K2's tile bins on the card against the plain ones: the tile starts
-    equal, each tile's list the same set of vertices (the kernels place a
-    tile's vertices in the order of their atomics, which the integer sums
-    do not see).  Returns the binning's own time in ms."""
+    """K2's tile bins on the card against the plain ones: the library's
+    near-cubic tile is ``binned.gather_tiles``', the tile starts equal, each
+    tile's list the same set of vertices (the placement takes a tile's
+    places in the order of its warps' atomics, which the integer sums do
+    not see).  Two launches (the counting, whose last block scans the
+    counts, and the placement).  Returns the binning's own time in ms."""
+    import ctypes
+
     import torch
 
     from hemocell_tpu_torch import _build
@@ -489,6 +493,10 @@ def tile_bins_check(tag, pos, force, active, flags, f_lim):
     X, Y, Z = shape
     P = pos.shape[0]
     tiles = binned.gather_tiles(shape)
+    lib_tile = (ctypes.c_int * 3)()
+    _build.lib().hc_gather_tiles(X, Y, Z, ctypes.addressof(lib_tile))
+    if tuple(lib_tile) != tiles:
+        raise AssertionError(f"K2's tile {tuple(lib_tile)} is not the mirror's {tiles}")
     T = int(np.prod([-(-a // b) for a, b in zip(shape, tiles)]))
     ints, _ = kernels.scratch("hc_tile_bins_ints", pos.device, P, shape, 2 * P)
     rec = torch.empty(8 * P, device=pos.device)
@@ -522,6 +530,102 @@ def tile_bins_check(tag, pos, force, active, flags, f_lim):
     if not ok:
         raise AssertionError("K2's tile bins differ from the plain ones")
     return ms
+
+
+def k2_body_force_check(tag, pos, force, active, flags, f_lim, field, bf):
+    """K2 with the body force added in its gather's store, by value from
+    the host and from device memory: bit for bit ``field + bf`` (``field``
+    K2's own field without it), each call counted in
+    ``spread.body_force_stores``.  Returns its time and the check."""
+    import torch
+
+    from hemocell_tpu_torch.ibm import kernels
+
+    bf3 = bf.reshape(3).float()
+    stores = kernels.spread.body_force_stores
+    same = {where: torch.equal(kernels.spread(pos, force, active, flags, f_lim, body_force=b),
+                               field + bf3[:, None, None, None])
+            for where, b in (("host", bf3.cpu()), ("device", bf3))}
+    counted = kernels.spread.body_force_stores == stores + 2
+    ms = time_ms(lambda: kernels.spread(pos, force, active, flags, f_lim, body_force=bf3), 50)
+    print(f"{tag} spread with the body force in the store: bit for bit the field plus it "
+          f"{same} (counted {counted}); {ms:.4f} ms", flush=True)
+    if not (all(same.values()) and counted):
+        raise AssertionError("spread's body force in the store differs from the added one")
+    return dict(ms=ms, bitwise=same)
+
+
+def k2_cube256_row():
+    """K2 at the benchmark's ``cube256_rbc`` rank: 4400 RBC of the presets'
+    template on their grid (2,824,800 vertices) in a periodic 256^3 box,
+    forces of the cap's magnitude and the uncapped extra force: two launches
+    bit for bit, the tile bins against the plain ones, the body force in the
+    store, and the times (the binning alone, each of the three kernels by
+    the profiler, index_add_ with precomputed weights beside them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hemocell_tpu_torch.cells.state import place_cells
+    from hemocell_tpu_torch.ibm import coupling, kernels
+    from hemocell_tpu_torch.mesh import rbc_from_sphere
+    from hemocell_tpu_torch.presets import default_params, grid_centers
+
+    tag, shape, dev = "[3] 256^3", (256, 256, 256), torch.device("cuda")
+    params = default_params()
+    mesh = rbc_from_sphere(3.91e-6 / params.dx, 600)
+    rng = np.random.default_rng(7)
+    centers = grid_centers(shape, 4400)
+    cells = place_cells(mesh.vertices, centers, rng.uniform(0, 2 * np.pi, (len(centers), 3)))
+    pos = torch.as_tensor(cells.reshape(-1, 3), dtype=torch.float32, device=dev)
+    P, N = pos.shape[0], int(np.prod(shape))
+    g = torch.Generator(device="cpu").manual_seed(3)
+    f_lim = params.f_limit
+    force = (0.6 * f_lim * torch.randn((P, 3), generator=g)).to(dev)
+    extra = (1e-3 * f_lim * torch.randn((P, 3), generator=g)).to(dev)
+    active = torch.ones(P, device=dev)
+    flags = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    field = kernels.spread(pos, force, active, flags, f_lim, force_extra=extra)
+    bitwise = torch.equal(field, kernels.spread(pos, force, active, flags, f_lim,
+                                                force_extra=extra))
+    ref = coupling.spread_forces(pos, force, active, flags, f_lim, extra)
+    err, tol = float((field - ref).abs().max()), 1e-5 * float(ref.abs().max())
+    del ref
+    print(f"{tag} spread ({P} vertices): two launches bitwise equal {bitwise}; max_abs_err "
+          f"{err:.3e} (tol {tol:.3e})", flush=True)
+    if not (bitwise and err <= tol):
+        raise AssertionError("spread at 256^3 disagrees with itself or its plain version")
+    bins_ms = tile_bins_check(tag, pos, force, active, flags, f_lim)
+    fold = k2_body_force_check(tag, pos, force, active, flags, f_lim,
+                               kernels.spread(pos, force, active, flags, f_lim),
+                               torch.tensor([5e-7, 0.0, 0.0], device=dev))
+    ms_x = time_ms(lambda: kernels.spread(pos, force, active, flags, f_lim,
+                                          force_extra=extra), 50)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            kernels.spread(pos, force, active, flags, f_lim, force_extra=extra)
+        torch.cuda.synchronize()
+    sums = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = sums.get(e.name, (0.0, 0))
+            sums[e.name] = (us + e.device_time, n + 1)
+    kernel_us = {name: us / n for name, (us, n) in sums.items()}  # a launch's mean
+    idx, w = coupling.stencil(coupling.wrap_positions(pos, shape), flags, active)
+    flat = ((idx[..., 0] * shape[1] + idx[..., 1]) * shape[2] + idx[..., 2]).reshape(-1)
+    touched = int(torch.unique(flat).numel())
+    contrib = (w[..., None] * (coupling.cap_force(force, f_lim) + extra)[:, None, :]
+               ).reshape(-1, 3)
+    acc = torch.zeros((N, 3), device=dev)
+    lib = time_ms(lambda: acc.zero_().index_add_(0, flat, contrib), 50)
+    del idx, w, flat, contrib, acc
+    b, by = bound_ms(P * 40 + touched * 1 + 3 * N * 4, P * 120)
+    print(f"{tag} spread with force_extra {ms_x:.4f} ms (bound {b:.4f} ms by {by}, "
+          f"index_add_ {lib:.4f} ms), the binning alone {bins_ms:.4f} ms; device us a call "
+          + ", ".join(f"{k} {v:.1f}" for k, v in kernel_us.items()), flush=True)
+    torch.cuda.empty_cache()
+    return dict(P=P, ms=ms_x, bound_ms=b, bound_by=by, library_ms=lib, bins_ms=bins_ms,
+                kernel_us=kernel_us, bitwise=bitwise, max_abs_err=err, tol=tol,
+                with_body_force=fold)
 
 
 def phase_card():
@@ -655,6 +759,7 @@ def compare_fluid_ibm(tag, f, pos, force, active, flags, f_lim, omega, bf):
         raise AssertionError("spread: two launches on the same inputs differ")
     if not (err_x <= tol_x and scale_x > 1.5 * scale):
         raise AssertionError("spread with force_extra disagrees with its plain version")
+    fold = k2_body_force_check(tag, pos, force, active, flags, f_lim, field, bf)
     contrib_x = (w[..., None] * (coupling.cap_force(force, f_lim) + extra)[:, None, :]
                  ).reshape(-1, 3)
     lib_x = time_ms(lambda: acc.zero_().index_add_(0, flat, contrib_x), 50)
@@ -669,7 +774,8 @@ def compare_fluid_ibm(tag, f, pos, force, active, flags, f_lim, omega, bf):
                          lambda: coupling.spread_forces(pos, force, active, flags, f_lim), 10),
                      bound_ms=b, bound_by=by, library_ms=lib, bitwise=bitwise, bins_ms=bins_ms,
                      with_force_extra=dict(max_abs_err=err_x, tol=tol_x, ms=ms_x,
-                                           library_ms=lib_x, bitwise=bitwise_x)))
+                                           library_ms=lib_x, bitwise=bitwise_x),
+                     with_body_force=fold))
 
     # K1 stream-collide with the spread force field + body force
     force_field = field + bf
@@ -818,6 +924,7 @@ def phase_kernels(hc):
           flush=True)
     rows = {r["name"]: r for r in rows}
     rows["stream_collide"]["with_omega_field"] = k1_omega_field(hc, f, pos, force, active, bf)
+    rows["spread"]["cube256_rbc"] = k2_cube256_row()
     rows.update(guo_velocity_rows())
     return rows
 

@@ -33,7 +33,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "hc_stream_collide": [_P, _P, _P, _I, _F, _F, _F, _P, _F, _P, _P, _I, _F,
                           _P, _I, _I, _I, _P],
-    "hc_spread": [_P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P],
+    # K2: ..., the body force's mode, its three values and its device
+    # pointer, then the shape
+    "hc_spread": [_P, _P, _P, _P, _P, _F, _P, _P, _P, _I, _F, _F, _F, _P, _I, _I, _I, _I,
+                  _P],
     "hc_interp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # K4 takes the per-type layout: host arrays (pointers, NC, NV) and the
     # number of types
@@ -67,6 +70,7 @@ SIGNATURES = {
     # the binning on the card (csrc/bin_vertices.cu)
     "hc_slab_starts": [_P, _I, _P, _P, _P, _I, _I, _P],
     "hc_bin_tiles": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "hc_gather_tiles": [_I, _I, _I, _P],
 }
 # entries that return a count of int32 scratch words, not a CUDA error
 SIZES = {

@@ -8,13 +8,15 @@
 //   gathers; in the reference hemocell_tpu/ibm/pallas_ibm.py::build_bins),
 //   and gives K2 the tile bins its tile gather reads.
 //
-// Bound on the H100: launch latency and bytes.  The tile count reads each
-//   vertex once (position, force, activity, the flags of its 8 nodes) and
-//   writes its record and its slots (64 B); the placement's blocks each
-//   read the tile counts, then each vertex's record and slots, and write
-//   1-8 list entries.  The slab counts read each position once and write
-//   the [X, tiles] counts, which the scan reads and writes once; K11's rank
-//   reads each position again.
+// Bound on the H100: bytes.  The tile count reads each vertex once
+//   (position, force, activity, the flags of its 8 nodes) and writes its
+//   32-byte record, its key and its places (4 B an entry); its last block
+//   reads and writes the T tile counts once.  The placement reads each
+//   key, each entry's place and start and writes the entry.  In practice
+//   the count waits on its loads and atomics (a round of a vertex a thread
+//   a loop, about 60% of its time before any binning at 256^3).  The slab
+//   counts read each position once and write the [X, tiles] counts, which
+//   the scan reads and writes once; K11's rank reads each position again.
 
 #include "binned.cuh"
 
@@ -23,139 +25,111 @@ namespace {
 
 // ---- tile bins -----------------------------------------------------------
 
-__global__ void __launch_bounds__(COUNT_THREADS)
+__global__ void __launch_bounds__(COUNT_THREADS, 6)
     count_k2_kernel(const float* __restrict__ pos, const float* __restrict__ force,
                     const float* __restrict__ force_extra, const float* __restrict__ active,
                     const uint8_t* __restrict__ flags, float f_limit, int P, int X, int Y, int Z,
                     Tiles t, TileBins tb, float4* __restrict__ rec) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  // a grid-stride loop over rounds of a vertex a thread, the block's end
+  // (its ticket) once; at least one block, the last one writing the starts
+  extern __shared__ int local[];  // [T] with T <= SMEM_TILES (count_tiles)
+  const int T = t.nx * t.ny * t.nz;
   int bits = 0;
-  bool live = false;
-  float px = 0.f, py = 0.f, pz = 0.f;
-  if (p < P) {
-    const float act = active[p];
-    const float* p3 = pos + 3 * (long long)p;
-    px = wrap_pos(p3[0], X);
-    py = wrap_pos(p3[1], Y);
-    pz = wrap_pos(p3[2], Z);
-    float fx = force[3 * (long long)p], fy = force[3 * (long long)p + 1],
-          fz = force[3 * (long long)p + 2];
-    const float mag = sqrtf(fx * fx + fy * fy + fz * fz);
-    if (mag > f_limit) {
-      const float scale = f_limit / fmaxf(mag, 1e-30f);
-      fx *= scale; fy *= scale; fz *= scale;
-    }
-    if (force_extra != nullptr) {  // uncapped (repulsion), added after the cap
-      fx += force_extra[3 * (long long)p];
-      fy += force_extra[3 * (long long)p + 1];
-      fz += force_extra[3 * (long long)p + 2];
-    }
-    // the weights' fluid mask and renormalisation: coupling.stencil
-    int bx, by, bz;
-    base_of(px, py, pz, X, Y, Z, bx, by, bz);
-    const float gx = px - floorf(px), gy = py - floorf(py), gz = pz - floorf(pz);
-    const int cx[2] = {bx, bx + 1 == X ? 0 : bx + 1};
-    const int cy[2] = {by, by + 1 == Y ? 0 : by + 1};
-    const int cz[2] = {bz, bz + 1 == Z ? 0 : bz + 1};
-    float total = 0.f;
-    int mask = 0;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int a = (c >> 2) & 1, b = (c >> 1) & 1, cc = c & 1;
-      if (flags[((long long)cx[a] * Y + cy[b]) * Z + cz[cc]] == 0) {
-        total += ((a ? gx : 1.0f - gx) * (b ? gy : 1.0f - gy)) * (cc ? gz : 1.0f - gz);
-        mask |= 1 << c;
+  for (long long r0 = (long long)blockIdx.x * blockDim.x; r0 < P;
+       r0 += (long long)gridDim.x * blockDim.x) {
+    const long long p = r0 + threadIdx.x;
+    bool live = false;
+    float px = 0.f, py = 0.f, pz = 0.f;
+    if (p < P) {
+      const float act = active[p];
+      const float* p3 = pos + 3 * p;
+      px = wrap_pos_fast(p3[0], X);
+      py = wrap_pos_fast(p3[1], Y);
+      pz = wrap_pos_fast(p3[2], Z);
+      float fx = force[3 * p], fy = force[3 * p + 1], fz = force[3 * p + 2];
+      const float mag = sqrtf(fx * fx + fy * fy + fz * fz);
+      if (mag > f_limit) {
+        const float scale = f_limit / fmaxf(mag, 1e-30f);
+        fx *= scale; fy *= scale; fz *= scale;
       }
+      if (force_extra != nullptr) {  // uncapped (repulsion), added after the cap
+        fx += force_extra[3 * p];
+        fy += force_extra[3 * p + 1];
+        fz += force_extra[3 * p + 2];
+      }
+      // the weights' fluid mask and renormalisation: coupling.stencil
+      int bx, by, bz;
+      base_of(px, py, pz, X, Y, Z, bx, by, bz);
+      const float gx = px - floorf(px), gy = py - floorf(py), gz = pz - floorf(pz);
+      const int cx[2] = {bx, bx + 1 == X ? 0 : bx + 1};
+      const int cy[2] = {by, by + 1 == Y ? 0 : by + 1};
+      const int cz[2] = {bz, bz + 1 == Z ? 0 : bz + 1};
+      float total = 0.f;
+      int mask = 0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int a = (c >> 2) & 1, b = (c >> 1) & 1, cc = c & 1;
+        if (flags[((long long)cx[a] * Y + cy[b]) * Z + cz[cc]] == 0) {
+          total += ((a ? gx : 1.0f - gx) * (b ? gy : 1.0f - gy)) * (cc ? gz : 1.0f - gz);
+          mask |= 1 << c;
+        }
+      }
+      const float w = act / fmaxf(total, 1e-30f);
+      rec[2 * p] = make_float4(px, py, pz, w);
+      rec[2 * p + 1] = make_float4(fx, fy, fz, __int_as_float(mask));
+      // dead cells (act 0) deposit nothing; the placement reads the same
+      // test from the record (w is 0 exactly where act is)
+      live = w != 0.f;
+      // the renormalised weights of a vertex sum to 1: no node gets more
+      // than |act| * max |F| from it
+      if (live)
+        bits = max(bits, __float_as_int(fabsf(act) *
+                                        fmaxf(fabsf(fx), fmaxf(fabsf(fy), fabsf(fz)))));
     }
-    rec[2 * (long long)p] = make_float4(px, py, pz, act / fmaxf(total, 1e-30f));
-    rec[2 * (long long)p + 1] = make_float4(fx, fy, fz, __int_as_float(mask));
-    live = act != 0.f;  // dead cells deposit nothing
-    // the renormalised weights of a vertex sum to 1: no node gets more
-    // than |act| * max |F| from it
-    if (live) bits = __float_as_int(fabsf(act) * fmaxf(fabsf(fx), fmaxf(fabsf(fy), fabsf(fz))));
+    count_tiles(p, P, live, px, py, pz, X, Y, Z, t, T, local, tb);
   }
-  count_tiles(p < P ? p : -1, live, px, py, pz, X, Y, Z, t, t.nx * t.ny * t.nz, tb);
-  block_bound(bits, tb.bound);
+  finish_counts(bits, tb, T);
 }
 
 // K11's counting: the vertices kept within their slab's capacity (record
 // activity 1) into their tiles; the periodic weights of a vertex sum to 1.
+// A grid-stride loop, as count_k2_kernel.
 __global__ void __launch_bounds__(COUNT_THREADS)
     count_records_kernel(const float4* __restrict__ rec, int P, int X, int Y, int Z, Tiles t,
                          TileBins tb) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ int local[];  // [T] with T <= SMEM_TILES (count_tiles)
+  const int T = t.nx * t.ny * t.nz;
   int bits = 0;
-  bool live = false;
-  float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (p < P) {
-    A = rec[2 * (long long)p];
-    live = A.w != 0.f;
-    if (live) {
-      const float4 B = rec[2 * (long long)p + 1];
-      bits = __float_as_int(fmaxf(fabsf(B.x), fmaxf(fabsf(B.y), fabsf(B.z))));
+  for (long long r0 = (long long)blockIdx.x * blockDim.x; r0 < P;
+       r0 += (long long)gridDim.x * blockDim.x) {
+    const long long p = r0 + threadIdx.x;
+    bool live = false;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p < P) {
+      A = rec[2 * p];
+      live = A.w != 0.f;
+      if (live) {
+        const float4 B = rec[2 * p + 1];
+        bits = max(bits, __float_as_int(fmaxf(fabsf(B.x), fmaxf(fabsf(B.y), fabsf(B.z)))));
+      }
     }
+    count_tiles(p, P, live, A.x, A.y, A.z, X, Y, Z, t, T, local, tb);
   }
-  count_tiles(p < P ? p : -1, live, A.x, A.y, A.z, X, Y, Z, t, t.nx * t.ny * t.nz, tb);
-  block_bound(bits, tb.bound);
+  finish_counts(bits, tb, T);
 }
 
-// Each block scans the tile counts itself (they are few) and places its
-// vertices into their tiles' lists; block 0 writes the starts and the
-// scale (and resets the bound), the last block to finish zeroes the counts
-// for the next call.
-__global__ void place_kernel(const float4* __restrict__ rec, int P, int X, int Y, int Z, Tiles t,
-                             TileBins tb) {
-  extern __shared__ int start[];  // [T + 1]
-  __shared__ int sh[32];
-  __shared__ bool last;
-  const int T = t.nx * t.ny * t.nz;
-  int carry = 0;
-  for (int c = 0; c < T; c += blockDim.x) {
-    const int i = c + threadIdx.x;
-    int total;
-    const int ex = block_exclusive_scan(i < T ? tb.counts[i] : 0, sh, &total);
-    if (i < T) start[i] = carry + ex;
-    carry += total;
-  }
-  if (threadIdx.x == 0) {
-    start[T] = carry;
-    __threadfence();
-    last = atomicAdd(tb.ticket, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (blockIdx.x == 0) {
-    for (int i = threadIdx.x; i <= T; i += blockDim.x) tb.starts[i] = start[i];
-    if (threadIdx.x == 0) {
-      const float m = __int_as_float(*tb.bound);
-      *tb.bound = 0;
-      double scale = 1.0;
-      if (!(m <= 3.402823466e38f)) {
-        scale = __longlong_as_double(0x7ff8000000000000LL);  // a force is not finite
-      } else if (m > 0.f) {
-        int e;
-        frexpf(m, &e);  // m < 2^e
-        scale = ldexp(1.0, 30 - e);
-      }
-      *tb.scale = scale;
-    }
-  }
-  if (last) {  // every block has read the counts
-    for (int i = threadIdx.x; i < T; i += blockDim.x) tb.counts[i] = 0;
-    if (threadIdx.x == 0) *tb.ticket = 0u;
-  }
+// Each live vertex writes its index into its tiles' lists, at the start
+// of each list plus the place the counting gave it there: it reads its
+// stencil's key (4 bytes), its places and the starts, not its record.
+__global__ void __launch_bounds__(PLACE_THREADS) place_kernel(int P, Tiles t, TileBins tb) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
-  const float4 A = rec[2 * (long long)p];
-  if (A.w == 0.f) return;
-  int bx, by, bz, ids[8];
-  base_of(A.x, A.y, A.z, X, Y, Z, bx, by, bz);
-  stencil_tiles(bx, by, bz, X, Y, Z, t, ids);
-  const int4* s4 = reinterpret_cast<const int4*>(tb.slot + 8 * (long long)p);
-  const int4 s0 = s4[0], s1 = s4[1];
-  const int slots[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  int ids[8];
+  key_tiles(__ldg(tb.key + p), t, ids);
 #pragma unroll
   for (int c = 0; c < 8; ++c)
-    if (ids[c] >= 0) tb.list[start[ids[c]] + slots[c]] = p;
+    if (ids[c] >= 0)
+      tb.list[__ldg(tb.starts + ids[c]) + __ldg(tb.slot + (long long)c * P + p)] = p;
 }
 
 // ---- slab bins -----------------------------------------------------------
@@ -279,29 +253,107 @@ int blocks(long long n, int per) { return (int)((n + per - 1) / per); }
 
 int slab_smem(int X) { return SLAB_WARPS * X * (int)sizeof(int); }
 
+// The share of a tile's entries a stencil adds along an axis of L nodes cut
+// in tiles of t: the bases whose +1 node lies in the next tile, 1 where one
+// tile spans the axis.
+double axis_entries(int t, int L) {
+  const int n = blocks(L, t);
+  return n > 1 ? 1.0 + (double)n / L : 1.0;
+}
+
+// The candidate extents of a tile along an axis of L nodes: the powers of
+// two below L, and L.
+int axis_candidates(int L, int* out) {
+  int n = 0;
+  for (int t = 1; t < L; t *= 2) out[n++] = t;
+  out[n++] = L;
+  return n;
+}
+
+// The strides of the sums: the 8 nodes of a stencil, at offsets {0, 1} x
+// {0, sy} x {0, sx}, in 8 different banks of 32, where the padding costs
+// little (a z run of 16 or more, a plane of 64 words or more).
+void pad_strides(Tiles& t) {
+  const int r = t.tz % 32;
+  t.sy = t.tz >= 16 && (r <= 1 || r == 31) ? t.tz + 2 : t.tz;
+  t.sx = t.ty * t.sy;
+  if (t.sx >= 64) {
+    const int own[4] = {0, 1, t.sy % 32, (t.sy + 1) % 32};
+    for (;; ++t.sx) {  // found within 32 words
+      bool clash = false;
+      for (int a = 0; a < 4; ++a)
+        for (int b = 0; b < 4; ++b) clash = clash || (t.sx + own[b]) % 32 == own[a];
+      if (!clash) break;
+    }
+  }
+  t.words = t.tx * t.sx;
+}
+
+// The near-cubic tile of at most `budget` nodes: of the candidate extents,
+// the fewest entries a vertex makes; then the fewest tiles; then the
+// longest z, then y (the first found).  tz at least 8 where Z allows (stores
+// of 32 bytes along z).
+Tiles cut_tiles(int X, int Y, int Z, int budget) {
+  int cx[33], cy[33], cz[33];
+  const int nx = axis_candidates(X, cx), ny = axis_candidates(Y, cy),
+            nz = axis_candidates(Z, cz);
+  const int min_tz = min(Z, 8);
+  Tiles best{};
+  double best_cost = 0.0;
+  long long best_T = 0;
+  for (int k = nz - 1; k >= 0; --k) {
+    if (cz[k] < min_tz) continue;
+    for (int j = ny - 1; j >= 0; --j) {
+      for (int i = nx - 1; i >= 0; --i) {
+        if ((long long)cx[i] * cy[j] * cz[k] > budget) continue;
+        const double cost = axis_entries(cx[i], X) * axis_entries(cy[j], Y) *
+                            axis_entries(cz[k], Z);
+        const long long T = (long long)blocks(X, cx[i]) * blocks(Y, cy[j]) * blocks(Z, cz[k]);
+        if (best_T == 0 || cost < best_cost - 1e-12 ||
+            (cost <= best_cost + 1e-12 && T < best_T)) {
+          best = Tiles{cx[i], cy[j], cz[k], blocks(X, cx[i]), blocks(Y, cy[j]),
+                       blocks(Z, cz[k]), 0, 0, 0};
+          best_cost = cost;
+          best_T = T;
+        }
+      }
+    }
+  }
+  return best;
+}
+
+// The tiles of a lattice: TILE_NODES nodes a tile, halved down to
+// MIN_TILE_NODES while the lattice has fewer than MIN_TILES of them (a small
+// lattice's densest tiles would otherwise hold the gather's last blocks).
+Tiles find_tiles(int X, int Y, int Z) {
+  Tiles t = cut_tiles(X, Y, Z, TILE_NODES);
+  for (int budget = TILE_NODES / 2;
+       budget >= MIN_TILE_NODES && (long long)t.nx * t.ny * t.nz < MIN_TILES; budget /= 2)
+    t = cut_tiles(X, Y, Z, budget);
+  pad_strides(t);
+  return t;
+}
+
 }  // namespace
 
+// The tiles of the last lattice asked for are kept: every call of K2 asks
+// for them three times.
 Tiles gather_tiles(int X, int Y, int Z) {
-  Tiles t;
-  const int per_node = 3 * 2 * (int)sizeof(int);  // three sums of two words
-  t.tz = min(Z, TILE_BYTES / per_node);
-  t.tx = min(8, X);
-  t.ty = min(8, Y);
-  while ((long long)per_node * t.tx * t.ty * t.tz > TILE_BYTES) {
-    if (t.ty >= t.tx && t.ty > 1) t.ty = (t.ty + 1) / 2;
-    else t.tx = (t.tx + 1) / 2;
+  static thread_local int key[3] = {0, 0, 0};
+  static thread_local Tiles kept;
+  if (key[0] != X || key[1] != Y || key[2] != Z) {
+    kept = find_tiles(X, Y, Z);
+    key[0] = X;
+    key[1] = Y;
+    key[2] = Z;
   }
-  t.nx = blocks(X, t.tx);
-  t.ny = blocks(Y, t.ty);
-  t.nz = blocks(Z, t.tz);
-  t.smem = per_node * t.tx * t.ty * t.tz;
-  return t;
+  return kept;
 }
 
 long long tile_bins_ints(int P, int X, int Y, int Z) {
   const Tiles t = gather_tiles(X, Y, Z);
   const long long T = (long long)t.nx * t.ny * t.nz;
-  return 4 + 8LL * P + T + (T + 1) + 8LL * P;
+  return 4 + T + (T + 1) + P + 8LL * P + 8LL * P;
 }
 
 TileBins tile_bins_carve(int* s, int P, int X, int Y, int Z) {
@@ -311,10 +363,11 @@ TileBins tile_bins_carve(int* s, int P, int X, int Y, int Z) {
   tb.scale = reinterpret_cast<double*>(s);
   tb.bound = s + 2;
   tb.ticket = reinterpret_cast<unsigned*>(s + 3);
-  tb.slot = s + 4;  // 16-byte aligned: read and written as int4
-  tb.counts = tb.slot + 8LL * P;
+  tb.counts = s + 4;
   tb.starts = tb.counts + T;
-  tb.list = tb.starts + T + 1;
+  tb.key = tb.starts + T + 1;
+  tb.slot = tb.key + P;
+  tb.list = tb.slot + 8LL * P;
   return tb;
 }
 
@@ -332,32 +385,54 @@ SlabBins slab_bins_carve(int* s, int P, int X) {
   return sb;
 }
 
+// The blocks of `threads` that the card holds at once (every SM full), for
+// a grid-stride kernel: the first call's count is kept.
+int resident_blocks(const void* kernel, int threads, int& kept) {
+  if (kept == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    kept = max(1, sms * per_sm);
+  }
+  return kept;
+}
+
+// The counting's shared memory: the tile counts where they fit.
+int count_smem(const Tiles& t) {
+  const int T = t.nx * t.ny * t.nz;
+  return T <= SMEM_TILES ? T * (int)sizeof(int) : 0;
+}
+
+// The counting's grid: a block a round of vertices where they count in
+// shared memory, else the blocks the card holds at once, each looping.
+int count_grid(const void* kernel, int P, const Tiles& t, int& resident) {
+  const int all = max(1, blocks(P, COUNT_THREADS));
+  if (count_smem(t) > 0) return all;
+  return min(all, resident_blocks(kernel, COUNT_THREADS, resident));
+}
+
 int tile_bins_count_k2(const float* pos, const float* force, const float* force_extra,
                        const float* active, const uint8_t* flags, float f_limit, int P, int X,
-                       int Y, int Z, const TileBins& tb, float4* rec, cudaStream_t s) {
-  if (P > 0)
-    count_k2_kernel<<<blocks(P, COUNT_THREADS), COUNT_THREADS, 0, s>>>(
-        pos, force, force_extra, active, flags, f_limit, P, X, Y, Z, gather_tiles(X, Y, Z), tb,
-        rec);
+                       int Y, int Z, const Tiles& t, const TileBins& tb, float4* rec,
+                       cudaStream_t s) {
+  static thread_local int resident = 0;
+  count_k2_kernel<<<count_grid((const void*)count_k2_kernel, P, t, resident), COUNT_THREADS,
+                    count_smem(t), s>>>(pos, force, force_extra, active, flags, f_limit, P, X,
+                                        Y, Z, t, tb, rec);
   return (int)cudaGetLastError();
 }
 
-int tile_bins_place(const TileBins& tb, const float4* rec, int P, int X, int Y, int Z,
-                    cudaStream_t s) {
-  const Tiles t = gather_tiles(X, Y, Z);
-  const int smem = (t.nx * t.ny * t.nz + 1) * (int)sizeof(int);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(place_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  place_kernel<<<max(blocks(P, PLACE_THREADS), 1), PLACE_THREADS, smem, s>>>(rec, P, X, Y, Z, t,
-                                                                            tb);
+int tile_bins_place(const TileBins& tb, int P, const Tiles& t, cudaStream_t s) {
+  place_kernel<<<max(blocks(P, PLACE_THREADS), 1), PLACE_THREADS, 0, s>>>(P, t, tb);
   return (int)cudaGetLastError();
 }
 
-int tile_bins_count_records(const float4* rec, int P, int X, int Y, int Z, const TileBins& tb,
-                            cudaStream_t s) {
-  if (P > 0)
-    count_records_kernel<<<blocks(P, COUNT_THREADS), COUNT_THREADS, 0, s>>>(
-        rec, P, X, Y, Z, gather_tiles(X, Y, Z), tb);
+int tile_bins_count_records(const float4* rec, int P, int X, int Y, int Z, const Tiles& t,
+                            const TileBins& tb, cudaStream_t s) {
+  static thread_local int resident = 0;
+  count_records_kernel<<<count_grid((const void*)count_records_kernel, P, t, resident),
+                         COUNT_THREADS, count_smem(t), s>>>(rec, P, X, Y, Z, t, tb);
   return (int)cudaGetLastError();
 }
 
@@ -406,8 +481,8 @@ extern "C" int hc_bin_tiles(const void* pos, const void* force, const void* acti
   const long long T = (long long)t.nx * t.ny * t.nz;
   int err = hc::tile_bins_count_k2((const float*)pos, (const float*)force, nullptr,
                                    (const float*)active, (const uint8_t*)flags, f_limit, P, X,
-                                   Y, Z, tb, (float4*)rec, s);
-  if (!err) err = hc::tile_bins_place(tb, (const float4*)rec, P, X, Y, Z, s);
+                                   Y, Z, t, tb, (float4*)rec, s);
+  if (!err) err = hc::tile_bins_place(tb, P, t, s);
   if (!err)
     err = (int)cudaMemcpyAsync(starts, tb.starts, (T + 1) * sizeof(int),
                                cudaMemcpyDeviceToDevice, s);
@@ -415,6 +490,17 @@ extern "C" int hc_bin_tiles(const void* pos, const void* force, const void* acti
     err = (int)cudaMemcpyAsync(list, tb.list, 8LL * P * sizeof(int), cudaMemcpyDeviceToDevice,
                                s);
   return err;
+}
+
+// The tile shape K2 and K11 cut a lattice into: tile [3] = (TX, TY, TZ),
+// for the checks of chip_smoke.py and the tests on the card.
+extern "C" int hc_gather_tiles(int X, int Y, int Z, void* tile) {
+  const hc::Tiles t = hc::gather_tiles(X, Y, Z);
+  int* out = (int*)tile;
+  out[0] = t.tx;
+  out[1] = t.ty;
+  out[2] = t.tz;
+  return 0;
 }
 
 // The slab counts alone (K12's first two launches), for the checks of

@@ -1,36 +1,58 @@
 // The deterministic binned spread shared by K2 (csrc/spread.cu) and K11
 // (csrc/ibm_static.cu), and the x-slab counts of K11 and K12.
 //
-// The field is cut into tiles of TX x TY x TZ nodes (gather_tiles).
+// The field is cut into near-cubic tiles of TX x TY x TZ nodes
+// (gather_tiles), shaped from the lattice so that a stencil spans as few
+// tiles as it can: of the extents that are powers of two or an axis's
+// length, those of at most TILE_NODES nodes (whose 64-bit sums fit a
+// block's shared memory) in which a vertex makes the fewest list entries,
+// (1 + 1/TX)(1 + 1/TY)(1 + 1/TZ) on average (8 x 16 x 16 at 256^3: 1.27;
+// z columns of 4 x 2 x 256 would make 1.875).  TZ is at
+// least 8 where Z allows, so the gather's stores run 32 bytes or more along
+// z.  A lattice with fewer than MIN_TILES such tiles takes smaller ones, down
+// to MIN_TILE_NODES nodes (248x56x56: 8 x 8 x 8, 1519 tiles): with a tile
+// per block, the densest tiles of a small lattice would hold its last
+// blocks.
 //
-// Tile bins (csrc/bin_vertices.cu): each live vertex is entered in the
-//   list of every tile that one of the 8 nodes of its stencil lies in (1 to
-//   8 tiles, most often 1).  The counting kernel writes each vertex's
-//   32-byte record in vertex order (wrapped position, weight scale, force,
-//   fluid mask of its 8 corners: K2 reads the flags here, once) and
-//   counts it into its tiles: integer atomics in shared memory give its
-//   slot within the block, then one global atomic per tile and block gives
-//   the block's base (tile counters are few and hot: one atomic per vertex
-//   would queue at them).  It also takes the largest |deposit| a vertex can
-//   make (a block max, then one integer atomicMax of the float's bits).
-//   The placement kernel's blocks each scan the tile counts (they are few)
-//   and write their vertices into their tiles' lists; its first block sets
-//   the fixed-point scale 2^(30 - e), with 2^e above that bound: a deposit
-//   rounds to an integer below 2^30 in magnitude, its rounding error is at
-//   most 2^-31 of the bound.
+// Tile bins (csrc/bin_vertices.cu), two launches that sweep no tile a
+//   block: each live vertex is entered in the list of every tile that one
+//   of the 8 nodes of its stencil lies in (1 to 8 tiles, most often 1).
+//   * The counting kernel writes each vertex's 32-byte record in vertex
+//     order (wrapped position, weight scale, force, fluid mask of its 8
+//     corners: K2 reads the flags here, once) and its stencil's key (the
+//     tile of its base node and the axes its +1 nodes cross into the next
+//     tile), and gives each of its entries its place in its tile's list
+//     (count_tiles): with T <= SMEM_TILES tiles a block counts in shared
+//     memory and takes one global atomic a touched tile; beyond, the lanes
+//     of a warp that share a tile take their places with one global atomic
+//     (a cell's vertices are consecutive, so a warp's 32 touch few tiles).
+//     The places, in the order of the atomics, go to a corner-major [8, P]
+//     array.  It takes the largest |deposit| a vertex can make (a block
+//     max, then one integer atomicMax of the float's bits).  Its blocks loop
+//     over the vertices, so that few blocks end; the last block to finish
+//     (a ticket) scans the T counts into the starts of the lists, zeroes
+//     them for the next call, and sets the fixed-point scale 2^(30 - e),
+//     with 2^e above that bound: a deposit rounds to an integer below 2^30
+//     in magnitude, its rounding error is at most 2^-31 of the bound.
+//   * The placement kernel reads each vertex's key and places and writes
+//     its index into its tiles' lists: no scan and no atomic.
 //
 // Tile gather (csrc/spread.cu): one block per tile, holding the tile's
 //   [3, TX*TY*TZ] sums in shared memory as 64-bit integers (a signed low
 //   32-bit word and a high word that takes the low word's rare wraps: the
-//   thread whose atomic wrapped the low word adds +-1 to the high one).  It
-//   stages its listed records in shared memory and walks them, eight lanes
-//   per vertex, one per corner: the corner's weight times the record's
-//   scale, on a fluid corner in the tile, times the force rounds to an
-//   integer at the fixed-point scale and is added there.  Then it writes
-//   every node of the tile once with plain stores.  Integer sums do not
-//   depend on the order of the additions, so the lists' order (that of the
-//   atomics) does not matter: the field is the same bit for bit on every
-//   launch.  No float atomics, no zeroing pass over the field.
+//   thread whose atomic wrapped the low word adds +-1 to the high one); the
+//   x and y strides are padded so that a stencil's 8 nodes lie in 8 banks.
+//   It stages its listed records in shared memory and walks them, eight
+//   lanes per vertex, one per corner: the corner's weight times the
+//   record's scale, on a fluid corner in the tile, times the force rounds
+//   to an integer at the fixed-point scale and is added there.  Then it
+//   writes every node of the tile once with plain stores, a thread a node
+//   along z, adding a uniform body force where the caller gives one (one
+//   float32 addition of the node's value, as PyTorch's add would make it
+//   after the spread).  Integer sums do not depend on the order of the
+//   additions, so the lists' order (that of the atomics) and the tiling do
+//   not matter: the field is the same bit for bit on every launch.  No
+//   float atomics, no zeroing pass over the field.
 //
 // Slab bins (csrc/bin_vertices.cu): the stable rank of each vertex in its
 //   x-slab floor(x) mod X, in vertex order, for the capacity of K11 and
@@ -74,29 +96,35 @@ namespace hc {
 constexpr int SLAB_WARPS = 8;   // warps (tiles) per block
 constexpr int SLAB_ROUNDS = 4;  // rounds of 32 vertices per tile
 constexpr int SLAB_TILE = 32 * SLAB_ROUNDS;
-constexpr int PLACE_THREADS = 256;
-constexpr int TILE_BYTES = 80 * 1024;   // the sums of a tile: two blocks an SM
-constexpr int COUNT_THREADS = 256;      // vertices a counting block takes
-constexpr int COUNT_SMEM_TILES = 8192;  // tiles a block counts in shared memory
+constexpr int PLACE_THREADS = 256;   // vertices a placing block takes
+constexpr int TILE_NODES = 2048;     // nodes of a tile: 48 KB of sums
+constexpr int MIN_TILES = 1024;      // fewer tiles than this: smaller ones,
+constexpr int MIN_TILE_NODES = 512;  // down to this many nodes
+constexpr int COUNT_THREADS = 256;   // vertices a counting block takes a round
+constexpr int SCAN_PER_THREAD = 16;  // tile counts a thread of the last block scans a round
+constexpr int SMEM_TILES = 2048;     // the most tiles a counting block counts in shared memory
 
-// The tiles of the field: TX x TY x TZ nodes a block.
+// The tiles of the field: TX x TY x TZ nodes a block; the sums of a node
+// (ox, oy, oz) of the tile lie at (ox * sx + oy * sy + oz) in shared memory.
 struct Tiles {
   int tx, ty, tz;
   int nx, ny, nz;
-  int smem;  // bytes of shared memory the sums of a tile take
+  int sx, sy;  // the padded strides of the sums
+  int words;   // ints of one of the six arrays of sums: tx * sx
 };
 
 // Scratch of the tile bins, carved from one int32 buffer that is zero
-// before the first call; `bound` and `counts` are zero again after every
-// call.
+// before the first call; `bound`, `ticket` and `counts` are zero again
+// after every call.
 struct TileBins {
   double* scale;     // [1] the fixed-point scale of the deposits
   int* bound;        // [1] bits of the largest |deposit| bound (a float >= 0)
-  unsigned* ticket;  // [1] the placement's blocks done
+  unsigned* ticket;  // [1] the counting blocks done
   int* counts;       // [T]
   int* starts;       // [T + 1]
-  int* slot;         // [P, 8] the vertex's place in the list of the tile of
-                     // each corner, -1 where an earlier corner has that tile
+  int* key;          // [P] each vertex's stencil_key
+  int* slot;         // [8, P] a vertex's place in the list of the tile of
+                     // each corner (corner-major; where the corner has one)
   int* list;         // [8 P] the vertices of each tile
 };
 
@@ -138,15 +166,17 @@ SlabBins slab_bins_carve(int* scratch, int P, int X);
 
 // K2's counting: the records of all vertices (wrapped position; weight
 // scale active / max(total fluid weight, 1e-30); force capped at f_limit
-// plus the extra force; the fluid mask of the 8 corners), those with
-// active != 0 counted into their tiles, with the bound |active| * max |F|.
+// plus the extra force; the fluid mask of the 8 corners), the keys, those
+// with active != 0 counted into their tiles and given their places, with
+// the bound |active| * max |F|; then the starts and the scale (the counts,
+// the bound and the ticket zeroed again).  One launch, of at least one
+// block.
 int tile_bins_count_k2(const float* pos, const float* force, const float* force_extra,
                        const float* active, const uint8_t* flags, float f_limit, int P, int X,
-                       int Y, int Z, const TileBins& tb, float4* rec, cudaStream_t s);
-// After counting: starts (the counts and the bound zeroed again), the
-// scale, and the lists.
-int tile_bins_place(const TileBins& tb, const float4* rec, int P, int X, int Y, int Z,
-                    cudaStream_t s);
+                       int Y, int Z, const Tiles& t, const TileBins& tb, float4* rec,
+                       cudaStream_t s);
+// After counting: the lists.  One launch, of at least one block.
+int tile_bins_place(const TileBins& tb, int P, const Tiles& t, cudaStream_t s);
 
 // The slab counts of the wrapped x (two launches): sb.tilehist holds each
 // tile's count of each slab's vertices before it, sb.starts the slabs'
@@ -158,9 +188,9 @@ int slab_counts(const float* pos, int P, int X, int capacity, const SlabBins& sb
 int slab_bins(const float* pos, const float* force, int P, int X, int Y, int Z, int capacity,
               const SlabBins& sb, long long* overflow, float4* rec, cudaStream_t s);
 // K11's counting: the vertices whose record has activity 1 into their
-// tiles, with the bound max |force|.
-int tile_bins_count_records(const float4* rec, int P, int X, int Y, int Z, const TileBins& tb,
-                            cudaStream_t s);
+// tiles, with the bound max |force|; then the starts and the scale.
+int tile_bins_count_records(const float4* rec, int P, int X, int Y, int Z, const Tiles& t,
+                            const TileBins& tb, cudaStream_t s);
 
 long long node_bins_ints(int P, int X, int Y, int Z);
 NodeBins node_bins_carve(int* scratch, int P, int X, int Y, int Z);
@@ -169,9 +199,18 @@ NodeBins node_bins_carve(int* scratch, int P, int X, int Y, int Z);
 int node_bins(const float* pos, const int* gid, const float* active, int P, int X, int Y, int Z,
               const NodeBins& nb, cudaStream_t s);
 
-// The tile gather (csrc/spread.cu) of the records' deposits.
+// A uniform body force that the tile gather adds to every node it writes:
+// none, three floats by value, or a float [3] in device memory.
+struct BodyForce {
+  int mode;  // 0 none, 1 by value (v), 2 from device memory (dev)
+  float v[3];
+  const float* dev;
+};
+
+// The tile gather (csrc/spread.cu) of the records' deposits, plus the body
+// force.
 int tile_gather(const float4* rec, const TileBins& tb, float* out, int X, int Y, int Z,
-                cudaStream_t s);
+                const Tiles& t, const BodyForce& bf, cudaStream_t s);
 
 // ---- device helpers ------------------------------------------------------
 
@@ -207,22 +246,6 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* sh, int* total) 
   return res;
 }
 
-// The tiles the stencil with base node (bx, by, bz) reaches, in corner order
-// (corner c = (c>>2 & 1, c>>1 & 1, c & 1)), -1 where an earlier corner has
-// the same tile.
-__device__ __forceinline__ void stencil_tiles(int bx, int by, int bz, int X, int Y, int Z,
-                                              const Tiles& t, int ids[8]) {
-  const int x0 = bx / t.tx, x1 = (bx + 1 == X ? 0 : bx + 1) / t.tx;
-  const int y0 = by / t.ty, y1 = (by + 1 == Y ? 0 : by + 1) / t.ty;
-  const int z0 = bz / t.tz, z1 = (bz + 1 == Z ? 0 : bz + 1) / t.tz;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int a = (c >> 2) & 1, b = (c >> 1) & 1, cc = c & 1;
-    const bool fresh = (!a || x1 != x0) && (!b || y1 != y0) && (!cc || z1 != z0);
-    ids[c] = fresh ? ((a ? x1 : x0) * t.ny + (b ? y1 : y0)) * t.nz + (cc ? z1 : z0) : -1;
-  }
-}
-
 // The x-slab of an unwrapped x: floor of its wrap, wrapped (the wrap lies
 // in [0, L]: it may round to L).
 __device__ __forceinline__ int slab_of(float x, int X) {
@@ -246,6 +269,42 @@ __device__ __forceinline__ void base_of(float px, float py, float pz, int X, int
   if (bz >= Z) bz -= Z;
 }
 
+// The key of the stencil at a wrapped position: the tile of its base node
+// times 8 plus the axes along which its +1 nodes lie in the next tile (bit
+// 2 x, 1 y, 0 z; a tile that spans its axis holds both); -1 where the
+// vertex is not live.  The +1 node's tile is the next one, wrapped.
+__device__ __forceinline__ int stencil_key(bool live, float px, float py, float pz, int X,
+                                           int Y, int Z, const Tiles& t) {
+  if (!live) return -1;
+  int bx, by, bz;
+  base_of(px, py, pz, X, Y, Z, bx, by, bz);
+  const int x0 = bx / t.tx, y0 = by / t.ty, z0 = bz / t.tz;
+  const bool cx = (bx + 1 == X ? 0 : bx + 1) / t.tx != x0;
+  const bool cy = (by + 1 == Y ? 0 : by + 1) / t.ty != y0;
+  const bool cz = (bz + 1 == Z ? 0 : bz + 1) / t.tz != z0;
+  return ((x0 * t.ny + y0) * t.nz + z0) * 8 + (cx << 2 | cy << 1 | cz);
+}
+
+// The tiles a stencil's key reaches, in corner order (corner c = (c>>2 & 1,
+// c>>1 & 1, c & 1)), -1 where an earlier corner has the same tile.
+__device__ __forceinline__ void key_tiles(int key, const Tiles& t, int ids[8]) {
+  if (key < 0) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) ids[c] = -1;
+    return;
+  }
+  const int tile = key >> 3;
+  const int z0 = tile % t.nz, y0 = tile / t.nz % t.ny, x0 = tile / t.nz / t.ny;
+  const int x1 = x0 + 1 == t.nx ? 0 : x0 + 1, y1 = y0 + 1 == t.ny ? 0 : y0 + 1,
+            z1 = z0 + 1 == t.nz ? 0 : z0 + 1;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int a = (c >> 2) & 1, b = (c >> 1) & 1, cc = c & 1;
+    const bool fresh = (!a || (key & 4)) && (!b || (key & 2)) && (!cc || (key & 1));
+    ids[c] = fresh ? ((a ? x1 : x0) * t.ny + (b ? y1 : y0)) * t.nz + (cc ? z1 : z0) : -1;
+  }
+}
+
 // The largest of the block's values (>= 0, as float bits) into *bound:
 // a warp max, the warps' maxima in shared memory, one atomic per block.
 __device__ __forceinline__ void block_bound(int bits, int* bound) {
@@ -261,32 +320,33 @@ __device__ __forceinline__ void block_bound(int bits, int* bound) {
   }
 }
 
-// Count the vertex of this thread (live or not; every thread of the block
-// calls it, one vertex each) into the tiles of its stencil and keep its
-// slots.  `p` < 0 for a thread past the last vertex.  With T <=
-// COUNT_SMEM_TILES tiles the block counts in shared memory and makes one
-// global atomic per tile it touches; beyond, one global atomic per thread
-// and tile.
-__device__ __forceinline__ void count_tiles(int p, bool live, float px, float py, float pz,
-                                            int X, int Y, int Z, const Tiles& t, int T,
+// Count the vertex of this thread into the tiles of its stencil and give
+// it its place in each tile's list, in the order of the atomics (every
+// thread of the block calls it; `live` false for a dead vertex or a thread
+// past the last one).  slot [8, P] (corner-major) gets the places of the
+// corners that have a tile.
+//
+// With T <= SMEM_TILES tiles (`local` holds T ints) the block counts in
+// shared memory, each entry's rank within the block from an atomic there,
+// then one global atomic a touched tile gives the block's base in it: no
+// hot counter sees more than one atomic a block, however the vertices are
+// ordered.  Beyond, a sweep of T counters a block would cost more than
+// the vertices: each warp groups its lanes by tile (a cell's vertices are
+// consecutive, so a warp's 32 touch few tiles) and a group takes its places
+// with one global atomic, all of the warp's atomics in flight together.
+__device__ __forceinline__ void count_tiles(long long p, long long P, bool live, float px,
+                                            float py, float pz, int X, int Y, int Z,
+                                            const Tiles& t, int T, int* local,
                                             const TileBins& tb) {
-  __shared__ int local[COUNT_SMEM_TILES];
-  const bool in_smem = T <= COUNT_SMEM_TILES;
-  int ids[8];
-  if (live) {
-    int bx, by, bz;
-    base_of(px, py, pz, X, Y, Z, bx, by, bz);
-    stencil_tiles(bx, by, bz, X, Y, Z, t, ids);
-  } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) ids[c] = -1;
-  }
-  int slots[8];
-  if (in_smem) {
+  int ids[8], place[8];
+  const int key = stencil_key(live, px, py, pz, X, Y, Z, t);
+  if (p < P) tb.key[p] = key;
+  key_tiles(key, t, ids);
+  if (T <= SMEM_TILES) {
     for (int i = threadIdx.x; i < T; i += blockDim.x) local[i] = 0;
     __syncthreads();
 #pragma unroll
-    for (int c = 0; c < 8; ++c) slots[c] = ids[c] >= 0 ? atomicAdd(local + ids[c], 1) : -1;
+    for (int c = 0; c < 8; ++c) place[c] = ids[c] >= 0 ? atomicAdd(local + ids[c], 1) : 0;
     __syncthreads();
     for (int i = threadIdx.x; i < T; i += blockDim.x) {
       const int n = local[i];
@@ -295,15 +355,86 @@ __device__ __forceinline__ void count_tiles(int p, bool live, float px, float py
     __syncthreads();
 #pragma unroll
     for (int c = 0; c < 8; ++c)
-      if (ids[c] >= 0) slots[c] += local[ids[c]];
-  } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) slots[c] = ids[c] >= 0 ? atomicAdd(tb.counts + ids[c], 1) : -1;
+      if (ids[c] >= 0) tb.slot[c * P + p] = local[ids[c]] + place[c];
+    __syncthreads();  // before the next round zeroes the counts
+    return;
   }
-  if (p >= 0) {
-    int4* s4 = reinterpret_cast<int4*>(tb.slot + 8 * (long long)p);
-    s4[0] = make_int4(slots[0], slots[1], slots[2], slots[3]);
-    s4[1] = make_int4(slots[4], slots[5], slots[6], slots[7]);
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  int lead[8];      // the lane that leads the vertex's group, and its rank in it
+  unsigned any = 0u;  // the corners with a tile in some lane of the warp
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    place[c] = 0;
+    lead[c] = 0;
+    unsigned pending = __ballot_sync(FULL, ids[c] >= 0);
+    any |= (pending != 0u) << c;
+    while (pending) {  // the same in every lane
+      const int leader = __ffs(pending) - 1;
+      const int id = __shfl_sync(FULL, ids[c], leader);
+      const unsigned group = __ballot_sync(FULL, ids[c] == id);
+      if (lane == leader) place[c] = atomicAdd(tb.counts + id, __popc(group));
+      if ((group >> lane) & 1) lead[c] = leader | __popc(group & lower) << 5;
+      pending &= ~group;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (!((any >> c) & 1)) continue;  // the same in every lane
+    const int base = __shfl_sync(FULL, place[c], lead[c] & 31);
+    if (ids[c] >= 0) tb.slot[c * P + p] = base + (lead[c] >> 5);
+  }
+}
+
+// The end of a counting block (every thread calls it, `bits` its vertex's
+// bound): the block's bound, then its ticket.  The last block to finish
+// scans the T tile counts into starts [T + 1], zeroes the counts, the bound
+// and the ticket, and sets the fixed-point scale.
+__device__ __forceinline__ void finish_counts(int bits, const TileBins& tb, int T) {
+  __shared__ int sh[32];
+  __shared__ bool last;
+  block_bound(bits, tb.bound);
+  __threadfence();  // this block's atomics before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tb.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int carry = 0;
+  for (int c0 = 0; c0 < T; c0 += SCAN_PER_THREAD * blockDim.x) {
+    const int i0 = c0 + threadIdx.x * SCAN_PER_THREAD;
+    int v[SCAN_PER_THREAD], sum = 0;
+#pragma unroll
+    for (int k = 0; k < SCAN_PER_THREAD; ++k) {
+      v[k] = i0 + k < T ? __ldcg(tb.counts + i0 + k) : 0;
+      sum += v[k];
+    }
+    int total;
+    int run = carry + block_exclusive_scan(sum, sh, &total);
+#pragma unroll
+    for (int k = 0; k < SCAN_PER_THREAD; ++k) {
+      if (i0 + k < T) {
+        tb.starts[i0 + k] = run;
+        tb.counts[i0 + k] = 0;
+      }
+      run += v[k];
+    }
+    carry += total;
+  }
+  if (threadIdx.x == 0) {
+    tb.starts[T] = carry;
+    const float m = __int_as_float(__ldcg(tb.bound));
+    double scale = 1.0;
+    if (!(m <= 3.402823466e38f)) {
+      scale = __longlong_as_double(0x7ff8000000000000LL);  // a force is not finite
+    } else if (m > 0.f) {
+      int e;
+      frexpf(m, &e);  // m < 2^e
+      scale = ldexp(1.0, 30 - e);
+    }
+    *tb.scale = scale;
+    *tb.bound = 0;
+    *tb.ticket = 0u;
   }
 }
 

@@ -149,13 +149,14 @@ extern "C" int hc_spread_static(const void* pos, const void* force, int C, void*
                                 int Z, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const hc::SlabBins sb = hc::slab_bins_carve((int*)scratch, P, X);
+  const hc::Tiles t = hc::gather_tiles(X, Y, Z);
   const hc::TileBins tb =
       hc::tile_bins_carve((int*)scratch + hc::slab_bins_ints(P, X), P, X, Y, Z);
   int err = hc::slab_bins((const float*)pos, (const float*)force, P, X, Y, Z, C, sb,
                           (long long*)overflow, (float4*)rec, s);
-  if (!err) err = hc::tile_bins_count_records((const float4*)rec, P, X, Y, Z, tb, s);
-  if (!err) err = hc::tile_bins_place(tb, (const float4*)rec, P, X, Y, Z, s);
-  if (!err) err = hc::tile_gather((const float4*)rec, tb, (float*)out, X, Y, Z, s);
+  if (!err) err = hc::tile_bins_count_records((const float4*)rec, P, X, Y, Z, t, tb, s);
+  if (!err) err = hc::tile_bins_place(tb, P, t, s);
+  if (!err) err = hc::tile_gather((const float4*)rec, tb, (float*)out, X, Y, Z, t, {}, s);
   return err;
 }
 

@@ -357,11 +357,15 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                     le_w = torch.floor(pos_flat[:, 2] / shape[2])
                     x_eff = pos_flat[:, 0] - le_w * float(state.le_displacement)
                     pos_lat = torch.stack([x_eff, pos_flat[:, 1], pos_flat[:, 2]], dim=1)
-                f_vert = torch.cat([cs.force.reshape(-1, 3) for cs in cells])
-                # total = constitutive (capped) + repulsion (uncapped)
+                f_vert = cells[0].force.reshape(-1, 3) if len(cells) == 1 else torch.cat(
+                    [cs.force.reshape(-1, 3) for cs in cells])
+                # total = constitutive (capped) + repulsion (uncapped); K2
+                # adds a uniform body force as it stores the field, a field
+                # body force is added after it
+                uniform = bf_uniform if bf is not None and not is_field(bf_uniform) else None
                 force = kernels.spread(pos_lat, f_vert, active, flags_now, cfg.f_limit,
-                                       force_extra=frep)
-                if bf is not None:
+                                       force_extra=frep, body_force=uniform)
+                if bf is not None and uniform is None:
                     force = force + bf
             force_arg = force_view = force
         else:

@@ -28,7 +28,9 @@ from ..config.defaults import FLAG_FLUID
 from . import coupling
 
 _OFFSETS = [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)]
-TILE_BYTES = 80 * 1024  # csrc/binned.cuh: the sums of a tile
+TILE_NODES = 2048  # csrc/binned.cuh: the nodes of a tile (48 KB of sums),
+MIN_TILES = 1024  # halved while a lattice has fewer tiles than this,
+MIN_TILE_NODES = 512  # down to this many nodes
 
 
 def stencil_tiles(pos, shape, tile):
@@ -101,18 +103,56 @@ def fixed_point_scale(bound, n_vertices=None) -> float:
     return 2.0 ** (62 - e - max(int(n_vertices), 1).bit_length())
 
 
-def gather_tiles(shape):
-    """The kernel's tile (tx, ty, tz): TX x TY columns of TZ planes whose
-    three 64-bit sums per node fit in ``TILE_BYTES``."""
+def _axis_entries(t, L):
+    """The share of entries a stencil adds along an axis of ``L`` nodes cut
+    in tiles of ``t``: 1 + (tiles / L), 1 where one tile spans it."""
+    n = -(-L // t)
+    return 1.0 + n / L if n > 1 else 1.0
+
+
+def _cut_tiles(shape, budget):
+    """The near-cubic tile of at most ``budget`` nodes (``csrc/
+    bin_vertices.cu`` ``cut_tiles``): of the extents that are powers of two
+    below an axis's length or that length, tz at least min(Z, 8), the one in
+    which a vertex's stencil makes the fewest list entries; ties to the
+    fewest tiles, then to the longest z, then y, then x."""
     X, Y, Z = (int(s) for s in shape)
-    tz = min(Z, TILE_BYTES // 24)
-    tx, ty = min(8, X), min(8, Y)
-    while 24 * tx * ty * tz > TILE_BYTES:
-        if ty >= tx and ty > 1:
-            ty = (ty + 1) // 2
-        else:
-            tx = (tx + 1) // 2
-    return tx, ty, tz
+
+    def candidates(L):
+        return [1 << k for k in range(32) if (1 << k) < L] + [L]
+
+    best, best_key = None, None
+    for tz in reversed(candidates(Z)):
+        if tz < min(Z, 8):
+            continue
+        for ty in reversed(candidates(Y)):
+            for tx in reversed(candidates(X)):
+                if tx * ty * tz > budget:
+                    continue
+                cost = _axis_entries(tx, X) * _axis_entries(ty, Y) * _axis_entries(tz, Z)
+                T = -(-X // tx) * -(-Y // ty) * -(-Z // tz)
+                if best is None or cost < best_key[0] - 1e-12 or (
+                        cost <= best_key[0] + 1e-12 and T < best_key[1]):
+                    best, best_key = (tx, ty, tz), (cost, T)
+    return best
+
+
+def tile_budget(shape):
+    """The most nodes a tile of this lattice has: ``TILE_NODES``, halved
+    down to ``MIN_TILE_NODES`` while the lattice has fewer than
+    ``MIN_TILES`` tiles (a small lattice's densest tiles would otherwise
+    hold the gather's last blocks)."""
+    budget = TILE_NODES
+    while budget // 2 >= MIN_TILE_NODES and math.prod(
+            -(-n // t) for n, t in zip(shape, _cut_tiles(shape, budget))) < MIN_TILES:
+        budget //= 2
+    return budget
+
+
+def gather_tiles(shape):
+    """The kernels' tile (tx, ty, tz) of a lattice: ``_cut_tiles`` within
+    ``tile_budget``."""
+    return _cut_tiles(shape, tile_budget(shape))
 
 
 def spread_binned_plain(pos, force, shape, active=None, flags=None, f_limit=None,

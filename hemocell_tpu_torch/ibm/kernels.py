@@ -6,7 +6,9 @@ tensors.  On CUDA tensors it launches its kernel (``csrc/spread.cu``,
 ``csrc/interp.cu``, ``csrc/wall_hit.cu``) or raises for what the kernel
 does not take.  All take positions unwrapped; the kernels wrap them.  K2
 is the deterministic binned spread of ``csrc/binned.cuh``, whose indexing
-``ibm/binned.py`` repeats in plain PyTorch for the tests.  K4 takes the
+``ibm/binned.py`` repeats in plain PyTorch for the tests; it adds a
+uniform body force as it stores the field (``spread.body_force_stores``
+counts the calls that did, on either path).  K4 takes the
 cells' per-type positions as they are and counts a cell's wall contacts
 with one block.
 """
@@ -49,16 +51,32 @@ def check_nodes(shape, name):
         raise ValueError(f"{name}: {tuple(shape)} has too many nodes for int32 indices")
 
 
-def spread(pos, force, active, flags, f_limit, force_extra=None):
+def spread(pos, force, active, flags, f_limit, force_extra=None, body_force=None):
     """Spread vertex forces [P,3] (capped at ``f_limit``, scaled by the
     activity ``active [P]``) at unwrapped positions [P,3] onto a
     [3,X,Y,Z] field with boundary-aware trilinear weights.  ``force_extra``
-    [P,3] (the repulsion force) is added uncapped, after the cap.  On the
-    card one call bins the vertices by tile and sums each tile of the
-    field in fixed point: the result repeats bit for bit."""
+    [P,3] (the repulsion force) is added uncapped, after the cap.
+    ``body_force``, a uniform force of 3 values (a tensor or a sequence), is
+    added to every node: the field equals ``spread(...) + body_force`` bit
+    for bit.  On the card one call bins the vertices by tile and sums each
+    tile of the field in fixed point: the result repeats bit for bit.  The
+    gather adds the body force as it stores each node, taken by value from
+    a host tensor or read from a tensor on the card where it lies (no host
+    sync)."""
+    bf = None
+    if body_force is not None:
+        bf = body_force if torch.is_tensor(body_force) else torch.as_tensor(
+            body_force, dtype=torch.float64)
+        if bf.numel() != 3:
+            raise ValueError(f"spread: body_force must hold 3 values, got {tuple(bf.shape)}")
+        bf = bf.reshape(3)
     if not pos.is_cuda:
         spread.plain_calls += 1
-        return coupling.spread_forces(pos, force, active, flags, f_limit, force_extra)
+        out = coupling.spread_forces(pos, force, active, flags, f_limit, force_extra)
+        if bf is not None:
+            out = out + bf.to(dtype=out.dtype, device=out.device)[:, None, None, None]
+            spread.body_force_stores += 1
+        return out
     P = pos.shape[0]
     X, Y, Z = flags.shape
     pos = _build.cuda_arg(pos, "spread: pos", torch.float32, (P, 3))
@@ -70,15 +88,24 @@ def spread(pos, force, active, flags, f_limit, force_extra=None):
         force_extra = _build.cuda_arg(force_extra, "spread: force_extra",
                                       torch.float32, (P, 3))
         extra_ptr = force_extra.data_ptr()
+    bf_mode, bf_values, bf_ptr = 0, (0.0, 0.0, 0.0), None
+    if bf is not None and bf.is_cuda:
+        bf = _build.cuda_arg(bf, "spread: body_force", torch.float32, (3,))
+        if bf.device != pos.device:
+            raise ValueError(f"spread: body_force on {bf.device}, the vertices on {pos.device}")
+        bf_mode, bf_ptr = 2, bf.data_ptr()
+    elif bf is not None:
+        bf_mode, bf_values = 1, tuple(float(v) for v in bf.to(torch.float32).tolist())
     check_nodes((X, Y, Z), "spread")
     ints, rec = scratch("hc_tile_bins_ints", pos.device, P, (X, Y, Z), 2 * P)
     out = torch.empty((3, X, Y, Z), dtype=torch.float32, device=pos.device)
     err = _build.lib().hc_spread(
         pos.data_ptr(), force.data_ptr(), extra_ptr, active.data_ptr(), flags.data_ptr(),
-        float(f_limit), out.data_ptr(), ints.data_ptr(), rec.data_ptr(), P, X, Y, Z,
-        _stream(pos))
+        float(f_limit), out.data_ptr(), ints.data_ptr(), rec.data_ptr(), bf_mode, *bf_values,
+        bf_ptr, P, X, Y, Z, _stream(pos))
     _build.check(err, "hc_spread")
     spread.launches += 1
+    spread.body_force_stores += bf_mode != 0
     return out
 
 
@@ -162,3 +189,4 @@ for _fn in (spread, interp, wall_hit_cells):
     _fn.launches = 0
     _fn.plain_calls = 0
 del _fn
+spread.body_force_stores = 0  # calls that added the body force to the field
