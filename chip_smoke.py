@@ -89,11 +89,10 @@ Then the cell-free (pure-fluid) runner and its three kernels:
      force and with a force field, flags and bc; K10 against K1 as a
      reported speed gate in both operand sets at 256^3;
  12. path fluid256: cases/fluid_only at 256^3, 50 iterations of the one-step
-     loop under stream_collide's dispatch of large cross-sections as it
-     stands (K10 only if it is on: it stays off while K10 loses to K1), then
-     50 with the dispatch the other way from the same state, then 50 fused
-     at fluid_k = 4 (12 K9 launches and one K8): the end states bitwise
-     equal;
+     loop (K1), then 50 K10 calls (``stream_collide_2d``, called directly:
+     no runner takes K10 while it loses to K1) from the same state, then 50
+     fused at fluid_k = 4 (12 K9 launches and one K8): the end states
+     bitwise equal;
  13. path fluid128: cases/fluid_only at 128^3, the one-step loop (K1) for
      500 iterations, then from the same state the runner's CUDA default,
      fused at fluid_k = 2: 500 + 7 + 1 iterations (K8, then K1 through step),
@@ -126,8 +125,8 @@ mode of K1 and K10 that carries its fluid:
      gates with every fluid step a K1 halo launch, MLUPS and idle share;
      fluid128 500 iterations (the one-step loop) bitwise equal to the
      single-device K1 loop;
-     fluid256 20 iterations under the dispatch as it stands and 20 the other
-     way (K1 and K10 in halo mode), bitwise equal;
+     fluid256 20 iterations through the runner (K1 in halo mode) and 20 K10
+     calls in halo mode from the same state, bitwise equal;
      suspension128 500 iterations under phase 7's gates;
  19. a walled 32x24x24 pipe with 2 RBC + 1 PLT, distributed, on the card and
      on the CPU (a gloo group of one), compared after 41 steps as in phase 5.
@@ -316,11 +315,11 @@ import time
 
 import numpy as np
 
+from benchmark.lib.roofline import bound_us
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 ITERATIONS = 1000
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock: longer than issuing a timed run
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 SUSP_ITERATIONS = 500
 SUSP_SHAPE = (128, 128, 128)
@@ -412,9 +411,10 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(least time in ms at the card's peaks, "bytes" or "operations"):
+    ``benchmark/lib/roofline.bound_us`` in ms."""
+    t_us, by = bound_us(n_bytes, n_flops)
+    return t_us / 1e3, "operations" if by == "flops" else by
 
 
 SPEED_GATES = []  # (what, kernel ms, yardstick ms, yardstick)
@@ -832,15 +832,16 @@ def compare_wall_hits(tag, pos_adv, counts, flags, slabs=0):
     its row."""
     import torch
 
-    from hemocell_tpu_torch.dynamics import _split, cell_index
+    from hemocell_tpu_torch.dynamics import cell_index
     from hemocell_tpu_torch.ibm import coupling, kernels
     from hemocell_tpu_torch.parallel.sharded_step import _localize
+    from hemocell_tpu_torch.step_phases import split_types
 
     shape = tuple(flags.shape)
     P = pos_adv.shape[0]
     n_cells = sum(nc for nc, _ in counts)
     cell_id = cell_index(tuple(counts), pos_adv.device)
-    per_type = _split(pos_adv, counts)
+    per_type = split_types(pos_adv, counts)
     hits = kernels.wall_hit_cells(per_type, flags)
     hits_ref = coupling.wall_hit_cells(pos_adv, cell_id, flags, n_cells)
     err = float((hits - hits_ref).abs().max())
@@ -871,7 +872,7 @@ def compare_wall_hits(tag, pos_adv, counts, flags, slabs=0):
         for x0 in range(0, slabs * Xl, Xl):
             flags_ext = flags[[(x0 + i) % shape[0] for i in range(Xl + 1)]].contiguous()
             p_local, owned = _localize(pos_adv, x0, Xl, shape)
-            got = kernels.wall_hit_cells(_split(p_local, lay), flags_ext, owned)
+            got = kernels.wall_hit_cells(split_types(p_local, lay), flags_ext, owned)
             ref = coupling.wall_hit_cells(p_local, cid, flags_ext, n_cells, owned)
             err = max(err, float((got - ref).abs().max()))
             total += got
@@ -2143,14 +2144,11 @@ def phase_tiled_kernel(smi):
     default schedule and a ragged last run of x planes)."""
     import torch
 
-    import importlib
-
     from hemocell_tpu_torch.fluid import lbm
     from hemocell_tpu_torch.fluid import stream_collide_2d as k10
     from hemocell_tpu_torch.fluid.stream_collide import launch as launch_k1
     from hemocell_tpu_torch.fluid.stream_collide_2d import stream_collide_2d
 
-    sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
     dev = torch.device("cuda")
     shape = BIG_SHAPE
     X, Y, Z = shape
@@ -2242,9 +2240,8 @@ def phase_tiled_kernel(smi):
     speed_gate("[11] K10 256^3, uniform force", min(ms_u, ms_u2), min(k1_u, k1_u2), "K1")
     speed_gate("[11] K10 256^3, force field + flags + bc", ms_f, k1_f, "K1")
     wins = min(ms_u, ms_u2) < min(k1_u, k1_u2) and ms_f < k1_f
-    print(f"[11] K10 below K1 in both operand sets: {wins}; stream_collide's dispatch of "
-          f"large cross-sections to K10: "
-          f"{'on' if sc_module.LARGE_CROSS_SECTION is not None else 'off'}", flush=True)
+    print(f"[11] K10 below K1 in both operand sets: {wins} (the runners take K1; K10 is "
+          f"called directly)", flush=True)
     del f, force_field, bc, flags, all_fluid
     torch.cuda.empty_cache()
     return {"stream_collide_2d": dict(
@@ -2325,6 +2322,25 @@ def perturbed(cfg, state, seed):
     return state._replace(f=state.f + noise * (cfg.flags == 0).to(state.f.dtype))
 
 
+def direct_runner(cfg, kernel, halos=None):
+    """``run(state, n)``: n calls of the one-step fluid ``kernel`` (K10's
+    ``stream_collide_2d``) on the state's cell-free box, with the rows of
+    ``halos(f, flags)`` where given (halo mode on a rank's tile)."""
+    import torch
+
+    bf = None if cfg.body_force is None else torch.tensor(cfg.body_force)
+    flags = cfg.flags if bool(cfg.flags.any()) else None
+
+    def run(state, n):
+        f = state.f
+        for _ in range(n):
+            kw = {} if halos is None else {"halos": halos(f, flags)}
+            f = kernel(f, bf, float(cfg.omega), flags, **kw)
+        return state._replace(f=f, it=state.it + n)
+
+    return run
+
+
 def profile_runner(tag, run, state, wall_us):
     """phase_profile over 100 more iterations of ``run`` from ``state``;
     returns its (busy us/it, idle share) or None."""
@@ -2350,44 +2366,35 @@ def compare_runners(tag, rates):
 
 
 def phase_fluid_paths(smi):
-    """The cell-free paths: fluid256 (K1 or K10, and fused), fluid128 and
-    fluidpipe (the runner's CUDA default, fused at k = 2 through K8; K9 at k
-    = 4; the one-step loop through K1), with each runner's rate and idle
-    share beside the one-step loop's."""
+    """The cell-free paths: fluid256 (K1, K10 called directly, and fused),
+    fluid128 and fluidpipe (the runner's CUDA default, fused at k = 2
+    through K8; K9 at k = 4; the one-step loop through K1), with each
+    runner's rate and idle share beside the one-step loop's."""
     import torch
 
-    import importlib
-
     from hemocell_tpu_torch.cases import fluid_only
+    from hemocell_tpu_torch.fluid.stream_collide_2d import stream_collide_2d
 
-    # the module, not the wrapper of the same name that the package exports
-    sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
     by_path = {}
 
     def mlups(cfg, wall_us):
         return float(np.prod(cfg.shape)) / wall_us
 
-    # ---- fluid256: the one-step loop under stream_collide's dispatch of
-    # large cross-sections as it stands (K10 if phase 11's gate turned it
-    # on, else K1), then with the dispatch the other way from the same
+    # ---- fluid256: the one-step loop (K1), then 50 K10 calls from the same
     # state: the two end states bitwise equal; then 50 fused iterations at
     # k = 4 (12 K9 launches and one K8) from the same state, bitwise equal
     # to the K1 loop's end state
     cfg, state0 = fluid_only.build(BIG_SHAPE, fluid_2x=False)
     state0 = perturbed(cfg, state0, 6)
-    default_on = sc_module.LARGE_CROSS_SECTION is not None
     runs = {}
-    for on in (default_on, not default_on):
-        kernel = "stream_collide_2d" if on else "stream_collide"
-        sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM if on else None
-        try:
-            name = "fluid256" if on == default_on else f"fluid256 through {kernel}"
-            runs[on], by_path[name], run, wall_us = run_fluid_path(
-                "[12]", name, cfg, state0, [(50, {kernel: 50})], smi, reference=False)
-            if on == default_on:
-                profile_runner("[12]", run, runs[on], wall_us)
-        finally:
-            sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM if default_on else None
+    runs[False], by_path["fluid256"], run, wall_us = run_fluid_path(
+        "[12]", "fluid256", cfg, state0, [(50, {"stream_collide": 50})], smi,
+        reference=False)
+    profile_runner("[12]", run, runs[False], wall_us)
+    runs[True], by_path["fluid256 through stream_collide_2d"], _, _ = run_fluid_path(
+        "[12]", "fluid256 through stream_collide_2d", cfg, state0,
+        [(50, {"stream_collide_2d": 50})], smi, reference=False,
+        run=direct_runner(cfg, stream_collide_2d))
     same = torch.equal(runs[True].f, runs[False].f)
     print(f"[12] fluid256 through K10 and through K1 from one state, 50 iterations: end "
           f"states bitwise equal {same}", flush=True)
@@ -2714,16 +2721,16 @@ def phase_halo_tiled(smi):
 
 def phase_distributed(smi, mesh):
     """The sharded runner at world size 1 on ``mesh`` (an NCCL group of
-    one): pipeflow30, fluid128 (bitwise against the K1 loop), fluid256 with
-    the dispatch to K10 on, suspension128.  Returns the launches by path."""
-    import importlib
-
+    one): pipeflow30, fluid128 (bitwise against the K1 loop), fluid256
+    beside K10 in halo mode called directly, suspension128.  Returns the
+    launches by path."""
     import torch
     import torch.distributed as dist
 
     from hemocell_tpu_torch.cases import fluid_only
     from hemocell_tpu_torch.cases.pipeflow30 import build_pipeflow30
-    from hemocell_tpu_torch.parallel import build_shardmap_runner, shard_state
+    from hemocell_tpu_torch.fluid.stream_collide_2d import stream_collide_2d
+    from hemocell_tpu_torch.parallel import build_shardmap_runner, comm, shard_state
 
     by_path = {}
     # the host's cost of one NCCL all_reduce of a few bytes (the collective
@@ -2763,24 +2770,24 @@ def phase_distributed(smi, mesh):
     del state, state0, run
     torch.cuda.empty_cache()
 
-    # fluid256 under the dispatch as it stands, then the other way: K10 and
-    # K1 in halo mode, bitwise equal end states
-    sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
+    # fluid256 through the sharded runner (K1 in halo mode), then K10 in
+    # halo mode called directly with the rows of the same exchange: bitwise
+    # equal end states
     cfg, state = fluid_only.build(BIG_SHAPE, fluid_2x=False)
     state = shard_state(perturbed(cfg, state, 6), mesh)
-    default_on = sc_module.LARGE_CROSS_SECTION is not None
     ends = {}
-    for on in (default_on, not default_on):
-        kernel = "stream_collide_2d_halo" if on else "stream_collide_halo"
-        sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM if on else None
-        try:
-            name = ("fluid256 distributed" if on == default_on
-                    else f"fluid256 distributed through {kernel}")
-            ends[on], by_path[name], _, _ = run_fluid_path(
-                "[18]", name, cfg, state, [(20, {kernel: 20})], smi, reference=False,
-                run=build_shardmap_runner(cfg, mesh))
-        finally:
-            sc_module.LARGE_CROSS_SECTION = sc_module.TILED_FROM if default_on else None
+    ends[False], by_path["fluid256 distributed"], _, _ = run_fluid_path(
+        "[18]", "fluid256 distributed", cfg, state, [(20, {"stream_collide_halo": 20})], smi,
+        reference=False, run=build_shardmap_runner(cfg, mesh))
+
+    def halos(f, flags):
+        arrays, dims = ([f], [1]) if flags is None else ([f, flags], [1, 0])
+        return dict(zip(("f", "flags"), comm.halo_rows(mesh, arrays, dims)))
+
+    name = "fluid256 distributed through stream_collide_2d_halo"
+    ends[True], by_path[name], _, _ = run_fluid_path(
+        "[18]", name, cfg, state, [(20, {"stream_collide_2d_halo": 20})], smi,
+        reference=False, run=direct_runner(cfg, stream_collide_2d, halos))
     same = torch.equal(ends[True].f, ends[False].f)
     print(f"[18] fluid256 distributed through K10 and through K1 in halo mode, 20 "
           f"iterations from one state: end states bitwise equal {same}", flush=True)
@@ -4526,7 +4533,7 @@ def operands_of_one_step(advance, targets):
             return _orig(*a, **k)
 
         # a wrapper counts on the module's name for itself, now this one
-        wrap.launches = wrap.plain_calls = 0
+        wrap.launches = wrap.plain_calls = wrap.body_force_stores = 0
         saved.append((mod, attr, orig))
         setattr(mod, attr, wrap)
     try:

@@ -1,36 +1,32 @@
 """The coupled IB-LBM time step in PyTorch.
 
 Counterpart of ``hemocell_tpu/dynamics.py``.  One step runs, in the
-reference package's phase order:
+reference package's phase order (the rules the phases share with the steps
+on a mesh, ``parallel/``, are ``step_phases.py``'s):
 
   0. flatten the vertices of all cell types;
   1. inter-cell repulsion (kernel K5) every ``repulsion_every`` steps and
-     boundary repulsion every ``boundary_repulsion_every`` steps; between
-     recomputes the carried per-vertex force is spread every step;
+     boundary repulsion every ``boundary_repulsion_every`` steps, the
+     carried per-vertex force spread in between;
   2. spread the capped constitutive forces plus the uncapped repulsion
      force (kernel K2) and add the body force, a uniform [3] or a field
      [3, X, Y, Z];
- 2b. interior viscosity: the omega field of the fluid step, from a full
-     raycast of the membranes every ``interior_entire_every`` steps (or
-     ``interior_every`` when that is 0) and the cheap membrane sweep every
-     ``interior_every`` steps in between;
+ 2b. interior viscosity: the omega field of the fluid step, from a raycast
+     of the membranes or the cheap membrane sweep;
   3. fluid collide + stream (kernel K1, or K7 with Lees-Edwards wrapping
      across the z faces), then the CEPAC advection-diffusion lattice
-     (kernel K6) driven by the new fluid velocity, the Guo-shifted
-     velocity of the new populations (kernel K13, computed once an
-     iteration where CEPAC or the interpolation first needs it);
-  4. every ``particle_every`` steps, interpolate the Guo-shifted fluid
-     velocity to the vertices (kernel K3);
+     (kernel K6) driven by the Guo-shifted velocity of the new populations
+     (kernel K13, once an iteration where CEPAC or the interpolation first
+     needs it);
+  4. every ``particle_every`` steps, interpolate that velocity to the
+     vertices (kernel K3);
  4b. every ``solidify_every`` steps, solidify: the cells tagged last round
-     harden (their interior nodes become walls and binding sites, the cell
-     is removed), then cells with a vertex near a binding site under Tresca
-     shear are tagged; the runtime flags feed K1-K4 from then on;
-  5. advance (Euler or Adams-Bashforth), then delete every cell with a
-     vertex whose nearest node is not fluid, on the post-advance positions
-     (kernel K4);
-  6. every ``material_every`` steps, evaluate the constitutive model of
-     each cell type and add its static external force; dead cells get zero
-     force through ``where``.
+     harden, then cells near a binding site under Tresca shear are tagged;
+     the runtime flags feed K1-K4 from then on;
+  5. advance, then delete every cell with a vertex whose nearest node is
+     not fluid, on the post-advance positions (kernel K4);
+  6. every ``material_every`` steps, the constitutive model of each cell
+     type with its static external force.
 
 The iteration counter is a Python int and the Lees-Edwards displacement a
 host scalar, so the timescale gates and the plane shifts cost no device
@@ -59,11 +55,10 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from . import step_phases as phases
 from ._device import constant, resolve_device
 from .cells import repulsion as rep
-from .cells.interior import interior_mask, membrane_omega_update
 from .cells.state import CellTypeState
-from .config.defaults import FLAG_FLUID, FLAG_WALL
 from .fluid import advection_diffusion as ad
 from .fluid import lbm
 from .fluid.guo_velocity import guo_velocity
@@ -73,6 +68,7 @@ from .fluid.stream_collide_2x import stream_collide_2x
 from .fluid.stream_collide_kx import SUPPORTED_K, stream_collide_kx
 from .fluid.tresca import tresca_field
 from .ibm import kernels
+from .step_phases import is_field
 from .utils.profiler import span
 
 
@@ -175,33 +171,12 @@ class StepConfig:
     device: Any = "cuda"
 
 
-def _split(flat, counts):
-    """A flat [P, 3] tensor cut back into per-type [NC, NV, 3] views."""
-    out, off = [], 0
-    for nc, nv in counts:
-        out.append(flat[off: off + nc * nv].reshape(nc, nv, 3))
-        off += nc * nv
-    return out
-
-
 @functools.lru_cache(maxsize=16)
 def cell_index(counts, device=None):
     """The global cell (int32 [P]) of each vertex of the flat order of
     ``counts``, the per-type ((NC, NV), ...) layout; cached per layout."""
     nv = torch.tensor([nv for nc, nv in counts for _ in range(nc)], dtype=torch.long)
     return torch.arange(len(nv), dtype=torch.int32).repeat_interleave(nv).to(device)
-
-
-def external_forces(cfg: StepConfig, device) -> list:
-    """Each type's ``ext_force`` as a tensor of the step's dtype on
-    ``device``, made once (None where a type has none)."""
-    return [None if tc.ext_force is None else
-            torch.as_tensor(tc.ext_force).to(device, cfg.dtype) for tc in cfg.types]
-
-
-def is_field(body_force) -> bool:
-    """A body force given per node, [3, X, Y, Z] (not a uniform [3])."""
-    return body_force is not None and torch.as_tensor(body_force).dim() > 1
 
 
 def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
@@ -218,61 +193,20 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
     has_boundaries = bool(flags.any()) or bool(cfg.solidify_every)
     omega = cfg.omega.to(device, dtype) if torch.is_tensor(cfg.omega) else float(cfg.omega)
     bc_velocity = _dev(cfg.bc_velocity, dtype)
-    # the body force as K1 takes it (bf_arg: a uniform [3] on the host or
-    # the field on the device) and as it adds to a field (bf_view:
-    # [3,1,1,1] or [3,X,Y,Z] on the device)
-    bf_view = bf_arg = None
-    if cfg.body_force is not None:
-        if is_field(cfg.body_force):
-            bf_view = bf_arg = _dev(cfg.body_force, dtype).contiguous()
-            if tuple(bf_view.shape) != (3,) + shape:
-                raise ValueError(f"a field body force must be [3, *{shape}], got "
-                                 f"{tuple(bf_view.shape)}")
-        else:
-            bf_arg = torch.as_tensor(cfg.body_force, dtype=dtype).cpu()
-            bf_view = bf_arg.to(device)[:, None, None, None]
+    body_force = phases.body_force_forms(cfg.body_force, dtype, device, shape)
     bmask = _dev(cfg.boundary_mask, torch.uint8)
-    rep_on = cfg.repulsion_constant > 0.0
-    brep_on = cfg.boundary_repulsion_constant > 0.0 and bmask is not None
+    rep_on, brep_on = phases.repulsion_on(cfg)
     cepac_mask = _dev(cfg.cepac_dirichlet_mask, torch.uint8)
     cepac_value = _dev(cfg.cepac_dirichlet_value, dtype)
     le_u = cfg.lees_edwards_velocity
     fshape = torch.tensor([float(s) for s in shape], dtype=dtype, device=device)
     shape_i = torch.tensor(shape, dtype=torch.long, device=device)
-    ext_force = external_forces(cfg, device)
-
-    def omega_raycast(cells):
-        """The omega field from a full raycast of the membranes."""
-        om = torch.full(shape, float(cfg.omega), dtype=dtype, device=device)
-        for tc, cs in zip(cfg.types, cells):
-            if tc.omega_interior is not None:
-                m = interior_mask(cs.pos, tc.topo["tri"], cs.alive, shape, tc.interior_box)
-                om = om.masked_fill(m, tc.omega_interior)
-        return om
-
-    def omega_membrane(om, cells):
-        """The membrane sweep of the omega field."""
-        for tc, cs in zip(cfg.types, cells):
-            if tc.omega_interior is not None:
-                om = membrane_omega_update(om, cs.pos, tc.topo["tri"], cs.alive,
-                                           tc.omega_interior, cfg.omega,
-                                           tc.topo["edge_mean_eq"], shape)
-        return om
+    ext_force = phases.external_forces(cfg, device)
 
     def solidify(cells, flags_s, binding, f_new, force_view, omega):
-        """Harden the cells tagged last round, then tag the cells with a
-        vertex within ``distance_threshold`` of a binding site whose Tresca
-        stress |tresca / 1e-7| exceeds ``shear_threshold``."""
-        for k, (tc, cs) in enumerate(zip(cfg.types, cells)):
-            if not tc.solidify:
-                continue
-            tagged = cs.solidify if cs.solidify is not None else torch.zeros_like(cs.alive)
-            marked = tagged & cs.alive
-            interior = interior_mask(cs.pos, tc.topo["tri"], marked, shape, tc.interior_box)
-            interior = interior & (flags_s == FLAG_FLUID)
-            flags_s = flags_s.masked_fill(interior, FLAG_WALL)
-            binding = binding | interior
-            cells[k] = cs._replace(alive=cs.alive & ~marked, solidify=tagged & ~marked)
+        """Harden the cells tagged last round, then tag the cells near a
+        binding site under a Tresca stress |tresca / 1e-7|."""
+        flags_s, binding = phases.harden_tagged(cfg, cells, flags_s, binding, shape)
         tresca = torch.abs(tresca_field(f_new, force_view, omega) / 1e-7)
         nbr = constant(rep._NBR, torch.long, device)
         for k, (tc, cs) in enumerate(zip(cfg.types, cells)):
@@ -284,10 +218,7 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
             nn = torch.remainder(node[:, None, :] + nbr[None], shape_i)  # [P, 27, 3]
             b = binding[nn[..., 0], nn[..., 1], nn[..., 2]]
             t = tresca[nn[..., 0], nn[..., 1], nn[..., 2]]
-            dv = p[:, None, :] - nn.to(dtype)
-            dv = dv - torch.round(dv / fshape) * fshape
-            dist = torch.linalg.vector_norm(dv, dim=-1)
-            hit = b & (dist <= tc.distance_threshold) & (t > tc.shear_threshold)
+            hit = phases.near_binding(tc, p, nn.to(dtype), b, t, fshape)
             cell_hit = hit.any(dim=1).reshape(nc, nv).any(dim=1) & cs.alive
             cells[k] = cs._replace(solidify=cs.solidify | cell_hit)
         return flags_s, binding
@@ -299,64 +230,40 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
         flags_now = flags
         if cfg.solidify_every and state.flags_state is not None:
             flags_now = state.flags_state
-        counts = tuple((cs.pos.shape[0], cs.pos.shape[1]) for cs in cells)
-        have_vertices = sum(nc * nv for nc, nv in counts) > 0
 
         # ---- 0: flatten ---------------------------------------------------
-        if have_vertices:
-            pos_flat = torch.cat([cs.pos.reshape(-1, 3) for cs in cells])
-            active = torch.cat([
-                cs.alive.to(dtype)[:, None].expand(nc, nv).reshape(-1)
-                for cs, (nc, nv) in zip(cells, counts)
-            ])
+        counts, pos_flat, active = phases.flatten(cells, dtype)
+        have_vertices = pos_flat is not None
 
-        # ---- 1: repulsion -------------------------------------------------
-        # The recompute at repulsion_every replaces force_repulsion; boundary
-        # repulsion adds onto it at its own timescale; the carried value is
-        # spread every step, so the off-step value is the carried force,
-        # never zeros.
+        # ---- 1: repulsion: the recomputes due, else the carried force ----
         frep = None
         if have_vertices and (rep_on or brep_on):
             frep = torch.cat([cs.force_repulsion.reshape(-1, 3) for cs in cells])
-            rep_now = rep_on and it % cfg.repulsion_every == 0
-            brep_now = brep_on and it % cfg.boundary_repulsion_every == 0
+            rep_now, brep_now = phases.repulsion_due(cfg, it)
             if rep_now or brep_now:
                 with span("repulsion", state.f):
+                    inner = boundary = None
                     if rep_now:
-                        frep = rep.repulsion(pos_flat, cell_index(counts, device), active,
-                                             shape, cfg.repulsion_constant,
-                                             cfg.repulsion_cutoff)
+                        inner = rep.repulsion(pos_flat, cell_index(counts, device), active,
+                                              shape, cfg.repulsion_constant,
+                                              cfg.repulsion_cutoff)
                     if brep_now:
-                        fb = rep.boundary_repulsion_forces(
+                        boundary = rep.boundary_repulsion_forces(
                             pos_flat, active, bmask, shape,
                             cfg.boundary_repulsion_constant, cfg.boundary_repulsion_cutoff)
-                        # With inner repulsion on, its recompute zeroes the
-                        # carried force and the boundary force adds on top.
-                        # Boundary-only: nothing would ever zero the carried
-                        # force, so (a deliberate deviation shared with the
-                        # reference package) the boundary recompute REPLACES
-                        # the carried value at its timescale.
-                        frep = frep + fb if rep_on else fb
-            for k, part in enumerate(_split(frep, counts)):
-                cells[k] = cells[k]._replace(force_repulsion=part)
+                    frep = phases.combine_repulsion(frep, inner, boundary, rep_on)
+            cells = phases.with_parts(cells, "force_repulsion", frep, counts)
 
         # ---- 2: spread capped forces + repulsion, add the body force -----
-        bf, bf_uniform = bf_view, bf_arg
-        if state.body_force_state is not None:
-            # the dynamic override is a uniform [3]: K1 takes a host one by
-            # value and reads one on the card where it lies
-            bf_uniform = torch.as_tensor(state.body_force_state).to(dtype=dtype)
-            bf = bf_uniform.to(device)[:, None, None, None]
+        bf_uniform, bf = phases.body_force_now(body_force, state.body_force_state, dtype,
+                                               device)
         le_w = None
         if have_vertices:
             with span("spread", state.f):
                 pos_lat = pos_flat  # the kernels wrap unwrapped positions
                 if le_u is not None:
-                    # Lees-Edwards image mapping: a vertex in z-image w sees
-                    # the fluid displaced by w*d(t) in x and moving at w*U
-                    le_w = torch.floor(pos_flat[:, 2] / shape[2])
-                    x_eff = pos_flat[:, 0] - le_w * float(state.le_displacement)
-                    pos_lat = torch.stack([x_eff, pos_flat[:, 1], pos_flat[:, 2]], dim=1)
+                    le_w, pos_lat = phases.lees_edwards_image(pos_flat, shape[2],
+                                                              state.le_displacement)
                 f_vert = cells[0].force.reshape(-1, 3) if len(cells) == 1 else torch.cat(
                     [cs.force.reshape(-1, 3) for cs in cells])
                 # total = constitutive (capped) + repulsion (uncapped); K2
@@ -376,16 +283,15 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
         omega_now = omega
         omega_field_new = state.omega_field
         if cfg.interior_every and state.omega_field is not None:
-            entire = cfg.interior_entire_every or cfg.interior_every
-            raycast = it % entire == 0
-            sweep = (cfg.interior_entire_every and entire != cfg.interior_every
-                     and it % cfg.interior_every == 0)
+            raycast, sweep = phases.interior_due(cfg, it)
             if raycast or sweep:
                 with span("interior", state.f):
+                    members = [(cs.pos, cs.alive) for cs in cells]
                     if raycast:
-                        omega_field_new = omega_raycast(cells)
+                        omega_field_new = phases.omega_raycast(cfg, members, shape, device)
                     if sweep:
-                        omega_field_new = omega_membrane(omega_field_new, cells)
+                        omega_field_new = phases.omega_membrane(cfg, omega_field_new, members,
+                                                                shape)
             omega_now = omega_field_new
 
         # ---- 3: fluid collide + stream -----------------------------------
@@ -435,8 +341,7 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
                     # interp step only: the carried velocity already holds
                     # its own shift
                     vel_flat[:, 0] += le_w * le_u
-            for k, part in enumerate(_split(vel_flat, counts)):
-                cells[k] = cells[k]._replace(vel=part)
+            cells = phases.with_parts(cells, "vel", vel_flat, counts)
 
         # ---- 4b: solidify -------------------------------------------------
         flags_new, binding_new = state.flags_state, state.binding_mask
@@ -453,22 +358,14 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
             with span("advance", state.f):
                 new_pos = []
                 for k, cs in enumerate(cells):
-                    if cfg.material_integration == 2 and cs.vel_prev is not None:
-                        new_pos.append(cs.pos + 1.5 * cs.vel - 0.5 * cs.vel_prev)
-                        cells[k] = cs._replace(vel_prev=cs.vel)
-                    else:
-                        new_pos.append(cs.pos + cs.vel)
+                    p, vel_prev = phases.advance(cs.pos, cs.vel, cs.vel_prev,
+                                                 cfg.material_integration)
+                    new_pos.append(p)
+                    cells[k] = cs._replace(vel_prev=vel_prev)
                 hits = None
                 if has_boundaries and have_vertices:
                     hits = kernels.wall_hit_cells(new_pos, flags_now)
-                off = 0
-                for k, (cs, (nc, _)) in enumerate(zip(cells, counts)):
-                    alive = cs.alive
-                    if hits is not None:
-                        alive = alive & ~(hits[off: off + nc] > 0)
-                    off += nc
-                    cells[k] = cs._replace(pos=new_pos[k], alive=alive,
-                                           restime=cs.restime + alive.to(torch.int32))
+                cells = phases.apply_wall_hits(cells, counts, hits, new_pos)
 
         # ---- 6: constitutive model ---------------------------------------
         due = [k for k, (tc, cs) in enumerate(zip(cfg.types, cells))
@@ -477,12 +374,8 @@ def build_step(cfg: StepConfig) -> Callable[[SimState], SimState]:
             with span("mechanics", state.f):
                 for k in due:
                     tc, cs = cfg.types[k], cells[k]
-                    ft = tc.model_fn(cs.pos, cs.vel, tc.topo, tc.material).total
-                    if ext_force[k] is not None:
-                        ft = ft + ext_force[k]
-                    # dead slots may hold degenerate geometry (NaN forces)
-                    ft = torch.where(cs.alive[:, None, None], ft, torch.zeros_like(ft))
-                    cells[k] = cs._replace(force=ft)
+                    force = phases.material_force(tc, cs.pos, cs.vel, ext_force[k], cs.alive)
+                    cells[k] = cs._replace(force=force)
 
         return state._replace(f=f_new, it=it + 1, cells=tuple(cells), cepac=cepac_new,
                               le_displacement=le_disp_new, omega_field=omega_field_new,

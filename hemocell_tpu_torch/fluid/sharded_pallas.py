@@ -1,6 +1,5 @@
 """The fluid step of one rank's x-slab or (x, y) tile: a halo-row exchange
-with the ring neighbours, then K1 (or, with ``LARGE_CROSS_SECTION`` set,
-K10) in halo mode.
+with the ring neighbours, then K1 in halo mode.
 
 Counterpart of ``hemocell_tpu/fluid/sharded_pallas.py`` and of the fluid
 phase of ``hemocell_tpu/parallel/sharded_step.py``: there ``shard_map``
@@ -8,8 +7,9 @@ runs the TPU kernel per shard with ``ppermute``'d x rows as operands; here
 each rank exchanges its rows over ``torch.distributed``
 (``parallel/comm.py``) and launches the kernel on its tile.  The rows are
 the reference's: the pre-collision ``f``, the force field where there is
-one, the flags and the bc velocity, so that one exchange serves K1, K10 and
-the plain version alike.  Static flags and bc rows are taken once; the
+one, the flags and the bc velocity, so that one exchange serves K1 and the
+plain version alike (and K10, ``stream_collide_2d(halos=)``, which takes the
+same rows).  Static flags and bc rows are taken once; the
 runtime flags of solidify and the preInlet's ``bc_state`` change between
 steps (row 0 of ``bc_state`` on the ranks of x coordinate 0 every step,
 which the last ranks along x collide as their upper halo row), so they are

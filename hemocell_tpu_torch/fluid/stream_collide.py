@@ -8,9 +8,10 @@ tensors it launches the kernel, or raises for what the kernel does not take
 with the Lees-Edwards wrapper (``fluid/lees_edwards.py``), which passes the
 kernel its ``le_planes`` operand and keeps its own count.
 
-With ``LARGE_CROSS_SECTION`` set, large cross-sections with a scalar omega
-are handed to kernel K10 (``fluid/stream_collide_2d.py``), as the reference's
-``stream_collide_pallas`` hands them to its (x,y)-tiled kernel.
+The reference's ``stream_collide_pallas`` hands large cross-sections to its
+(x,y)-tiled kernel; here every shape stays with K1, which beats K10
+(``fluid/stream_collide_2d.py``, the tiled kernel's counterpart, called
+directly) at every shape measured on the H100.
 
 With ``halos=`` (``fluid/halo.py``) ``f`` is one rank's x-slab and the step
 streams with the neighbours' x rows: ``stream_collide_halo`` launches K1 in
@@ -26,18 +27,6 @@ from .. import _build
 from . import lbm
 from . import halo as _halo
 from ._kernel_args import fluid_args
-from .stream_collide_2d import stream_collide_2d
-
-# Cross-sections of Y*Z nodes from here on go to kernel K10; None sends every
-# shape to K1.  The reference decides by what fits its fast
-# memory, which has no analog on the card; TILED_FROM keeps that rule's
-# outcome at the shapes the reference names: 256 x 256 goes to the tiled
-# kernel, pipeflow30's 56 x 56 and the suspension's 128 x 128 stay on K1.
-# The dispatch is off until K10 beats K1 at those shapes on the H100 (it
-# does not yet: chip_smoke.py phase 11, PERF.md section 6); set
-# LARGE_CROSS_SECTION = TILED_FROM to turn it on.
-TILED_FROM = 256 * 256
-LARGE_CROSS_SECTION = None
 
 
 def stream_collide(f, force, omega, flags, bc_velocity=None, bc_density=None, halos=None):
@@ -51,11 +40,6 @@ def stream_collide(f, force, omega, flags, bc_velocity=None, bc_density=None, ha
     neighbours of a slab (``fluid/halo.py``) or None for the periodic box.
     Returns the new populations.
     """
-    scalar_omega = not (torch.is_tensor(omega) and omega.dim() > 0)
-    large = (LARGE_CROSS_SECTION is not None
-             and f.shape[2] * f.shape[3] >= LARGE_CROSS_SECTION)
-    if large and scalar_omega:
-        return stream_collide_2d(f, force, omega, flags, bc_velocity, bc_density, halos=halos)
     if halos is not None:
         return stream_collide_halo(f, force, omega, flags, bc_velocity, bc_density, halos)
     if not f.is_cuda:

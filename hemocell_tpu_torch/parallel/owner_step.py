@@ -6,7 +6,8 @@ whole suspension every step.  Here, as in the reference's per-block
 particle fields, each rank owns the cells whose centre of mass lies in its
 x-slab (1-D mesh) or (x, y) tile (2-D mesh), in fixed-capacity per-type
 tables (``OwnedType``), and pays for those plus an envelope of E lattice
-units:
+units.  The phases' rules are ``step_phases.py``'s, as in the other two
+steps; what the layout changes:
 
   * neighbour tables: once a step, when a consumer's cadence fires, each
     rank ships its tables to its x neighbours (one copy with two ranks
@@ -29,13 +30,12 @@ units:
     the grid's end;
   * fluid: K1 in halo mode (``fluid/sharded_pallas.py``; y ghost columns on
     a 2-D mesh); CEPAC (K6) on the tile extended by one node a side, two
-    hops;
+    hops (``sharded_step.cepac_extended``);
   * interpolation: K3 from the E-extended velocity (two hops) and the
     extended flags, for the own vertices;
-  * advance (Euler or Adams-Bashforth, ``vel_prev`` a table column), the
-    wall deletion on the extended flags (plain torch, as the reference uses
-    jnp there), restime and the constitutive model with the external force
-    by cadence;
+  * advance (``vel_prev`` a table column), the wall deletion on the
+    extended flags (plain torch, as the reference uses jnp there), restime
+    and the constitutive model of the table's cells;
   * migration: before each step whose index in the ``run`` call is a
     multiple of ``resort_every``, one phase per mesh axis re-homes the
     cells whose centre crossed a tile boundary through +-1 buffers of
@@ -69,15 +69,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import step_phases as phases
 from ..cells import repulsion as rep
-from ..cells.interior import interior_mask, membrane_omega_update
 from ..config.defaults import FLAG_FLUID
-from ..dynamics import SimState, StepConfig, external_forces, is_field
-from ..fluid import advection_diffusion as ad
+from ..dynamics import SimState, StepConfig
 from ..fluid import sharded_pallas as _sp
 from ..fluid.guo_velocity import guo_velocity
 from ..ibm import kernels
 from . import comm
+from .sharded_step import cepac_extended
 from .sharding import divides, shard_step_config, tile
 
 
@@ -101,7 +101,7 @@ def owner_unsupported_reason(cfg: StepConfig, n_cells_total: int) -> Optional[st
         return "Lees-Edwards sheared periodicity"
     if cfg.solidify_every:
         return "solidify mechanics (mutable flags)"
-    if is_field(cfg.body_force):
+    if phases.is_field(cfg.body_force):
         return "non-uniform body-force field"
     if n_cells_total == 0:
         return "no cells (use the plain sharded fluid runner)"
@@ -234,7 +234,7 @@ def build_owner_runner(cfg: StepConfig, mesh, envelope: int = 25, margin: float 
     device = mesh.device
     dtype = cfg.dtype
     shape = tuple(int(s) for s in cfg.shape)
-    X, Y, Z = shape
+    X, Y = shape[:2]
     two_d = comm.has_y(mesh)
     nx = mesh.axis_size("x")
     ny = mesh.axis_size("y") if two_d else 1
@@ -264,17 +264,12 @@ def build_owner_runner(cfg: StepConfig, mesh, envelope: int = 25, margin: float 
     flags_l = lcfg.flags
     has_boundaries = bool(torch.as_tensor(cfg.flags).any())
     omega = lcfg.omega if torch.is_tensor(lcfg.omega) else float(cfg.omega)
-    bf = None
-    if cfg.body_force is not None:
-        bf = torch.as_tensor(cfg.body_force, dtype=dtype).to(device)[:, None, None, None]
-    has_rep = cfg.repulsion_constant > 0.0
-    has_brep = cfg.boundary_repulsion_constant > 0.0 and cfg.boundary_mask is not None
+    bf = phases.body_force_forms(cfg.body_force, dtype, device, shape)[1]
+    has_rep, has_brep = phases.repulsion_on(cfg)
     bmask = (torch.as_tensor(cfg.boundary_mask).to(device, torch.uint8) if has_brep
              else None)
-    ext_force = external_forces(cfg, device)
+    ext_force = phases.external_forces(cfg, device)
     interior_on = bool(cfg.interior_every)
-    entire = cfg.interior_entire_every or cfg.interior_every
-    sweep = bool(cfg.interior_entire_every) and entire != cfg.interior_every
     tile_kw = dict(x_origin=x0, x_extent=Xl, y_origin=y0, y_extent=Yl)
 
     def to_grid(a, dim):
@@ -332,17 +327,6 @@ def build_owner_runner(cfg: StepConfig, mesh, envelope: int = 25, margin: float 
     def flat(owned, attr):
         return torch.cat([getattr(o, attr).reshape(-1, 3) for o in owned])
 
-    def per_vertex(owned, mask_of):
-        return torch.cat([mask_of(o).repeat_interleave(o.pos.shape[1]) for o in owned])
-
-    def split(flat_t, owned):
-        out, off = [], 0
-        for o in owned:
-            n = o.pos.shape[0] * o.pos.shape[1]
-            out.append(flat_t[off:off + n].reshape(o.pos.shape))
-            off += n
-        return out
-
     def nbr_tables(owned):
         """Per type, the foreign (idx, pos, alive) tables: the x
         neighbours' (one copy with two ranks along x, none with one), then
@@ -394,48 +378,35 @@ def build_owner_runner(cfg: StepConfig, mesh, envelope: int = 25, margin: float 
 
     def step(f, it, owned, cep, om_f, ov, type_counts):
         # ---- the neighbour tables, once for every consumer of the step
-        tabs = None
-        need = (has_rep and it % cfg.repulsion_every == 0) or (
-            interior_on and om_f is not None
-            and (it % entire == 0 or (sweep and it % cfg.interior_every == 0)))
-        if need:
-            tabs = nbr_tables(owned)
+        rep_now, brep_now = phases.repulsion_due(cfg, it)
+        interior_now = interior_on and om_f is not None and any(phases.interior_due(cfg, it))
+        tabs = nbr_tables(owned) if rep_now or interior_now else None
 
-        pos_f = flat(owned, "pos")
-        valid_v = per_vertex(owned, lambda o: o.idx >= 0)
-        act = per_vertex(owned, lambda o: (o.alive & (o.idx >= 0)).to(dtype))
+        # the own vertices, the empty slots flagged dead
+        live = [o._replace(alive=o.alive & (o.idx >= 0)) for o in owned]
+        counts, pos_f, act = phases.flatten(live, dtype)
+        valid_v = torch.cat([(o.idx >= 0).repeat_interleave(o.pos.shape[1]) for o in owned])
 
         # ---- 1: repulsion at its cadences, the carried force between
         frep = None
         if has_rep or has_brep:
-            frep = flat(owned, "frep")
-            if has_rep and it % cfg.repulsion_every == 0:
-                frep = repulsion_all(owned, tabs, type_counts)
-            if has_brep and it % cfg.boundary_repulsion_every == 0:
-                fb = rep.boundary_repulsion_forces(
+            inner = repulsion_all(owned, tabs, type_counts) if rep_now else None
+            boundary = None
+            if brep_now:
+                boundary = rep.boundary_repulsion_forces(
                     pos_f, act, bmask, shape, cfg.boundary_repulsion_constant,
                     cfg.boundary_repulsion_cutoff)
-                # boundary-only: the recompute replaces the carried force
-                frep = frep + fb if has_rep else fb
-            owned = [o._replace(frep=part) for o, part in zip(owned, split(frep, owned))]
+            frep = phases.combine_repulsion(flat(owned, "frep"), inner, boundary, has_rep)
+            owned = phases.with_parts(owned, "frep", frep, counts)
 
         # ---- 1b: interior viscosity from the own and foreign cells
-        if interior_on and om_f is not None:
-            if it % entire == 0:
-                om_f = torch.full((Xl, Yl, Z), float(cfg.omega), dtype=dtype, device=device)
-                for tc, o, foreign in zip(cfg.types, owned, tabs):
-                    if tc.omega_interior is not None:
-                        pos3, ok3 = union(o, foreign)
-                        m = interior_mask(pos3, tc.topo["tri"], ok3, shape, tc.interior_box,
-                                          **tile_kw)
-                        om_f = om_f.masked_fill(m, tc.omega_interior)
-            if sweep and it % cfg.interior_every == 0:
-                for tc, o, foreign in zip(cfg.types, owned, tabs):
-                    if tc.omega_interior is not None:
-                        pos3, ok3 = union(o, foreign)
-                        om_f = membrane_omega_update(
-                            om_f, pos3, tc.topo["tri"], ok3, tc.omega_interior, cfg.omega,
-                            tc.topo["edge_mean_eq"], shape, **tile_kw)
+        if interior_now:
+            raycast, sweep = phases.interior_due(cfg, it)
+            members = [union(o, foreign) for o, foreign in zip(owned, tabs)]
+            if raycast:
+                om_f = phases.omega_raycast(cfg, members, shape, device, **tile_kw)
+            if sweep:
+                om_f = phases.omega_membrane(cfg, om_f, members, shape, **tile_kw)
 
         # ---- 2: spread the own forces on the E-extended grid (K2); the
         # empty slots and the vertices off the grid go to the parking row
@@ -469,13 +440,9 @@ def build_owner_runner(cfg: StepConfig, mesh, envelope: int = 25, margin: float 
         # ---- 3b: CEPAC on the tile extended by one node a side (two hops)
         u_l = None
         if cfg.cepac_tau is not None and cep is not None:
-            f_e, force_e, g_e = comm.extend_xy(mesh, [f_new, force_l, cep], [1, 1, 1])
-            u_e = guo_velocity(f_e, force_e)
-            cep = ad.ad_stream_collide(g_e, u_e, cfg.cepac_tau, cep_mask, cep_value)[:, 1:-1]
-            u_l = u_e[:, 1:-1]
-            if two_d:
-                cep, u_l = cep[:, :, 1:-1], u_l[:, :, 1:-1]
-            cep = cep.contiguous()
+            cep, u_e = cepac_extended(mesh, cfg, f_new, cep, force_l, True, cep_mask,
+                                      cep_value)
+            u_l = u_e[:, 1:-1, 1:-1] if two_d else u_e[:, 1:-1]
 
         # ---- 4: interpolate the E-extended velocity on the owner (K3)
         vel_f = flat(owned, "vel")
@@ -488,11 +455,10 @@ def build_owner_runner(cfg: StepConfig, mesh, envelope: int = 25, margin: float 
         # ---- 5: advance; the wall deletion on the extended flags, all
         # types at once
         moved = []
-        for o, v_t in zip(owned, split(vel_f, owned)):
-            if cfg.material_integration == 2 and o.vel_prev is not None:
-                moved.append((o.pos + 1.5 * v_t - 0.5 * o.vel_prev, v_t, v_t))
-            else:
-                moved.append((o.pos + v_t, v_t, o.vel_prev))
+        for o, v_t in zip(owned, phases.split_types(vel_f, counts)):
+            new_pos, vel_prev = phases.advance(o.pos, v_t, o.vel_prev,
+                                               cfg.material_integration)
+            moved.append((new_pos, v_t, vel_prev))
         dead = [None] * len(owned)
         if has_boundaries:
             node = nearest_rows(torch.cat([m[0].reshape(-1, 3) for m in moved]))
@@ -510,14 +476,10 @@ def build_owner_runner(cfg: StepConfig, mesh, envelope: int = 25, margin: float 
             ok = alive & (o.idx >= 0)
             force = o.force
             if o.pos.shape[0] and it % tc.material_every == 0:
-                ft = tc.model_fn(new_pos, v_t, tc.topo, tc.material).total
                 ef = ext_force[k]
-                if ef is not None:
-                    # per-cell rows follow the table's cells
-                    if ef.shape[0] == type_counts[k] and type_counts[k] > 1:
-                        ef = ef[torch.clamp(o.idx, 0, ef.shape[0] - 1)]
-                    ft = ft + ef
-                force = torch.where(ok[:, None, None], ft, torch.zeros_like(ft))
+                if ef is not None and ef.shape[0] == type_counts[k] and type_counts[k] > 1:
+                    ef = ef[torch.clamp(o.idx, 0, ef.shape[0] - 1)]  # the table's cells' rows
+                force = phases.material_force(tc, new_pos, v_t, ef, ok)
             new_owned.append(o._replace(pos=new_pos, vel=v_t, force=force, alive=alive,
                                         restime=o.restime + ok.to(torch.int32),
                                         vel_prev=vel_prev))
@@ -636,7 +598,7 @@ def build_owner_runner(cfg: StepConfig, mesh, envelope: int = 25, margin: float 
                                    vel_prev=parts[4] if len(parts) > 4 else cs.vel_prev))
         return tuple(out)
 
-    def advance(state: SimState, n: int):
+    def advance_tables(state: SimState, n: int):
         type_counts = [cs.pos.shape[0] for cs in state.cells]
         if sum(type_counts) == 0:
             raise ValueError("the owner runner needs cells (use the sharded runner)")
@@ -654,4 +616,4 @@ def build_owner_runner(cfg: StepConfig, mesh, envelope: int = 25, margin: float 
 
     describe = (f"table capacity ceil(NC * {margin} / {nx * ny}) + 4 a type, migration "
                 f"buffers ceil(C / 4), extended grid {Xg} x {Yg} (envelope {E})")
-    return OwnerRunner(advance, describe)
+    return OwnerRunner(advance_tables, describe)

@@ -4,10 +4,7 @@ plain version, on the CPU) against the JAX reference: in f32 against
 (f32 rounding of populations of order 1e-2 in another summation order), in
 f64 against the JAX ``lbm.stream_collide`` at 1e-12, also on boxes the
 kernel's 32-wide z tiles and the reference's tiles do not divide (17x9x33,
-10x12x40: the reference then takes tiles that divide); and the dispatch
-from ``stream_collide`` on a large cross-section."""
-
-import importlib
+10x12x40: the reference then takes tiles that divide)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,10 +14,8 @@ import torch
 from hemocell_tpu.fluid import lbm as jax_lbm
 from hemocell_tpu.fluid.pallas_lbm_2d import stream_collide_pallas_2d
 from hemocell_tpu_torch.config.defaults import FLAG_PRESSURE, FLAG_VELOCITY, FLAG_WALL
-from hemocell_tpu_torch.fluid.stream_collide import stream_collide
 from hemocell_tpu_torch.fluid.stream_collide_2d import stream_collide_2d
 
-sc_module = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
 SHAPE = (8, 8, 8)
 MODES = ["field_walls", "uniform", "none", "bc_nodes"]
 # shapes no tile divides, with (tx, ty) tiles of the reference's kernel that
@@ -97,30 +92,3 @@ def test_2d_refuses_an_omega_field_and_bc_without_flags():
         stream_collide_2d(f, None, torch.ones(SHAPE), None)
     with pytest.raises(ValueError, match="flags"):
         stream_collide_2d(f, None, 1.0, None, bc_density=1.0)
-
-
-def test_large_cross_section_goes_to_the_tiled_wrapper(monkeypatch):
-    """``stream_collide`` hands a cross-section of LARGE_CROSS_SECTION nodes
-    or more to ``stream_collide_2d`` when omega is a scalar; a per-node omega
-    and smaller cross-sections stay with it, and so does every shape while
-    the constant is None (the default)."""
-    assert sc_module.LARGE_CROSS_SECTION is None
-    assert sc_module.TILED_FROM == 256 * 256
-    f, force, omega, flags, _, _ = _inputs("field_walls", seed=3, dtype=np.float64)
-    args = (_t(f), _t(force), omega, _t(flags))
-
-    def counts():
-        return (stream_collide.plain_calls, stream_collide_2d.plain_calls)
-
-    c0 = counts()
-    small = stream_collide(*args)
-    assert counts() == (c0[0] + 1, c0[1])
-    monkeypatch.setattr(sc_module, "LARGE_CROSS_SECTION", SHAPE[1] * SHAPE[2])
-    c1 = counts()
-    large = stream_collide(*args)
-    assert counts() == (c1[0], c1[1] + 1)
-    assert torch.equal(small, large)
-    # a per-node omega is outside the tiled kernel's scope
-    stream_collide(_t(f), _t(force), torch.full(SHAPE, omega, dtype=torch.float64),
-                   _t(flags))
-    assert counts() == (c1[0] + 1, c1[1] + 1)

@@ -32,7 +32,8 @@ from hemocell_tpu.ibm.pallas_ibm import (
     slab_capacity,
 )
 from hemocell_tpu_torch.cases.pipeflow30 import pipe_flags
-from hemocell_tpu_torch.dynamics import _split, cell_index
+from hemocell_tpu_torch.dynamics import cell_index
+from hemocell_tpu_torch.step_phases import split_types
 from hemocell_tpu_torch.ibm import coupling, kernels
 from hemocell_tpu_torch.parallel.sharded_step import _localize
 
@@ -187,12 +188,12 @@ def test_wall_hits_owned_mask_matches_overflow_slot(x0, Xl):
     flags = _walled()
     flags_ext = flags[[(x0 + i) % SHAPE[0] for i in range(Xl + 1)]]
     p_local, owned = _localize(_flat(cells), x0, Xl, SHAPE)
-    out = kernels.wall_hit_cells(_split(p_local, counts), flags_ext, owned)
+    out = kernels.wall_hit_cells(split_types(p_local, counts), flags_ext, owned)
     ids = torch.where(owned, cell_index(counts), n_cells).to(torch.int32)
     old = coupling.wall_hit_cells(p_local, ids, flags_ext, n_cells + 1)[:n_cells]
     assert torch.equal(out, old)
     np.testing.assert_array_equal(out.numpy(),
-                                  _k4_mirror(_split(p_local, counts), flags_ext, owned))
+                                  _k4_mirror(split_types(p_local, counts), flags_ext, owned))
 
 
 def test_wall_hits_slabs_sum_to_the_whole_domain():
@@ -209,7 +210,7 @@ def test_wall_hits_slabs_sum_to_the_whole_domain():
     for x0 in range(0, SHAPE[0], Xl):
         flags_ext = flags[[(x0 + i) % SHAPE[0] for i in range(Xl + 1)]]
         p_local, owned = _localize(_flat(cells), x0, Xl, SHAPE)
-        total += kernels.wall_hit_cells(_split(p_local, counts), flags_ext, owned)
+        total += kernels.wall_hit_cells(split_types(p_local, counts), flags_ext, owned)
     assert torch.equal(total, whole) and whole.sum() > 0
 
 
@@ -250,7 +251,7 @@ def test_wall_hits_nine_types_two_launches_mirror(x0, Xl):
     np.testing.assert_array_equal(_k4_mirror(cells, flags), whole.numpy())
     flags_ext = flags[[(x0 + i) % SHAPE[0] for i in range(Xl + 1)]]
     p_local, owned = _localize(_flat(cells), x0, Xl, SHAPE)
-    local = _split(p_local, counts)
+    local = split_types(p_local, counts)
     ref = coupling.wall_hit_cells(p_local, cell_index(counts), flags_ext, n_cells, owned)
     np.testing.assert_array_equal(_k4_mirror(local, flags_ext, owned), ref.numpy())
     assert torch.equal(kernels.wall_hit_cells(local, flags_ext, owned), ref)

@@ -188,14 +188,13 @@ def test_k10_halo_f32_matches_pallas_interpret(keys):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("kernel", [pytest.param(stream_collide, id="k1"),
+                                    pytest.param(stream_collide_2d, id="k10")])
 @pytest.mark.parametrize("n_slabs", [2, 4])
-def test_slabs_with_their_rows_equal_the_whole_box(n_slabs):
+def test_slabs_with_their_rows_equal_the_whole_box(n_slabs, kernel):
     """The rows of the neighbouring slabs (periodic in x) make each slab's
-    step the whole box's, to f64 rounding; through ``stream_collide``'s
-    dispatch to K10 as well."""
-    import importlib
-
-    sc = importlib.import_module("hemocell_tpu_torch.fluid.stream_collide")
+    step the whole box's, to f64 rounding: K1 through ``stream_collide``
+    and K10 through ``stream_collide_2d``, each with ``halos=``."""
     X = 4 * n_slabs
     arrays = _inputs(KEY_SETS["flags + bc + pressure"], seed=4, dtype=np.float64,
                      xl=X - 2)
@@ -208,21 +207,15 @@ def test_slabs_with_their_rows_equal_the_whole_box(n_slabs):
         lo, hi = (s * Xl - 1) % X, ((s + 1) * Xl) % X
         return a.narrow(d, lo, 1), a.narrow(d, hi, 1)
 
-    for large in (None, SLAB[1] * SLAB[2]):
-        sc.LARGE_CROSS_SECTION = large
-        try:
-            parts = []
-            for s in range(n_slabs):
-                halos = {"f": rows(f, 1, s), "force": rows(force, 1, s),
-                         "flags": rows(flags, 0, s), "bc": rows(bc, 1, s)}
-                parts.append(stream_collide(
-                    f.narrow(1, s * Xl, Xl), force.narrow(1, s * Xl, Xl), omega,
-                    flags.narrow(0, s * Xl, Xl), bc.narrow(1, s * Xl, Xl), rho0,
-                    halos=halos))
-        finally:
-            sc.LARGE_CROSS_SECTION = None
-        np.testing.assert_allclose(torch.cat(parts, dim=1).numpy(), whole.numpy(), rtol=0,
-                                   atol=1e-15)
+    parts = []
+    for s in range(n_slabs):
+        halos = {"f": rows(f, 1, s), "force": rows(force, 1, s),
+                 "flags": rows(flags, 0, s), "bc": rows(bc, 1, s)}
+        parts.append(kernel(f.narrow(1, s * Xl, Xl), force.narrow(1, s * Xl, Xl), omega,
+                            flags.narrow(0, s * Xl, Xl), bc.narrow(1, s * Xl, Xl), rho0,
+                            halos=halos))
+    np.testing.assert_allclose(torch.cat(parts, dim=1).numpy(), whole.numpy(), rtol=0,
+                               atol=1e-15)
 
 
 def test_halo_mode_refuses_missing_rows():
