@@ -48,12 +48,18 @@ Phases, in order; any failure exits non-zero and prints no result:
      K2 (without and with its extra force, with phase 3's K2 checks and
      speed gate), K3 and K4 (walls on the z faces, the vertices moved by
      2 lu) once more at these shapes, with phase 3's checks; K5 also: its
-     node bins
-     on the card equal to a stable torch.sort and searchsorted and to the
-     plain node_bins bit for bit, two launches bitwise equal, the error
-     against the plain version in its own summation order, and the times of
-     the binning alone, the pair kernel alone, each of its kernels
-     (profiler) and each piece of the PyTorch binning it replaced;
+     node bins on the card equal to the plain node_bins bit for bit (each
+     run that of a stable torch.sort), the occupied-bin counter, two
+     launches bitwise equal, the error against the plain version in its own
+     summation order, and the times of the binning alone, the pair kernel
+     alone, each of its kernels (profiler) and each piece of the PyTorch
+     binning it replaced; stale node entries: a call on the cells at x <
+     X/2, then one on them moved by X/2, bitwise equal to a call on fresh
+     scratch, every node of the first call cleared; at the benchmark's 256^3
+     rank (4400 RBC, seed 7) two launches and the node bins bitwise, the
+     forces against the plain version in the kernel's order, the counter,
+     each kernel's time and the stale-node check; the 128^3 vertex set timed
+     in its box and in a 256^3 box;
   7. the suspension at full size: presets.rbc_suspension 128^3, 872 RBC (30%
      hematocrit), repulsion every step, CEPAC with a Dirichlet slab, 500
      iterations through K1, K2, K3, K5, K6, with launch counts, MLUPS, the
@@ -1349,10 +1355,62 @@ def device_launches(fn, n):
     return {k: count for k, (count, _) in profiled_kernels(fn, n).items()}
 
 
+def node_bins_on_card(pos, gid, active, shape, ints):
+    """One ``hc_bin_nodes`` call on the scratch ``ints``: (order [P] int64,
+    runs [X*Y*Z, 2] int64: each node's first rank and length as the node
+    table holds them, (0, 0) where it holds no run)."""
+    import torch
+
+    from hemocell_tpu_torch import _build
+
+    X, Y, Z = shape
+    P = pos.shape[0]
+    order = torch.empty(P, dtype=torch.int32, device=pos.device)
+    runs = torch.empty((X * Y * Z, 2), dtype=torch.int32, device=pos.device)
+    _build.check(_build.lib().hc_bin_nodes(
+        pos.data_ptr(), gid.data_ptr(), active.data_ptr(), order.data_ptr(), runs.data_ptr(),
+        ints.data_ptr(), P, X, Y, Z, torch.cuda.current_stream().cuda_stream), "hc_bin_nodes")
+    return order.long(), runs.long()
+
+
+def same_runs(card, plain):
+    """The card's runs equal the plain ones: the first ranks exactly, the
+    lengths as far as the pairs read them (up to BIN_CAPACITY)."""
+    import torch
+
+    from hemocell_tpu_torch.cells.repulsion import BIN_CAPACITY
+
+    return (torch.equal(card[:, 0], plain[:, 0])
+            and torch.equal(torch.clamp(card[:, 1], max=BIN_CAPACITY),
+                            torch.clamp(plain[:, 1], max=BIN_CAPACITY)))
+
+
+def runs_as_stable_sort(order, runs, bin_id, N):
+    """Each node's run equal to its run in a stable torch.sort of the bin
+    ids (vertex order within the node), the dead last in vertex order."""
+    import torch
+
+    sorted_bins, ref_order = torch.sort(bin_id, stable=True)
+    ref_start = torch.searchsorted(sorted_bins, torch.arange(N + 1, dtype=torch.long,
+                                                             device=bin_id.device))
+    if not torch.equal(runs[:, 1], ref_start[1:N + 1] - ref_start[:N]):
+        return False
+    P = order.shape[0]
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(P, device=order.device)
+    ref_rank = torch.empty_like(order)
+    ref_rank[ref_order] = torch.arange(P, device=order.device)
+    live = bin_id < N
+    b = bin_id[live]
+    n_live = int(live.sum())
+    return (torch.equal(rank[live] - runs[b, 0], ref_rank[live] - ref_start[b])
+            and torch.equal(order[n_live:], ref_order[n_live:]))
+
+
 def repulsion_bins_check(pos, gid, active, shape, k_rep, cutoff):
-    """K5's node bins on the card against a stable torch.sort and
-    searchsorted and against the plain ``node_bins``, bit for bit; two
-    launches of the wrapper bitwise equal; the wrapper against the plain
+    """K5's node bins on the card against the plain ``node_bins``, bit for
+    bit, and each run against a stable torch.sort; the occupied-bin counter;
+    two launches of the wrapper bitwise equal; the wrapper against the plain
     version in the kernel's summation order.  Times (ms): the wrapper, the
     binning alone, the pair kernel alone, and each piece of the PyTorch
     binning K5's wrapper had before (elementwise ops, stable sort,
@@ -1370,13 +1428,12 @@ def repulsion_bins_check(pos, gid, active, shape, k_rep, cutoff):
     lib = _build.lib()
     stream = torch.cuda.current_stream().cuda_stream
     ints, _ = kernels.scratch("hc_node_bins_ints", dev, P, shape)
-    order = torch.empty(P, dtype=torch.int32, device=dev)
-    starts = torch.empty(N + 1, dtype=torch.int32, device=dev)
     out = torch.empty((P, 3), dtype=torch.float32, device=dev)
 
-    def bins(o=None, s=None):
-        _build.check(lib.hc_bin_nodes(pos.data_ptr(), gid.data_ptr(), active.data_ptr(), o, s,
-                                      ints.data_ptr(), P, X, Y, Z, stream), "hc_bin_nodes")
+    def bins():
+        _build.check(lib.hc_bin_nodes(pos.data_ptr(), gid.data_ptr(), active.data_ptr(), None,
+                                      None, ints.data_ptr(), P, X, Y, Z, stream),
+                     "hc_bin_nodes")
 
     def pairs():
         _build.check(lib.hc_repulsion_pairs(active.data_ptr(), out.data_ptr(), float(k_rep),
@@ -1386,14 +1443,16 @@ def repulsion_bins_check(pos, gid, active, shape, k_rep, cutoff):
     def wrapper():
         return rep.repulsion(pos, gid, active, shape, k_rep, cutoff)
 
-    bins(order.data_ptr(), starts.data_ptr())
-    _, _, bin_id, _ = rep._bin_vertices(pos, active, shape)
+    order, runs = node_bins_on_card(pos, gid, active, shape, ints)
+    plain_order, plain_runs, bin_id = rep.node_bins(pos, active, shape)
+    as_plain = torch.equal(order, plain_order) and same_runs(runs, plain_runs)
+    as_sort = runs_as_stable_sort(order, plain_runs, bin_id, N)
+    occupied = int((torch.bincount(bin_id, minlength=N + 1)[:N] > 0).sum())
+    counted = rep.occupied_bins(shape, P)
     sorted_bins, ref_order = torch.sort(bin_id, stable=True)
     ref_start = torch.searchsorted(sorted_bins, torch.arange(N + 1, dtype=torch.long,
                                                              device=dev))
-    plain_order, plain_start, _ = rep.node_bins(pos, active, shape)
-    as_sort = torch.equal(order.long(), ref_order) and torch.equal(starts.long(), ref_start)
-    as_plain = torch.equal(order.long(), plain_order) and torch.equal(starts.long(), plain_start)
+    del order, runs, plain_order, plain_runs
     first = wrapper()
     bitwise = torch.equal(first, wrapper())
     ordered = rep.repulsion_forces_binned(pos, gid, active, shape, k_rep, cutoff)
@@ -1414,21 +1473,161 @@ def repulsion_bins_check(pos, gid, active, shape, k_rep, cutoff):
     t["pytorch_binning"]["total"] = sum(t["pytorch_binning"].values())
     t["kernels_us"] = kernel_times(wrapper, 20)
     occ = torch.bincount(bin_id, minlength=N + 1)[:N]
-    print(f"[6] repulsion's node bins ({int((occ > 0).sum())} of {N} nodes occupied, the "
-          f"largest run {int(occ.max())}, {int((bin_id == N).sum())} dead vertices): equal "
-          f"to torch.sort + searchsorted {as_sort}, to the plain node_bins {as_plain}; two "
-          f"launches bitwise equal {bitwise}; against the plain version in the kernel's "
-          f"order max_abs_err {err_ordered:.3e}", flush=True)
+    print(f"[6] repulsion's node bins ({occupied} of {N} nodes occupied, the counter reads "
+          f"{counted}; the largest run {int(occ.max())}, {int((bin_id == N).sum())} dead "
+          f"vertices): equal to the plain node_bins {as_plain}, each run that of "
+          f"torch.sort {as_sort}; two launches bitwise equal {bitwise}; against the plain "
+          f"version in the kernel's order max_abs_err {err_ordered:.3e}", flush=True)
     print(f"[6] repulsion: wrapper {t['ms']:.4f} ms = binning alone {t['bins_ms']:.4f} + "
           f"pairs alone {t['pairs_ms']:.4f}; by kernel (profiler, us a call) "
           f"{json.dumps(t['kernels_us'])}; the PyTorch binning it replaces "
           f"{json.dumps(t['pytorch_binning'])}", flush=True)
     if not (as_sort and as_plain):
-        raise AssertionError("K5's node bins differ from the stable sort")
+        raise AssertionError("K5's node bins differ from the plain node_bins")
+    if counted != occupied:
+        raise AssertionError(f"K5's occupied-bin counter reads {counted}, not {occupied}")
     if not bitwise:
         raise AssertionError("repulsion: two launches on the same inputs differ")
-    t.update(bitwise=bitwise, max_abs_err_kernel_order=err_ordered)
+    t.update(bitwise=bitwise, max_abs_err_kernel_order=err_ordered, occupied_bins=counted,
+             nodes=N)
     return t
+
+
+def repulsion_stale_check(pos, gid, active, shape, k_rep, cutoff):
+    """K5's node entries between calls: on the scratch the earlier calls at
+    this P and shape used, a call on the cells whose vertices lie at nodes x
+    < X/2 (the rest dead), then one on those cells moved by X/2 nodes in x,
+    so that every node of the first call is empty in the second.  The second
+    call's forces equal, bit for bit, a call on fresh scratch, and its runs
+    the plain node_bins' (every node of the first call cleared)."""
+    import torch
+
+    from hemocell_tpu_torch import _build
+    from hemocell_tpu_torch.cells import repulsion as rep
+    from hemocell_tpu_torch.ibm import kernels
+
+    X, Y, Z = shape
+    P = pos.shape[0]
+    pos_w, node, _, _ = rep._bin_vertices(pos, active, shape)
+    nc = int(gid.max()) + 1
+    low = torch.ones(nc, dtype=torch.int32, device=pos.device)
+    low.scatter_reduce_(0, gid.long(), (node[:, 0] < X // 2).int(), reduce="amin")
+    act = ((active > 0) & (low[gid.long()] > 0)).float()
+    moved = (pos_w + torch.tensor([X // 2, 0.0, 0.0], device=pos.device)).contiguous()
+    first = rep.repulsion(pos_w.contiguous(), gid, act, shape, k_rep, cutoff)
+    second = rep.repulsion(moved, gid, act, shape, k_rep, cutoff)
+    fresh = torch.zeros(_build.lib().hc_node_bins_ints(P, X, Y, Z), dtype=torch.int32,
+                        device=pos.device)
+    out = torch.empty_like(second)
+    _build.check(_build.lib().hc_repulsion(
+        moved.data_ptr(), gid.data_ptr(), act.data_ptr(), out.data_ptr(), float(k_rep),
+        float(cutoff), rep.BIN_CAPACITY, fresh.data_ptr(), P, X, Y, Z,
+        torch.cuda.current_stream().cuda_stream), "hc_repulsion")
+    same_forces = torch.equal(second, out)
+    _, runs_plain, bin2 = rep.node_bins(moved, act, shape)
+    _, _, bin1 = rep.node_bins(pos_w, act, shape)
+    N = X * Y * Z
+    live1, live2 = bin1[bin1 < N].unique(), bin2[bin2 < N].unique()
+    disjoint = not bool(torch.isin(live1, live2).any())
+    ints, _ = kernels.scratch("hc_node_bins_ints", pos.device, P, shape)
+    _, runs = node_bins_on_card(moved, gid, act, shape, ints)
+    runs_equal = same_runs(runs, runs_plain)
+    pushed = int((second.abs().sum(dim=1) > 0).sum())
+    print(f"[6] repulsion's stale node entries: {int(act.sum())} live vertices at "
+          f"{live1.numel()} nodes, moved by {X // 2} nodes in x to {live2.numel()} others "
+          f"(disjoint {disjoint}), {pushed} with a partner; the second call's forces equal "
+          f"a call on fresh scratch {same_forces}, its runs the plain ones {runs_equal}; the first "
+          f"call pushed {int((first.abs().sum(dim=1) > 0).sum())}", flush=True)
+    if not (disjoint and pushed > 100):
+        raise AssertionError("the stale-bin input does not exercise the kernel")
+    if not (same_forces and runs_equal):
+        raise AssertionError("K5 read a node entry an earlier call left")
+    return dict(forces_bitwise=same_forces, runs_bitwise=runs_equal, live_nodes=live1.numel())
+
+
+def repulsion_times(tag, pos, gid, active, shape, k_rep, cutoff):
+    """K5's wrapper (50 calls, CUDA events) and each kernel's device us a
+    call (profiler, 20 calls), with the nodes the call occupied."""
+    from hemocell_tpu_torch.cells import repulsion as rep
+
+    def wrapper():
+        return rep.repulsion(pos, gid, active, shape, k_rep, cutoff)
+
+    ms = time_ms(wrapper, 50)
+    kus = kernel_times(wrapper, 20)
+    occupied = rep.occupied_bins(shape, pos.shape[0])
+    N = int(np.prod(shape))
+    print(f"{tag} repulsion in {tuple(shape)}: {pos.shape[0]} vertices at {occupied} of {N} "
+          f"nodes ({100.0 * occupied / N:.2f}% of the table): {ms:.4f} ms a call; by kernel "
+          f"(profiler, us a call) {json.dumps({k: round(v, 2) for k, v in kus.items()})}",
+          flush=True)
+    return dict(ms=ms, kernels_us=kus, occupied_bins=occupied, nodes=N)
+
+
+def k5_cube256_rows(susp_pos, susp_gid, susp_active, k_rep, cutoff):
+    """K5 at the benchmark's ``cube256_rbc`` rank: 4400 RBC of the presets'
+    template on their grid (seed 7, 2,824,800 vertices) in a periodic 256^3
+    box: two launches bit for bit, the forces against the plain version in
+    the kernel's order (within 1e-5 of max|F|, as at 128^3), the card's node
+    bins against the plain ones, the occupied-bin counter, the times by
+    kernel, the stale-node check (``repulsion_stale_check``); then the 128^3
+    suspension's vertex set timed in its 128^3 box and in a 256^3 box (a
+    call's work follows the vertices, not the nodes)."""
+    import torch
+
+    from hemocell_tpu_torch.cells import repulsion as rep
+    from hemocell_tpu_torch.cells.state import place_cells
+    from hemocell_tpu_torch.ibm import kernels
+    from hemocell_tpu_torch.mesh import rbc_from_sphere
+    from hemocell_tpu_torch.presets import default_params, grid_centers
+
+    tag, shape, dev = "[6] 256^3", (256, 256, 256), torch.device("cuda")
+    params = default_params()
+    mesh = rbc_from_sphere(3.91e-6 / params.dx, 600)
+    rng = np.random.default_rng(7)
+    centers = grid_centers(shape, 4400)
+    cells = place_cells(mesh.vertices, centers, rng.uniform(0, 2 * np.pi, (len(centers), 3)))
+    pos = torch.as_tensor(cells.reshape(-1, 3), dtype=torch.float32, device=dev)
+    P = pos.shape[0]
+    gid = torch.arange(len(centers), dtype=torch.int32, device=dev).repeat_interleave(
+        mesh.vertices.shape[0])
+    active = torch.ones(P, device=dev)
+    first = rep.repulsion(pos, gid, active, shape, k_rep, cutoff)
+    bitwise = torch.equal(first, rep.repulsion(pos, gid, active, shape, k_rep, cutoff))
+    ordered = rep.repulsion_forces_binned(pos, gid, active, shape, k_rep, cutoff)
+    scale = float(ordered.abs().max())
+    err, tol = float((first - ordered).abs().max()), 1e-5 * scale
+    del ordered
+    ints, _ = kernels.scratch("hc_node_bins_ints", dev, P, shape)
+    order, runs = node_bins_on_card(pos, gid, active, shape, ints)
+    plain_order, plain_runs, _ = rep.node_bins(pos, active, shape)
+    as_plain = torch.equal(order, plain_order) and same_runs(runs, plain_runs)
+    occupied = int((plain_runs[:, 1] > 0).sum())
+    del order, runs, plain_order, plain_runs
+    torch.cuda.empty_cache()
+    pushed = int((first.abs().sum(dim=1) > 0).sum())
+    print(f"{tag} repulsion ({P} vertices, {pushed} with a partner, max|F| {scale:.3e}): two "
+          f"launches bitwise equal {bitwise}; against the plain version in the kernel's order "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}); node bins equal to the plain node_bins "
+          f"{as_plain}; {occupied} nodes occupied", flush=True)
+    t = repulsion_times(tag, pos, gid, active, shape, k_rep, cutoff)
+    if not (bitwise and as_plain and t["occupied_bins"] == occupied):
+        raise AssertionError("K5 at 256^3 disagrees with itself or the plain node bins")
+    if not err <= tol:
+        raise AssertionError(f"K5 at 256^3: max_abs_err {err:.3e} against the plain version "
+                             f"in its order, over {tol:.3e}")
+    stale = repulsion_stale_check(pos, gid, active, shape, k_rep, cutoff)
+    del pos, gid, active, first
+    torch.cuda.empty_cache()
+    boxes = {str(n): repulsion_times(f"[6] one vertex set in {n}^3:", susp_pos, susp_gid,
+                                     susp_active, (n, n, n), k_rep, cutoff)
+             for n in (128, 256)}
+    ratio = boxes["256"]["ms"] / boxes["128"]["ms"]
+    print(f"[6] repulsion: the 128^3 suspension's vertices in a 256^3 box take {ratio:.3f} "
+          f"times their time in the 128^3 box", flush=True)
+    return dict(cube256=dict(t, P=P, bitwise=bitwise, node_bins_bitwise=as_plain,
+                             max_abs_err_kernel_order=err, tol=tol, stale=stale),
+                boxes=boxes, box_ratio=ratio)
 
 
 def phase_suspension_kernels(susp):
@@ -1503,7 +1702,9 @@ def phase_suspension_kernels(susp):
     torch.cuda.empty_cache()
     rows.append(dict(name="repulsion", tol=tol, max_abs_err=err, plain_ms=plain_ms,
                      bound_ms=b, bound_by=by, library_ms=None,
-                     **repulsion_bins_check(pos, gid, active, shape, k_rep, cutoff)))
+                     **repulsion_bins_check(pos, gid, active, shape, k_rep, cutoff),
+                     stale=repulsion_stale_check(pos, gid, active, shape, k_rep, cutoff),
+                     **k5_cube256_rows(pos, gid, active, k_rep, cutoff)))
 
     # ---- K6: a CEPAC field around concentration 0.02 advected by a sheared,
     # noisy velocity, with the Dirichlet slab

@@ -72,12 +72,14 @@ SIGNATURES = {
     "hc_bin_tiles": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "hc_gather_tiles": [_I, _I, _I, _P],
 }
-# entries that return a count of int32 scratch words, not a CUDA error
+# entries that return a count (of int32 scratch words, or of the nodes K5's
+# last call occupied), not a CUDA error
 SIZES = {
     "hc_tile_bins_ints": [_I, _I, _I, _I],
     "hc_slab_bins_ints": [_I, _I],
     "hc_static_scratch_ints": [_I, _I, _I, _I],
     "hc_node_bins_ints": [_I, _I, _I, _I],
+    "hc_node_bins_occupied": [_P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

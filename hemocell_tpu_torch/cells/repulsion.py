@@ -9,18 +9,19 @@ Force law: for vertices of *different* cells closer than ``cutoff``::
     F = k_rep * (cutoff / d) * (dv / d)     on the local vertex
 
 with ``dv`` the minimum-image displacement in all three axes.  Neighbour
-search: vertices are binned to their nearest lattice node, sorted by bin
-(stable), and each vertex scans the first ``BIN_CAPACITY`` vertices of each
-of its 27 surrounding bins.  Dead vertices go to a virtual bin past the
-lattice and form no pair.
+search: vertices are binned to their nearest lattice node, and each vertex
+scans the first ``BIN_CAPACITY`` vertices, in vertex order, of each of its
+27 surrounding bins.  Dead vertices go to a virtual bin past the lattice and
+form no pair.
 
 ``repulsion`` is the wrapper: on CPU tensors it runs the plain
 ``repulsion_forces``; on CUDA tensors it makes one call into the kernel
-library (``csrc/bin_nodes.cu`` bins the vertices by node with a stable
-counting sort on the card, K5 sums the pairs) or raises for what the
-kernels do not take.  ``node_bins`` and ``repulsion_forces_binned`` repeat
-the kernels' indexing and summation order in plain PyTorch, for the tests
-and ``chip_smoke.py``.
+library (``csrc/bin_nodes.cu`` bins the vertices by node with a counting
+sort on the card whose passes run over the vertices, K5 sums the pairs) or
+raises for what the kernels do not take.  ``node_bins`` and
+``repulsion_forces_binned`` repeat the kernels' layout and summation order
+in plain PyTorch, for the tests and ``chip_smoke.py``; ``occupied_bins``
+reads how many nodes the last call on the card occupied.
 
 Boundary repulsion needs no particle list: wall nodes adjacent to fluid are
 a precomputed mask and every vertex checks its 27 surrounding nodes
@@ -35,13 +36,16 @@ import torch
 from .. import _build
 from .._device import constant
 from ..config.defaults import FLAG_FLUID, FLAG_WALL
-from ..ibm import binned, kernels
+from ..ibm import kernels
 
 # 27-neighbourhood offsets
 _NBR = tuple((i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1))
 
 # matches the reference particle-grid capacity (PARTICLES_PER_NODE)
 BIN_CAPACITY = 10
+
+# vertices repulsion_forces_binned sums at a time
+_ROWS = 1 << 16
 
 
 def _bin_vertices(pos_flat, active, shape):
@@ -103,48 +107,69 @@ def repulsion_forces(pos_flat, cell_gid, active, shape, k_rep, cutoff,
 
 
 def node_bins(pos_flat, active, shape):
-    """The node bins K5's kernels build, in plain PyTorch: the stable
-    counting sort of the vertices by bin id (``_bin_vertices``; the dead in
-    the virtual bin X*Y*Z, after every live vertex).  Returns (order [P]
-    int64, sorted rank -> vertex; bin_start [X*Y*Z + 1] int64, the first
-    rank of each bin, bin_start[X*Y*Z] that of the dead; bin_id [P]).
-    Equal to ``torch.sort(bin_id, stable=True)`` and ``searchsorted``."""
+    """The node bins K5's kernels build, in plain PyTorch.  A node's run
+    holds its live vertices in vertex order; the runs lie in the order of
+    their lowest vertices, then the dead (``_bin_vertices``' virtual bin
+    X*Y*Z) in vertex order.  Returns (order [P] int64, rank -> vertex;
+    runs [X*Y*Z, 2] int64, each node's first rank and length, (0, 0) where
+    the node holds no live vertex; bin_id [P]).  Each run equals the run of
+    the node in ``torch.sort(bin_id, stable=True)``."""
     X, Y, Z = (int(s) for s in shape)
+    N = X * Y * Z
     _, _, bin_id, _ = _bin_vertices(pos_flat, active, shape)
-    order, starts, _ = binned.bin_vertices_plain(bin_id, X * Y * Z + 1)
-    return order, starts[:X * Y * Z + 1], bin_id
+    P = bin_id.shape[0]
+    device = bin_id.device
+    vertex = torch.arange(P, dtype=torch.long, device=device)
+    lowest = torch.full((N + 1,), P, dtype=torch.long, device=device)
+    lowest.scatter_reduce_(0, bin_id, vertex, reduce="amin")
+    live = bin_id < N
+    leads = live & (lowest[bin_id] == vertex)
+    length = torch.where(leads, torch.bincount(bin_id, minlength=N + 1)[bin_id], 0)
+    start = torch.cumsum(length, 0) - length
+    runs = torch.zeros((N, 2), dtype=torch.long, device=device)
+    runs[bin_id[leads]] = torch.stack([start[leads], length[leads]], dim=1)
+    rank = torch.where(live, runs[torch.clamp(bin_id, max=N - 1), 0], live.sum())
+    order = torch.sort(rank, stable=True)[1]
+    return order, runs, bin_id
 
 
 def repulsion_forces_binned(pos_flat, cell_gid, active, shape, k_rep, cutoff,
                             bin_capacity=BIN_CAPACITY):
     """``repulsion_forces`` through ``node_bins``, summed as K5 sums: each
     vertex adds its candidates one by one, bins in the order ox, oy, oz,
-    then rank within the bin."""
+    then rank within the bin.  Computed _ROWS vertices at a time, so that
+    the candidates of millions of vertices fit in memory."""
     X, Y, Z = (int(s) for s in shape)
     P = pos_flat.shape[0]
     device = pos_flat.device
     pos_w, node, _, shp = _bin_vertices(pos_flat, active, shape)
-    order, bin_start, _ = node_bins(pos_flat, active, shape)
+    order, runs, _ = node_bins(pos_flat, active, shape)
     nbr = constant(_NBR, torch.long, device)
-    nbr_nodes = torch.remainder(node[:, None, :] + nbr[None, :, :], shp[None, None, :])
-    nbr_bins = (nbr_nodes[..., 0] * Y + nbr_nodes[..., 1]) * Z + nbr_nodes[..., 2]
-    start = bin_start[nbr_bins]
-    end = torch.minimum(bin_start[nbr_bins + 1], start + bin_capacity)
-    rank = start[:, :, None] + torch.arange(bin_capacity, dtype=torch.long, device=device)
-    valid = rank < end[:, :, None]  # [P,27,C]
-    cand = order[torch.clamp(rank, max=max(P - 1, 0))]
-    dv = pos_w[:, None, None, :] - pos_w[cand]
     fshp = shp.to(pos_flat.dtype)
-    dv = dv - torch.round(dv / fshp) * fshp
-    d2 = dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1] + dv[..., 2] * dv[..., 2]
-    d = torch.sqrt(torch.clamp(d2, min=1e-30))
-    ok = (valid & (cell_gid[cand] != cell_gid[:, None, None]) & (d < cutoff)
-          & (active > 0)[:, None, None])
-    mag = torch.where(ok, k_rep * (cutoff / d) / d, torch.zeros_like(d))
-    term = (mag[..., None] * dv).reshape(P, 27 * bin_capacity, 3)
+    slots = torch.arange(bin_capacity, dtype=torch.long, device=device)
     force = torch.zeros_like(pos_w)
-    for k in range(term.shape[1]):
-        force = force + term[:, k]
+    for lo in range(0, P, _ROWS):
+        hi = min(lo + _ROWS, P)
+        nbr_nodes = torch.remainder(node[lo:hi, None, :] + nbr[None, :, :], shp[None, None, :])
+        nbr_bins = (nbr_nodes[..., 0] * Y + nbr_nodes[..., 1]) * Z + nbr_nodes[..., 2]
+        run = runs[nbr_bins]
+        start = run[..., 0]
+        end = start + torch.clamp(run[..., 1], max=bin_capacity)
+        rank = start[:, :, None] + slots
+        valid = rank < end[:, :, None]  # [rows,27,C]
+        cand = order[torch.clamp(rank, max=P - 1)]
+        dv = pos_w[lo:hi, None, None, :] - pos_w[cand]
+        dv = dv - torch.round(dv / fshp) * fshp
+        d2 = dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1] + dv[..., 2] * dv[..., 2]
+        d = torch.sqrt(torch.clamp(d2, min=1e-30))
+        ok = (valid & (cell_gid[cand] != cell_gid[lo:hi, None, None]) & (d < cutoff)
+              & (active[lo:hi] > 0)[:, None, None])
+        mag = torch.where(ok, k_rep * (cutoff / d) / d, torch.zeros_like(d))
+        term = (mag[..., None] * dv).reshape(hi - lo, 27 * bin_capacity, 3)
+        part = torch.zeros_like(pos_w[lo:hi])
+        for k in range(term.shape[1]):
+            part = part + term[:, k]
+        force[lo:hi] = part
     return force * active[:, None]
 
 
@@ -159,8 +184,9 @@ def repulsion(pos_flat, cell_gid, active, shape, k_rep, cutoff):
         return repulsion_forces(pos_flat, cell_gid, active, shape, k_rep, cutoff)
     X, Y, Z = (int(s) for s in shape)
     P = pos_flat.shape[0]
-    if X * Y * Z + 1 >= 2 ** 31 or P >= 2 ** 31:
-        raise ValueError("repulsion: the kernel indexes bins and vertices with int32")
+    if 8 * ((X + 1) // 2) * ((Y + 1) // 2) * ((Z + 1) // 2) >= 2 ** 31 or P > 2 ** 26:
+        raise ValueError("repulsion: the kernel indexes its node table (2 x 2 x 2 bricks) "
+                         "with int32 and its run words hold first ranks below 2^26")
     pos_flat = _build.cuda_arg(pos_flat, "repulsion: pos", torch.float32, (P, 3))
     cell_gid = _build.cuda_arg(cell_gid, "repulsion: cell_gid", torch.int32, (P,))
     active = _build.cuda_arg(active, "repulsion: active", torch.float32, (P,))
@@ -177,6 +203,21 @@ def repulsion(pos_flat, cell_gid, active, shape, k_rep, cutoff):
 
 repulsion.launches = 0
 repulsion.plain_calls = 0
+
+def occupied_bins(shape, P):
+    """The nodes that K5's last call on the card with ``P`` vertices in
+    ``shape`` occupied (the share of the X*Y*Z table the call touched), or
+    None where no such call has run.  Waits for the card, which the step
+    never does."""
+    X, Y, Z = (int(s) for s in shape)
+    ints = kernels.kept_scratch("hc_node_bins_ints", P, (X, Y, Z))
+    if ints is None:
+        return None
+    found = _build.lib().hc_node_bins_occupied(
+        ints.data_ptr(), P, X, Y, Z, torch.cuda.current_stream(ints.device).cuda_stream)
+    if found < 0:
+        raise RuntimeError("occupied_bins: CUDA error reading K5's counter")
+    return int(found)
 
 
 def boundary_neighbor_mask(flags: np.ndarray) -> np.ndarray:

@@ -70,20 +70,56 @@
 //   torch.sort(key, stable=True) and searchsorted's starts bit for bit; no
 //   sorted copy is written.
 //
-// Node bins (csrc/bin_nodes.cu), K5's neighbour search: a stable counting
-//   sort of the vertices by their nearest node (X*Y*Z bins, the dead in
-//   the virtual bin X*Y*Z).  The count kernel writes each vertex's record
-//   (wrapped position, cell id) and takes a slot in its node with an
-//   integer atomic; two scan kernels turn the node counts into the starts
-//   of the runs (a sum per tile of nodes, then each tile adds the sums
-//   before it) and zero the counts again; the placement writes each live
-//   vertex at its slot, in the order of the atomics, and the dead in
-//   vertex order (a block scan over the block offsets the count kernel
-//   left); the rank kernel gives each live vertex its stable place, the
-//   number of vertices of its run with a smaller index (runs are a few
-//   vertices long), and writes the order; a gather writes the records in
-//   it.  The result equals torch.sort(bin, stable=True) and searchsorted's
-//   starts bit for bit.
+// Node bins (csrc/bin_nodes.cu), K5's neighbour search: a counting sort of
+//   the vertices by their nearest node whose every launch runs over the P
+//   vertices, in blocks of NODE_THREADS; the node table is read and written
+//   only at the nodes that vertices occupy (and at the 27 around a live
+//   vertex, by the pairs).  A node's run is its live vertices in vertex
+//   order; the runs lie in the order of their lowest vertices, the dead
+//   after them in vertex order.  The table holds one 32-bit word a node,
+//   in bricks of 2 x 2 x 2 nodes (one 32-byte sector: the 27 words around a
+//   vertex lie in 8 sectors).  Between calls a node's word is its run word
+//   of the last call, first rank << 5 | min(length, 31), where that call
+//   put a live vertex, and 0 elsewhere: no sweep keeps it so.  During a
+//   call an occupied node's word holds its list head, HEAD_BIT | (p + 1),
+//   then its run word (below HEAD_BIT); a node the last call occupied and
+//   this one does not is cleared by a vertex that left it.  Seven launches
+//   a call, six of the bins:
+//   * node_count_kernel writes each vertex's record (wrapped position, cell
+//     id) and slot, notes the slot it left if its node changed, and pushes
+//     it onto its node's list (an exchange of the head: no count; a word
+//     without HEAD_BIT is the last call's, and the list was empty); each
+//     block counts its dead.
+//   * node_rank_kernel: each vertex that left a node clears the node's
+//     word where it holds no head (no vertex is there now); each live
+//     vertex walks its node's list (runs are a few vertices long): the
+//     node's length, its lowest vertex (the leader) and the vertex's stable
+//     rank.
+//   * node_tile_sums_kernel: each block of vertices sums the lengths of the
+//     runs its vertices lead (tiles of vertices, not of nodes); the last
+//     block to finish scans the ~P/256 block sums and the dead per block
+//     once a call and writes the live vertices and the occupied nodes.
+//   * node_starts_kernel: each leader takes its run's first rank and writes
+//     the run word over its node's list head.
+//   * node_place_kernel writes the order: each live vertex at its leader's
+//     first rank plus its rank, the dead at their places; node_gather_kernel
+//     writes the records in it.
+//   The layout equals cells/repulsion.py's node_bins bit for bit; each run
+//   equals the run of torch.sort(bin, stable=True), so the pairs, which walk
+//   each vertex's 27 runs in a fixed order, do not depend on where a run
+//   lies.  Tried and not kept, at 256^3 with 4400 RBC: runs in node order,
+//   which needs the starts of all X*Y*Z nodes each call (two passes over the
+//   counts and a write of all starts: 245 of K5's 850 us); a count and a
+//   lowest-vertex bid a node (two atomics) with (first rank, length) words,
+//   untagged and cleared, or 16-byte entries tagged with the call's number:
+//   K5 took 1000 and 918 us, the scattered 8- and 16-byte words missing the
+//   L2 cache in every launch; two halves of the table used by alternate
+//   calls, each call clearing in the other every word the last one wrote:
+//   740 us with the nodes in x, y, z order, 689 in bricks (the clearing
+//   stores miss the cache); 8-byte words tagged with the call's number: 692
+//   (the starts' 8-byte stores); words never cleared, a stale one told by
+//   its run's first record lying at another node: 770 (the check on every
+//   run took the pairs from 344 to 465 us).  This design: 650.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -138,25 +174,32 @@ struct SlabBins {
 };
 
 // Scratch of the node bins, carved from one int32 buffer that is zero
-// before the first call; `counts` is zero again after every call.
+// before the first call: four words, then the arrays.  `ticket` is zero
+// again after every call; the node table holds the last call's run words
+// and `bin` its slots, for the next call.
 struct NodeBins {
-  float4* rec;    // [P] wrapped position and cell id (bits), vertex order
-  float4* rec_s;  // [P] the records in bin order
-  int* counts;    // [N] live vertices per node (N = X*Y*Z)
-  int* starts;    // [N + 1] the start of each node's run; starts[N] that of
-                  // the dead, the virtual bin N
-  int* bin;       // [P] the node of each vertex, N for the dead
-  int* slot;      // [P] its place in its run in the order of the atomics
-  int* tmp;       // [P] the live vertices placed at their slots
-  int* order;     // [P] bin order -> vertex (stable)
-  int* tile_sum;  // [ceil(N / SCAN_TILE)]
-  int* dead;      // [ceil(P / NODE_THREADS)] dead vertices per block, then
-                  // the dead of the blocks before
+  int* n_live;        // [1] live vertices of the last call: the first dead's rank
+  int* n_bins;        // [1] nodes the last call occupied
+  unsigned* ticket;   // [1] tile-sum blocks done
+  float4* rec;        // [P] wrapped position and cell id (bits), vertex order
+                      // (after a fourth word: 16-byte aligned, as are rec_s)
+  float4* rec_s;      // [P] the records in bin order
+  unsigned* words;    // [node_slots(X, Y, Z)] the node table, in bricks
+  int* bin;           // [P] the slot of each vertex's node, -1 for the dead
+  int* link;          // [P] the next vertex + 1 of its node's list, 0 at the end
+  int* rnk;           // [P] the slot a vertex left (-1: none), then a live
+                      // vertex's stable rank in its run
+  int* lead;          // [P] the leader (lowest vertex) of its run
+  int* tmp;           // [P] a leader's run length, then its first rank
+  int* order;         // [P] bin order -> vertex (stable within a run)
+  int* tile_sum;      // [ceil(P / NODE_THREADS)] live vertices of the runs a
+                      // block leads, then the first rank of the block's runs
+  int* tile_bins;     // [ceil(P / NODE_THREADS)] runs a block leads
+  int* dead;          // [ceil(P / NODE_THREADS)] dead vertices per block, then
+                      // the dead of the blocks before
 };
 
-constexpr int NODE_THREADS = 256;   // vertices a counting or placing block takes
-constexpr int SCAN_THREADS = 1024;  // threads of a scan block, 4 nodes each
-constexpr int SCAN_TILE = 4 * SCAN_THREADS;
+constexpr int NODE_THREADS = 256;  // vertices a block of the node bins takes
 
 Tiles gather_tiles(int X, int Y, int Z);
 long long tile_bins_ints(int P, int X, int Y, int Z);
@@ -194,8 +237,8 @@ int tile_bins_count_records(const float4* rec, int P, int X, int Y, int Z, const
 
 long long node_bins_ints(int P, int X, int Y, int Z);
 NodeBins node_bins_carve(int* scratch, int P, int X, int Y, int Z);
-// The node bins of the unwrapped positions: records, starts [N + 1], the
-// stable order and the records in it.  Six launches.
+// The node bins of the unwrapped positions: records, the run words, the
+// order and the records in it.  Six launches.
 int node_bins(const float* pos, const int* gid, const float* active, int P, int X, int Y, int Z,
               const NodeBins& nb, cudaStream_t s);
 
@@ -213,6 +256,28 @@ int tile_gather(const float4* rec, const TileBins& tb, float* out, int X, int Y,
                 const Tiles& t, const BodyForce& bf, cudaStream_t s);
 
 // ---- device helpers ------------------------------------------------------
+
+// A run word: first rank << RUN_LEN_BITS | min(length, 31), nonzero for a
+// run of one vertex or more; first ranks below 2^26.
+constexpr int RUN_LEN_BITS = 5;
+
+__device__ __forceinline__ unsigned run_word(int start, int len) {
+  return (unsigned)start << RUN_LEN_BITS | (unsigned)min(len, (1 << RUN_LEN_BITS) - 1);
+}
+
+// A list head's mark; run words lie below it (first ranks below 2^26).
+constexpr unsigned HEAD_BIT = 0x80000000u;
+
+// Words of the node table: bricks of 2 x 2 x 2 nodes, 8 words each.
+__host__ __device__ __forceinline__ long long node_slots(int X, int Y, int Z) {
+  return 8LL * ((X + 1) / 2) * ((Y + 1) / 2) * ((Z + 1) / 2);
+}
+
+// The slot of node (x, y, z) in the table.
+__device__ __forceinline__ int node_slot(int x, int y, int z, int Y, int Z) {
+  return ((((x >> 1) * ((Y + 1) >> 1) + (y >> 1)) * ((Z + 1) >> 1) + (z >> 1)) << 3) |
+         (x & 1) << 2 | (y & 1) << 1 | (z & 1);
+}
 
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -253,9 +318,11 @@ __device__ __forceinline__ int slab_of(float x, int X) {
 }
 
 // The nearest node along one axis of a wrapped coordinate in [0, L]:
-// remainder(floor(p + 0.5), L), as cells/repulsion.py computes it.
+// remainder(floor(p + 0.5), L), as cells/repulsion.py computes it.  The
+// floor lies in [0, L] (a NaN converts to 0), so one subtraction wraps it:
+// no integer remainder, which the pairs would take three times a run.
 __device__ __forceinline__ int nearest_node(float p, int L) {
-  return wrap_idx((int)floorf(p + 0.5f), L);
+  return wrap_once((int)floorf(p + 0.5f), L);
 }
 
 // The base node of the stencil at a wrapped position (in [0, n]: n is 0).

@@ -6,7 +6,7 @@
 //   wrapper).  Computes exactly
 //   repulsion.repulsion_forces(pos, cell_gid, active, shape, k, cutoff) of
 //   hemocell_tpu_torch/cells/repulsion.py, the plain version: minimum image
-//   in all three axes, the first `cap` vertices (in stable sorted order) of
+//   in all three axes, the first `cap` vertices (in vertex order) of
 //   each of the 27 bins around the vertex's nearest node, dead vertices in
 //   no pair.  The TPU kernel's dropped y/z face-wrap pairs are not
 //   reproduced.
@@ -14,19 +14,20 @@
 // Bound on the H100: bytes.  The function reads 20 B per vertex (position,
 //   cell id, activity) and writes 12 B; per candidate pair it does ~25
 //   flops, a few tens of pairs per vertex in a dense suspension, far below
-//   the card's f32 balance point.  In practice the binning's passes over
-//   the X*Y*Z node table, and the 27 bin lookups and scattered candidate
-//   loads per vertex, set the time.
+//   the card's f32 balance point.  In practice the 27 run-word lookups and
+//   the scattered candidate loads per vertex set the time.
 //
 // Design: one ctypes call, seven launches.  The node bins of csrc/bin_nodes.cu
-//   (a stable counting sort on the card, design in binned.cuh) leave the
-//   records -- wrapped position and cell id as one float4 -- in bin order,
-//   so a bin's members are one contiguous run and the three z-neighbour
-//   bins of a row are adjacent runs.  Then one thread per sorted record:
-//   neighbouring threads hold the same or neighbouring nodes and read the
-//   same runs (L1 hits).  Each thread walks its 27 bins in the fixed order
-//   ox, oy, oz, then rank (the three bounds of a row loaded together), and
-//   writes its own sum: no atomics, the result repeats bit for bit.  The
+//   (a counting sort on the card, design in binned.cuh) leave the records --
+//   wrapped position and cell id as one float4 -- in bin order, so a bin's
+//   members are one contiguous run, and at each node one 32-bit word, its
+//   run's first rank and length (at most 31, which bounds `cap`), zero at
+//   every node with no live vertex in this call.  Then one thread per
+//   sorted record: neighbouring threads hold the same or neighbouring
+//   nodes and read the same runs (L1 hits).  Each thread walks its 27 bins
+//   in the fixed order ox, oy, oz, then rank (the three words of a row
+//   loaded together), and writes its own sum: no atomics, the result
+//   repeats bit for bit.  The
 //   minimum image divides only where a difference exceeds half the box,
 //   the square root only where d^2 is near the cutoff: the arithmetic of
 //   the plain version, without its work on the far candidates.  Measured
@@ -51,7 +52,7 @@ __global__ void __launch_bounds__(PAIR_THREADS)
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= P) return;
   const int i = nb.order[t];
-  if (t >= nb.starts[X * Y * Z]) {  // dead vertex: no force
+  if (t >= *nb.n_live) {  // dead vertex: no force
     out[3 * (long long)i] = 0.f;
     out[3 * (long long)i + 1] = 0.f;
     out[3 * (long long)i + 2] = 0.f;
@@ -71,12 +72,12 @@ __global__ void __launch_bounds__(PAIR_THREADS)
     int bx = nx + ox; bx = bx < 0 ? bx + X : (bx >= X ? bx - X : bx);
     for (int oy = -1; oy <= 1; ++oy) {
       int by = ny + oy; by = by < 0 ? by + Y : (by >= Y ? by - Y : by);
-      const int row = (bx * Y + by) * Z;
       int s[3], e[3];  // the row's three runs, their loads in flight together
 #pragma unroll
       for (int oz = 0; oz < 3; ++oz) {
-        s[oz] = __ldg(nb.starts + row + zs[oz]);
-        e[oz] = min(__ldg(nb.starts + row + zs[oz] + 1), s[oz] + cap);
+        const unsigned w = __ldg(nb.words + node_slot(bx, by, zs[oz], Y, Z));
+        s[oz] = (int)(w >> RUN_LEN_BITS);
+        e[oz] = s[oz] + min((int)(w & ((1u << RUN_LEN_BITS) - 1u)), cap);
       }
 #pragma unroll
       for (int oz = 0; oz < 3; ++oz) {
@@ -121,10 +122,14 @@ int pairs(const NodeBins& nb, const float* active, float* out, float k_rep, floa
 }  // namespace hc
 
 // The whole of K5: the node bins, then the pair sums.  `scratch` holds
-// hc_node_bins_ints(P, X, Y, Z) int32 words, zero before the first call.
+// hc_node_bins_ints(P, X, Y, Z) int32 words, zero before the first call and
+// kept from call to call at these P and shape (each call clears the node
+// words of the last one that it does not rewrite).  cap <= 31, P <= 2^26.
 extern "C" int hc_repulsion(const void* pos, const void* gid, const void* active, void* out,
                             float k_rep, float cutoff, int cap, void* scratch, int P, int X,
                             int Y, int Z, void* stream) {
+  if (cap < 0 || cap >= (1 << hc::RUN_LEN_BITS) || P > (1 << (31 - hc::RUN_LEN_BITS)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const hc::NodeBins nb = hc::node_bins_carve((int*)scratch, P, X, Y, Z);
   int err = hc::node_bins((const float*)pos, (const int*)gid, (const float*)active, P, X, Y, Z,
@@ -139,6 +144,7 @@ extern "C" int hc_repulsion(const void* pos, const void* gid, const void* active
 extern "C" int hc_repulsion_pairs(const void* active, void* out, float k_rep, float cutoff,
                                   int cap, void* scratch, int P, int X, int Y, int Z,
                                   void* stream) {
+  if (cap < 0 || cap >= (1 << hc::RUN_LEN_BITS)) return (int)cudaErrorInvalidValue;
   const hc::NodeBins nb = hc::node_bins_carve((int*)scratch, P, X, Y, Z);
   return hc::pairs(nb, (const float*)active, (float*)out, k_rep, cutoff, cap, P, X, Y, Z,
                    (cudaStream_t)stream);

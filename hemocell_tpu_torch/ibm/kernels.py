@@ -33,8 +33,11 @@ _SCRATCH = {}
 def scratch(entry, device, P, shape, n_records=0):
     """The scratch of a binned kernel call, allocated once per entry,
     device and shape and kept: int32 words (``_build``'s size entry
-    ``entry``), zero at first and left zero by every call, and float4
-    records (as f32 [4 * n_records])."""
+    ``entry``), zero at first, and float4 records (as f32 [4 *
+    n_records]).  Every call leaves its counters zero; K5's node bins
+    (``hc_node_bins_ints``) also keep their last call's run words and each
+    vertex's node, and the next call at the same P and shape clears the
+    words it does not rewrite (``csrc/binned.cuh``)."""
     key = (entry, device, P, tuple(shape))
     found = _SCRATCH.get(key)
     if found is None:
@@ -43,6 +46,15 @@ def scratch(entry, device, P, shape, n_records=0):
                  torch.empty(4 * max(n_records, 1), dtype=torch.float32, device=device))
         _SCRATCH[key] = found
     return found
+
+
+def kept_scratch(entry, P, shape):
+    """The int32 words ``scratch`` keeps for ``entry``, P and shape, on
+    whichever device they were made; None where it made none."""
+    for (e, _, p, shp), (ints, _) in _SCRATCH.items():
+        if (e, p, shp) == (entry, P, tuple(shape)):
+            return ints
+    return None
 
 
 def check_nodes(shape, name):

@@ -2,10 +2,16 @@
 ``repulsion_forces_binned``, the plain versions of ``csrc/bin_nodes.cu`` and
 ``csrc/repulsion.cu``) on the CPU.
 
-- The node bins equal a stable ``torch.sort`` of the bin ids and the
-  ``searchsorted`` starts exactly, on vertex sets with an overfull node (more
-  than BIN_CAPACITY vertices of several cells), dead cells, positions off by
-  whole box lengths and coordinates at exactly k + 0.5 and at -1e-7.
+- The node bins hold each node's run of a stable ``torch.sort`` of the bin
+  ids, the dead last, and their layout (runs in the order of their lowest
+  vertices, the dead in vertex order) equals one built by hand in numpy,
+  exactly, on vertex sets with an overfull node (more than BIN_CAPACITY
+  vertices of several cells), dead cells, positions off by whole box
+  lengths and coordinates at exactly k + 0.5 and at -1e-7.
+- The forces through those bins equal, bit for bit, the forces through the
+  runs in node order (the stable sort's layout) and through the runs placed
+  at random: a vertex's candidate sum depends on no run's place; and the
+  same summed a few vertices at a time.
 - The forces through those bins, summed in the kernel's order, equal
   ``repulsion_forces`` to 1e-12 of max|F| in f64 (the two differ only in the
   order of the candidate sum) and to 1e-5 of max|F| in f32 (sums of up to
@@ -73,17 +79,76 @@ def _torch(pos, gid, active, dtype):
             torch.tensor(active, dtype=dtype))
 
 
+def _stable_sort_bins(bin_id, N):
+    """The runs in node order: order and [N, 2] runs from a stable
+    ``torch.sort`` of the bin ids and ``searchsorted``."""
+    sorted_bins, order = torch.sort(bin_id, stable=True)
+    start = torch.searchsorted(sorted_bins, torch.arange(N + 1, dtype=torch.long))
+    length = start[1:] - start[:-1]
+    runs = torch.stack([torch.where(length > 0, start[:-1], 0), length], dim=1)
+    return order, runs
+
+
+def _numpy_bins(pos, active, dtype):
+    """The node bins built by hand in numpy: each vertex's nearest node, the
+    nodes in the order of their first live vertex, each node's live vertices
+    in vertex order, then the dead in vertex order.  (order, runs [N, 2],
+    bin id [P]; the dead in bin N)."""
+    L = np.array(SHAPE)
+    p = np.asarray(pos, dtype)
+    node = np.remainder(np.floor(np.remainder(p, L.astype(dtype)) + dtype(0.5)).astype(np.int64),
+                        L)
+    N = int(np.prod(SHAPE))
+    bin_id = np.where(np.asarray(active) > 0,
+                      (node[:, 0] * SHAPE[1] + node[:, 1]) * SHAPE[2] + node[:, 2], N)
+    members = {}  # insertion order: that of the nodes' first live vertices
+    for v, b in enumerate(bin_id.tolist()):
+        if b != N:
+            members.setdefault(b, []).append(v)
+    order, runs = [], np.zeros((N, 2), np.int64)
+    for b, vs in members.items():
+        runs[b] = (len(order), len(vs))
+        order += vs
+    order += [v for v, b in enumerate(bin_id.tolist()) if b == N]
+    return np.array(order, np.int64), runs, bin_id
+
+
+def _random_bins(bin_id, N, seed):
+    """The same runs placed at random, in a seeded order, then the dead in
+    vertex order (the dead last, as K5 places them)."""
+    rng = np.random.default_rng(seed)
+    ids = bin_id.numpy()
+    groups = [np.flatnonzero(ids == b) for b in np.unique(ids[ids < N])]  # vertex order
+    order, runs = [], np.zeros((N, 2), np.int64)
+    for g in rng.permutation(len(groups)):
+        runs[int(ids[groups[g][0]])] = (len(order), len(groups[g]))
+        order += groups[g].tolist()
+    order += np.flatnonzero(ids == N).tolist()
+    return torch.tensor(order), torch.tensor(runs)
+
+
+NP_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_node_bins_equal_stable_sort(seed, dtype):
+    """Each node's run holds the vertices of its run in a stable
+    ``torch.sort`` of the bin ids, the dead come last in the same order,
+    and a node without a live vertex reads (0, 0)."""
     pos, gid, active = _vertices(seed)
     p, _, a = _torch(pos, gid, active, dtype)
-    order, bin_start, bin_id = trep.node_bins(p, a, SHAPE)
+    order, runs, bin_id = trep.node_bins(p, a, SHAPE)
     N = int(np.prod(SHAPE))
     sorted_bins, ref_order = torch.sort(bin_id, stable=True)
     ref_start = torch.searchsorted(sorted_bins, torch.arange(N + 1, dtype=torch.long))
-    assert torch.equal(order, ref_order)
-    assert torch.equal(bin_start, ref_start)
+    assert torch.equal(torch.sort(order)[0], torch.arange(len(pos)))
+    assert torch.equal(runs[:, 1], ref_start[1:] - ref_start[:-1])
+    assert torch.all(runs[runs[:, 1] == 0] == 0)
+    for b in torch.nonzero(runs[:, 1]).flatten().tolist():
+        first, length = runs[b].tolist()
+        assert torch.equal(order[first:first + length], ref_order[ref_start[b]:ref_start[b + 1]])
+    assert torch.equal(order[int(ref_start[N]):], ref_order[int(ref_start[N]):])
     # the inputs are what the test is for
     counts = torch.bincount(bin_id, minlength=N + 1)
     crowd = (6 * SHAPE[1] + 5) * SHAPE[2] + 4
@@ -97,6 +162,56 @@ def test_node_bins_equal_stable_sort(seed, dtype):
     assert node(50) == (4, 5, 3)  # k + 0.5 rounds up
     assert node(51) == (0, 0, 0)  # -1e-7 wraps onto the box length: node 0
     assert node(293) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_node_bins_layout_matches_numpy(seed, dtype):
+    """``node_bins`` equals the layout built by hand in numpy, exactly: the
+    bin ids, the order and every node's run."""
+    pos, gid, active = _vertices(seed)
+    p, _, a = _torch(pos, gid, active, dtype)
+    order, runs, bin_id = trep.node_bins(p, a, SHAPE)
+    ref_order, ref_runs, ref_bin = _numpy_bins(pos, active, NP_DTYPE[dtype])
+    np.testing.assert_array_equal(bin_id.numpy(), ref_bin)
+    np.testing.assert_array_equal(order.numpy(), ref_order)
+    np.testing.assert_array_equal(runs.numpy(), ref_runs)
+    # the runs do not lie in node order, so this layout is not the stable sort's
+    assert not torch.equal(order, torch.sort(bin_id, stable=True)[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("layout", ["stable_sort", "random0", "random1", "random2"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_binned_forces_independent_of_layout(seed, layout, dtype, monkeypatch):
+    """``repulsion_forces_binned`` through the node bins equals, bit for bit,
+    the same sum through the runs in node order (the layout K5 had before)
+    and through the runs placed at random (``node_bins`` patched to return
+    them)."""
+    pos, gid, active = _vertices(seed)
+    args = _torch(pos, gid, active, dtype)
+    N = int(np.prod(SHAPE))
+    out = trep.repulsion_forces_binned(*args, SHAPE, K_REP, CUTOFF)
+    order, runs, bin_id = trep.node_bins(args[0], args[2], SHAPE)
+    if layout == "stable_sort":
+        other = _stable_sort_bins(bin_id, N)
+    else:
+        other = _random_bins(bin_id, N, int(layout[-1]) + 10 * seed)
+    assert not (torch.equal(other[0], order) and torch.equal(other[1], runs))
+    monkeypatch.setattr(trep, "node_bins", lambda *_: (*other, bin_id))
+    moved = trep.repulsion_forces_binned(*args, SHAPE, K_REP, CUTOFF)
+    assert int((out.abs().sum(dim=1) > 0).sum()) > 50
+    assert torch.equal(out, moved)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_binned_forces_in_chunks(dtype, monkeypatch):
+    """The sum over chunks of 7 vertices equals the sum in one chunk, bit
+    for bit."""
+    args = _torch(*_vertices(0), dtype)
+    whole = trep.repulsion_forces_binned(*args, SHAPE, K_REP, CUTOFF)
+    monkeypatch.setattr(trep, "_ROWS", 7)
+    assert torch.equal(trep.repulsion_forces_binned(*args, SHAPE, K_REP, CUTOFF), whole)
 
 
 @pytest.mark.parametrize("cap", [trep.BIN_CAPACITY, 16])
@@ -175,8 +290,8 @@ def test_plain_k5_matches_pallas_interpret(seed):
 
 def test_no_vertex():
     empty = torch.zeros((0, 3), dtype=torch.float64)
-    order, bin_start, _ = trep.node_bins(empty, torch.zeros(0, dtype=torch.float64), SHAPE)
-    assert order.numel() == 0 and torch.equal(bin_start, torch.zeros(961, dtype=torch.long))
+    order, runs, _ = trep.node_bins(empty, torch.zeros(0, dtype=torch.float64), SHAPE)
+    assert order.numel() == 0 and torch.equal(runs, torch.zeros((960, 2), dtype=torch.long))
     out = trep.repulsion_forces_binned(empty, torch.zeros(0, dtype=torch.int32),
                                        torch.zeros(0, dtype=torch.float64), SHAPE, K_REP,
                                        CUTOFF)
